@@ -1,0 +1,132 @@
+"""Fixed-capacity active-set state (port of ``repro.core.active_set``).
+
+The active set is a capacity-``k_max`` buffer of feature indices plus a
+validity mask, with the compact sweep order (``order``: live slots first,
+in insertion-stable order) maintained incrementally by ADD/DEL. Slot
+arithmetic is integer-exact, so the port's slots equal the reference's.
+
+Index tensors are int64 (torch's native index type); the reference keeps
+them int32. Out-of-range scatters, which the reference drops with
+``mode="drop"``, are filtered out before they are written here.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+Tensor = torch.Tensor
+
+
+class ActiveSet(NamedTuple):
+    idx: Tensor         # int64 (k_max,) feature ids; padding slots hold 0
+    mask: Tensor        # bool  (k_max,) slot validity
+    beta: Tensor        # float (k_max,) coefficients (0 on padding)
+    in_active: Tensor   # bool  (p,)     global membership mask
+    overflowed: bool    # an ADD ran out of slots
+    order: Tensor       # int64 (k_max,) slot permutation, live slots first
+    count: int          # number of live slots (= sum(mask))
+
+
+def compact_order(order: Tensor, mask: Tensor) -> Tensor:
+    """Stable partition of ``order`` by slot liveness — live slots first."""
+    live = mask[order]
+    live_i = live.long()
+    dead_i = 1 - live_i
+    n_live = live_i.sum()
+    rank_live = torch.cumsum(live_i, 0) - live_i
+    rank_dead = torch.cumsum(dead_i, 0) - dead_i
+    pos = torch.where(live, rank_live, n_live + rank_dead)
+    return torch.zeros_like(order).index_put_((pos,), order)
+
+
+def init_active_set(p: int, k_max: int, init_idx: Tensor, dtype,
+                    init_beta: Tensor | None = None,
+                    live_mask: Tensor | None = None) -> ActiveSet:
+    """Seed the buffer with ``init_idx``: either (m,) ids in the first m
+    slots (``live_mask`` None) or (k_max,) slot buffers whose live slots
+    ``live_mask`` flags in place."""
+    dev = init_idx.device
+    if live_mask is None:
+        m = init_idx.shape[0]
+        idx = torch.zeros(k_max, dtype=torch.long, device=dev)
+        idx[:m] = init_idx
+        mask = torch.zeros(k_max, dtype=torch.bool, device=dev)
+        mask[:m] = True
+        beta = torch.zeros(k_max, dtype=dtype, device=dev)
+        if init_beta is not None:
+            beta[:m] = init_beta.to(dtype)
+        in_active = torch.zeros(p, dtype=torch.bool, device=dev)
+        in_active[init_idx.long()] = True
+        order = torch.arange(k_max, device=dev)
+        count = m
+    else:
+        mask = live_mask.to(torch.bool)
+        idx = torch.where(mask, init_idx.long(), 0)
+        beta = (torch.where(mask, init_beta.to(dtype), 0.0)
+                if init_beta is not None
+                else torch.zeros(k_max, dtype=dtype, device=dev))
+        in_active = torch.zeros(p, dtype=torch.bool, device=dev)
+        in_active[idx[mask]] = True
+        order = compact_order(torch.arange(k_max, device=dev), mask)
+        count = int(mask.sum())
+    return ActiveSet(idx, mask, beta, in_active, overflowed=False,
+                     order=order, count=count)
+
+
+def gather_columns(X: Tensor, aset: ActiveSet) -> Tensor:
+    """(n, k_max) active design block; padded columns zeroed."""
+    return torch.where(aset.mask[None, :], X[:, aset.idx], 0.0)
+
+
+def delete_features(aset: ActiveSet, drop_slot_mask: Tensor) -> ActiveSet:
+    """DEL: clear slots flagged in ``drop_slot_mask`` (bool (k_max,))."""
+    drop = drop_slot_mask & aset.mask
+    new_mask = aset.mask & ~drop
+    new_beta = torch.where(drop, 0.0, aset.beta)
+    new_in_active = aset.in_active.clone()
+    new_in_active[aset.idx[drop]] = False
+    return aset._replace(mask=new_mask, beta=new_beta,
+                         in_active=new_in_active,
+                         order=compact_order(aset.order, new_mask),
+                         count=aset.count - int(drop.sum()))
+
+
+def add_features(aset: ActiveSet, cand_idx: Tensor,
+                 cand_keep: Tensor) -> ActiveSet:
+    """ADD: scatter kept candidates (descending score order) into free
+    slots, the c-th kept candidate into the c-th free slot."""
+    k_max = aset.mask.shape[0]
+    free = ~aset.mask
+    free_i = free.long()
+    free_rank = torch.cumsum(free_i, 0) - free_i
+    n_free = free_i.sum()
+    keep_i = cand_keep.long()
+    cand_rank = torch.cumsum(keep_i, 0) - keep_i
+    n_want = keep_i.sum()
+    placed = cand_keep & (cand_rank < n_free)
+
+    order_key = torch.where(free, free_rank, k_max + 1)
+    slot_of_rank = torch.argsort(order_key, stable=True)
+    target_slot = slot_of_rank[torch.clamp(cand_rank, 0, k_max - 1)]
+    slots = target_slot[placed]
+    ids = cand_idx[placed].long()
+
+    new_idx = aset.idx.clone()
+    new_idx[slots] = ids
+    new_mask = aset.mask.clone()
+    new_mask[slots] = True
+    new_beta = aset.beta.clone()
+    new_beta[slots] = 0.0
+    new_in_active = aset.in_active.clone()
+    new_in_active[ids] = True
+    return ActiveSet(new_idx, new_mask, new_beta, new_in_active,
+                     overflowed=aset.overflowed or bool(n_want > n_free),
+                     order=compact_order(aset.order, new_mask),
+                     count=aset.count + int(placed.sum()))
+
+
+def scatter_beta(aset: ActiveSet, p: int) -> Tensor:
+    """Inflate the compact beta back to (p,) (Algorithm 1 last line)."""
+    out = torch.zeros(p, dtype=aset.beta.dtype, device=aset.beta.device)
+    return out.index_add_(0, aset.idx[aset.mask], aset.beta[aset.mask])

@@ -1,0 +1,126 @@
+"""Cyclic coordinate minimization, in torch (port of ``repro.core.cm``).
+
+The coordinate step of every sweep is the reference's
+prox-Newton-majorized step with per-coordinate Lipschitz L_j = alpha ||x_j||^2
+    beta_j <- S(beta_j - x_j^T f'(z) / L_j,  lam / L_j)
+(for least squares the exact minimizer), with the model vector z = Xa beta
+maintained by rank-1 updates. :func:`gram_epochs` is the covariance-update
+form for least squares: it maintains qr = G beta - rho on the active-block
+Gram matrix, so every step is O(k_max) instead of O(n).
+
+These loops are the plain versions the CUDA burst kernel is held against,
+and they run on whichever device holds the tensors. A cyclic sweep is a
+chain of dependent scalar steps, so each step here reads its one scalar
+(the correlation or the Gram residual) to the host, does the
+soft-threshold in Python floats (IEEE double, the arithmetic of a float64
+tensor op), and applies the rank-1 update as one tensor op. On a card that
+is one synchronisation per coordinate step, which is why the solver
+reaches for the kernel there.
+"""
+from __future__ import annotations
+
+import math
+from typing import List, Tuple
+
+import torch
+
+from repro_torch.core.losses import Loss
+
+Tensor = torch.Tensor
+
+
+def soft_threshold(x: Tensor, t) -> Tensor:
+    return torch.sign(x) * torch.clamp(torch.abs(x) - t, min=0.0)
+
+
+def _soft_threshold_f(u: float, t: float) -> float:
+    """Scalar :func:`soft_threshold`: sign(u) * max(|u| - t, 0)."""
+    a = abs(u) - t
+    return math.copysign(a, u) if a > 0.0 else 0.0
+
+
+def _coordinate_step(loss: Loss, Xa: Tensor, y: Tensor, live: bool,
+                     lam: float, lj: float, j: int, beta: List[float],
+                     z: Tensor) -> None:
+    """One prox coordinate update of slot ``j``, in place: ``beta`` is a
+    host list of coefficients, ``z`` the model vector on the device."""
+    xj = Xa[:, j]
+    g = float(torch.dot(xj, loss.grad(z, y)))
+    bj = beta[j]
+    b_new = _soft_threshold_f(bj - g / lj, lam / lj) if live else 0.0
+    if b_new != bj:
+        z.add_(xj, alpha=b_new - bj)
+    beta[j] = b_new
+
+
+def cm_sweeps(loss: Loss, Xa: Tensor, y: Tensor, beta: Tensor, z: Tensor,
+              mask: Tensor, lam, col_sq: Tensor, order: Tensor, count: int,
+              n_epochs: int) -> Tuple[Tensor, Tensor]:
+    """``n_epochs`` compact sweeps over the ``count`` live slots listed
+    first in ``order``, with the per-slot squared norms ``col_sq`` given.
+    Shared by :func:`cm_epochs_compact` and the plain CM burst."""
+    sched = order[:int(count)].tolist()
+    live = mask.tolist()
+    lj = torch.clamp(loss.smoothness * col_sq, min=1e-30).tolist()
+    lam_f = float(lam)
+    b = beta.tolist()
+    z = z.clone()
+    for _ in range(int(n_epochs)):
+        for j in sched:
+            _coordinate_step(loss, Xa, y, live[j], lam_f, lj[j], j, b, z)
+    return torch.tensor(b, dtype=beta.dtype, device=beta.device), z
+
+
+def cm_epochs_compact(loss: Loss, Xa: Tensor, y: Tensor, beta: Tensor,
+                      z: Tensor, mask: Tensor, lam, order: Tensor, count,
+                      n_epochs) -> Tuple[Tensor, Tensor]:
+    """``n_epochs`` compact sweeps (the reference's jnp inner burst)."""
+    col_sq = torch.sum(Xa * Xa, dim=0)
+    return cm_sweeps(loss, Xa, y, beta, z, mask, lam, col_sq, order, count,
+                     n_epochs)
+
+
+def gram_epochs(G: Tensor, rho: Tensor, beta: Tensor, mask: Tensor, lam,
+                order: Tensor, count, n_epochs,
+                smoothness: float = 1.0) -> Tensor:
+    """Covariance-update CM sweeps (least squares): every step reads
+    qr_j = (G beta - rho)_j and updates qr by one Gram-column axpy.
+    ``G`` must hold x_s^T x_t for every pair of live slots. Returns the
+    updated beta (the caller rebuilds z once per burst)."""
+    inv_l = 1.0 / torch.clamp(smoothness * torch.diagonal(G), min=1e-30)
+    thr = (lam * inv_l).tolist()
+    inv_l = inv_l.tolist()
+    qr = G @ beta - rho
+    sched = order[:int(count)].tolist()
+    live = mask.tolist()
+    b = beta.tolist()
+    for _ in range(int(n_epochs)):
+        for j in sched:
+            bj = b[j]
+            b_new = (_soft_threshold_f(bj - float(qr[j]) * inv_l[j], thr[j])
+                     if live[j] else 0.0)
+            if b_new != bj:
+                qr.add_(G[:, j], alpha=b_new - bj)
+            b[j] = b_new
+    return torch.tensor(b, dtype=beta.dtype, device=beta.device)
+
+
+def solve_lasso_cm(loss: Loss, X: Tensor, y: Tensor, lam: float,
+                   tol: float = 1e-9, max_epochs: int = 100_000) -> Tensor:
+    """Unscreened full LASSO solve to duality gap <= tol (the "No Scr."
+    baseline and the oracle of the tests)."""
+    from repro_torch.core.duality import duality_gap, feasible_dual
+
+    p = X.shape[1]
+    mask = torch.ones(p, dtype=torch.bool, device=X.device)
+    order = torch.arange(p, device=X.device)
+    beta = torch.zeros(p, dtype=X.dtype, device=X.device)
+    z = torch.zeros_like(y)
+    for _ in range(max_epochs):
+        beta, z = cm_epochs_compact(loss, X, y, beta, z, mask, lam, order,
+                                    p, 1)
+        hat = -loss.grad(z, y) / lam
+        theta = feasible_dual(loss, X, y, hat, lam)
+        if float(duality_gap(loss, X, y, beta, theta, lam)) <= tol:
+            break
+    return beta

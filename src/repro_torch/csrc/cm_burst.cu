@@ -1,0 +1,264 @@
+// SAIF inner CM burst for Hopper (sm_90a), plain C interface for ctypes.
+//
+// K3 cm_burst — replaces repro/kernels/cm/cm.py:355 cm_burst_pallas, its
+//    plain-LASSO specialisation (has_unpen=False: every slot penalized).
+//    n_epochs cyclic prox-Newton sweeps over the first `count` slots of
+//    `order` on the active block, z = A beta kept by rank-1 updates; then a
+//    fresh z = A beta, the feasible dual point theta (LS: the tau* scaling;
+//    logistic: rescale + dom f* clip) and the primal-dual gap.
+//    Bound on this card: the sweep is count * n_epochs dependent coordinate
+//    steps, each a length-n dot product, a scalar soft-threshold and a
+//    length-n axpy. Its bytes (one column of A from L2 per step, a few MB
+//    per burst) and flops (~4n per step) are tiny; what bounds it is the
+//    latency of one block reduction plus one L2 round trip per step.
+//    Design: one CTA owns the burst. y, z and the dual workspace (n each)
+//    and beta, col_sq, order, mask (k each) sit in shared memory; the
+//    block is passed transposed, A^T (k, n) contiguous, so column j is one
+//    coalesced row read from L2 (an n = 1000, k = 1024 f64 block is 8 MB,
+//    well inside the 50 MB L2). Each step: every thread forms its part of
+//    a_j . f'(z, y) over its rows, a warp-shuffle + shared-memory reduction
+//    (double buffered by step parity, so one barrier per step suffices)
+//    leaves the same sum in every thread, every thread computes the same
+//    soft-threshold, and each thread updates its own rows of z. A
+//    multi-CTA or cluster design that splits n is work for a later change.
+#include <cuda_runtime.h>
+#include <math_constants.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int NT = 256;            // threads of the one CTA
+constexpr int NW = NT / 32;
+constexpr int LS = 0, LOGIT = 1;
+
+template <typename T> struct Num;
+template <> struct Num<float> {
+  static __device__ __forceinline__ float exp(float x) { return expf(x); }
+  static __device__ __forceinline__ float log(float x) { return logf(x); }
+  static __device__ __forceinline__ float log1p(float x) { return log1pf(x); }
+  static __device__ __forceinline__ bool finite(float x) { return isfinite(x); }
+};
+template <> struct Num<double> {
+  static __device__ __forceinline__ double exp(double x) { return ::exp(x); }
+  static __device__ __forceinline__ double log(double x) { return ::log(x); }
+  static __device__ __forceinline__ double log1p(double x) { return ::log1p(x); }
+  static __device__ __forceinline__ bool finite(double x) { return isfinite(x); }
+};
+
+template <typename T>
+__device__ __forceinline__ T sigmoid(T x) { return T(1) / (T(1) + Num<T>::exp(-x)); }
+
+template <typename T, int L>
+__device__ __forceinline__ T grad(T z, T y) {
+  if (L == LS) return z - y;
+  return -y * sigmoid<T>(-y * z);
+}
+
+template <typename T, int L>
+__device__ __forceinline__ T value(T z, T y) {
+  if (L == LS) { const T d = z - y; return T(0.5) * d * d; }
+  const T m = -y * z;                                   // logaddexp(0, m)
+  return fmax(T(0), m) + Num<T>::log1p(Num<T>::exp(-fabs(m)));
+}
+
+template <typename T>
+__device__ __forceinline__ T xlogx(T s) { return s > T(0) ? s * Num<T>::log(s) : T(0); }
+
+template <typename T, int L>
+__device__ __forceinline__ T conj(T u, T y) {
+  if (L == LS) return T(0.5) * u * u + u * y;
+  const T s = -u * y;
+  return xlogx(s) + xlogx(T(1) - s);
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// Block sum; every thread gets the same value (summed in the same order).
+// `buf` must not be reused before the next barrier.
+template <typename T>
+__device__ __forceinline__ T block_sum(T v, T* buf) {
+  v = warp_sum(v);
+  if ((threadIdx.x & 31) == 0) buf[threadIdx.x >> 5] = v;
+  __syncthreads();
+  T s = buf[0];
+  for (int i = 1; i < NW; ++i) s += buf[i];
+  return s;
+}
+
+template <typename T, int L>
+__global__ void __launch_bounds__(NT)
+cm_burst_kernel(const T* __restrict__ AT, const T* __restrict__ y,
+                T* __restrict__ beta, const T* __restrict__ col_sq,
+                const uint8_t* __restrict__ mask, const int* __restrict__ order,
+                T lam, int n_epochs, int count, int n, int k,
+                T* __restrict__ z_out, T* __restrict__ theta_out,
+                T* __restrict__ gap_out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* y_s = reinterpret_cast<T*>(smem);
+  T* z_s = y_s + n;
+  T* w_s = z_s + n;                   // unscaled dual point, then theta
+  T* b_s = w_s + n;
+  T* c_s = b_s + k;
+  T* red = c_s + k;                   // 4 * NW reduction slots
+  int* o_s = reinterpret_cast<int*>(red + 4 * NW);
+  uint8_t* m_s = reinterpret_cast<uint8_t*>(o_s + k);
+  const T alpha = (L == LS) ? T(1) : T(0.25);
+  const int tid = threadIdx.x;
+
+  for (int i = tid; i < n; i += NT) y_s[i] = y[i];
+  for (int j = tid; j < k; j += NT) {
+    b_s[j] = beta[j];
+    c_s[j] = col_sq[j];
+    o_s[j] = order[j];
+    m_s[j] = mask[j];
+  }
+  __syncthreads();
+  // z = A beta over the slots with beta != 0 (a zero term adds exactly 0)
+  for (int i = tid; i < n; i += NT) {
+    T acc = T(0);
+    for (int j = 0; j < k; ++j) {
+      const T bj = b_s[j];
+      if (bj != T(0)) acc += AT[(size_t)j * n + i] * bj;
+    }
+    z_s[i] = acc;
+  }
+  __syncthreads();
+
+  int parity = 0;
+  for (int ep = 0; ep < n_epochs; ++ep) {
+    for (int jj = 0; jj < count; ++jj) {
+      const int j = o_s[jj];
+      const T bj = b_s[j];                          // read before the barrier
+      const T* aj = AT + (size_t)j * n;
+      T part = T(0);
+      for (int i = tid; i < n; i += NT) part += aj[i] * grad<T, L>(z_s[i], y_s[i]);
+      const T g = block_sum(part, red + parity * NW);
+      parity ^= 1;
+      const T lj = fmax(alpha * c_s[j], T(1e-30));
+      const T u = bj - g / lj;
+      const T t = lam / lj;
+      const T a = fabs(u) - t;
+      T b_new = a > T(0) ? copysign(a, u) : T(0);
+      if (!m_s[j]) b_new = T(0);
+      b_s[j] = b_new;                               // same value in every thread
+      const T d = b_new - bj;
+      if (d != T(0))
+        for (int i = tid; i < n; i += NT) z_s[i] += d * aj[i];
+    }
+  }
+  __syncthreads();
+
+  // ---- tail: fresh z, dual point, gap ----
+  T part_val = T(0), part_sq = T(0), part_yh = T(0);
+  for (int i = tid; i < n; i += NT) {
+    T acc = T(0);
+    for (int j = 0; j < k; ++j) {
+      const T bj = b_s[j];
+      if (bj != T(0)) acc += AT[(size_t)j * n + i] * bj;
+    }
+    z_s[i] = acc;
+    z_out[i] = acc;
+    const T hat = -grad<T, L>(acc, y_s[i]) / lam;
+    w_s[i] = hat;
+    part_val += value<T, L>(acc, y_s[i]);
+    part_sq += hat * hat;
+    part_yh += y_s[i] * hat;
+  }
+  __syncthreads();
+  // max_j |a_j . hat|: one warp per column
+  const int w = tid >> 5, wl = tid & 31;
+  T mx = T(0);
+  for (int j = w; j < k; j += NW) {
+    const T* aj = AT + (size_t)j * n;
+    T c = T(0);
+    for (int i = wl; i < n; i += 32) c += w_s[i] * aj[i];
+    c = warp_sum(c);
+    mx = fmax(mx, fabs(c));
+  }
+  if (wl == 0) red[2 * NW + w] = mx;
+  T l1 = T(0);
+  for (int j = tid; j < k; j += NT) l1 += fabs(b_s[j]);
+  __syncthreads();
+  T max_corr = red[2 * NW];
+  for (int i = 1; i < NW; ++i) max_corr = fmax(max_corr, red[2 * NW + i]);
+  const T p_val = block_sum(part_val, red) + lam * block_sum(l1, red + NW);
+  __syncthreads();
+  T tau = T(0);                       // LS: theta = tau * hat
+  const T denom = fmax(max_corr, T(1));  // logistic: theta = hat / denom
+  if (L == LS) {
+    const T sq = block_sum(part_sq, red);
+    const T yh = block_sum(part_yh, red + NW);
+    const T bound = T(1) / fmax(max_corr, T(1e-30));
+    const T tau_star = yh / (lam * fmax(sq, T(1e-30)));
+    tau = fmin(fmax(tau_star, -bound), bound);
+    if (!Num<T>::finite(tau)) tau = T(1) / denom;
+  }
+  T part_conj = T(0);
+  for (int i = tid; i < n; i += NT) {
+    T th;
+    if (L == LS) {
+      th = tau * w_s[i];
+    } else {
+      th = w_s[i] / denom;
+      const T yi = y_s[i];
+      T s = -(-lam * th) * yi;
+      s = fmin(fmax(s, T(1e-12)), T(1) - T(1e-12));
+      th = -(-s * yi) / lam;
+    }
+    theta_out[i] = th;
+    part_conj += conj<T, L>(-lam * th, y_s[i]);
+  }
+  __syncthreads();
+  const T d_val = -block_sum(part_conj, red + 2 * NW);
+  for (int j = tid; j < k; j += NT) beta[j] = b_s[j];
+  if (tid == 0) gap_out[0] = p_val - d_val;
+}
+
+// keep in step with kernels/cm/cm.py::cm_smem_bytes
+size_t smem_bytes(int n, int k, size_t itemsize) {
+  return (3 * (size_t)n + 2 * (size_t)k + 4 * NW) * itemsize +
+         (size_t)k * (sizeof(int) + 1);
+}
+
+template <typename T, int L>
+int launch(const void* AT, const void* y, void* beta, const void* col_sq,
+           const void* mask, const void* order, T lam, int n_epochs,
+           int count, int n, int k, void* z, void* theta, void* gap,
+           void* stream) {
+  const size_t smem = smem_bytes(n, k, sizeof(T));
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        cm_burst_kernel<T, L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cm_burst_kernel<T, L><<<1, NT, smem, (cudaStream_t)stream>>>(
+      (const T*)AT, (const T*)y, (T*)beta, (const T*)col_sq,
+      (const uint8_t*)mask, (const int*)order, lam, n_epochs, count, n, k,
+      (T*)z, (T*)theta, (T*)gap);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+#define CM_ENTRY(NAME, T, L)                                                   \
+  int NAME(const void* AT, const void* y, void* beta, const void* col_sq,     \
+           const void* mask, const void* order, T lam, int n_epochs,          \
+           int count, int n, int k, void* z, void* theta, void* gap,          \
+           void* stream) {                                                     \
+    return launch<T, L>(AT, y, beta, col_sq, mask, order, lam, n_epochs,      \
+                        count, n, k, z, theta, gap, stream);                  \
+  }
+
+CM_ENTRY(cm_burst_ls_f32, float, LS)
+CM_ENTRY(cm_burst_ls_f64, double, LS)
+CM_ENTRY(cm_burst_logit_f32, float, LOGIT)
+CM_ENTRY(cm_burst_logit_f64, double, LOGIT)
+
+}  // extern "C"

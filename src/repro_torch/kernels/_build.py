@@ -1,0 +1,114 @@
+"""Build and load the port's CUDA kernels: nvcc into shared libraries with a
+plain C interface, loaded with ctypes.
+
+Each ``csrc/*.cu`` file becomes its own library,
+``build/repro_torch_kernels/lib<name>-<hash>.so`` under the repository
+root, where the hash covers the source and the compiler flags. The first
+call that needs a kernel builds what is missing, one nvcc process per
+source, all started together; later calls, and later processes, load what
+is there. Nothing here runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+SOURCES = ("screen", "cm_burst")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# argument types of every exported function; the float type of a
+# "_f32"/"_f64" entry's scalar is filled in below
+_SIGNATURES = {
+    "screen": {
+        "screen_fused": [_P, _P, _P, _P, None, _I, _I, _I, _I,
+                         _P, _P, _P, _P, _P, _P, _P],
+        "ub_histogram": [_P, _P, _I, _I, _P, _P],
+    },
+    "cm_burst": {
+        "cm_burst_ls": [_P, _P, _P, _P, _P, _P, None, _I, _I, _I, _I,
+                        _P, _P, _P, _P],
+        "cm_burst_logit": [_P, _P, _P, _P, _P, _P, None, _I, _I, _I, _I,
+                           _P, _P, _P, _P],
+    },
+}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on "
+                           "the machine with the card (CUDA toolkit needed)")
+    return path
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256()
+    h.update((CSRC / f"{name}.cu").read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names=SOURCES) -> float:
+    """Compile every missing library among ``names`` in parallel; returns
+    the seconds spent (0.0 when everything was built already)."""
+    todo = [n for n in names if not _lib_path(n).exists()]
+    if not todo:
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    compiler = nvcc()
+    jobs = []
+    for name in todo:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [compiler, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        jobs.append((name, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    errors = []
+    for name, tmp, proc in jobs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            errors.append(f"nvcc failed on {name}.cu:\n{out.decode()}")
+        else:
+            os.replace(tmp, _lib_path(name))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return time.perf_counter() - t0
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    build((name,))
+    lib = ctypes.CDLL(str(_lib_path(name)))
+    for base, args in _SIGNATURES[name].items():
+        for suffix, ftype in (("_f32", ctypes.c_float),
+                              ("_f64", ctypes.c_double)):
+            fn = getattr(lib, base + suffix)
+            fn.argtypes = [ftype if a is None else a for a in args]
+            fn.restype = ctypes.c_int
+    _LIBS[name] = lib
+    return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise on a non-zero cudaError_t from a launch."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} at launch")

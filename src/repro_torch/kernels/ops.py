@@ -1,0 +1,46 @@
+"""Public kernel entry points and the launch counters.
+
+Port of ``repro.kernels.ops``: ``on_cuda()`` takes the place of
+``on_tpu()``. Every wrapper runs its plain version on CPU tensors and its
+CUDA kernel on CUDA tensors.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels.cm.cm import (CM_SMEM_BUDGET_BYTES, cm_burst,
+                                       cm_burst_xt, cm_smem_ok)
+from repro_torch.kernels.cm.ref import cm_burst_ref
+from repro_torch.kernels.screen.ref import (screen_fused_ref,
+                                            screen_scores_ref,
+                                            ub_histogram_ref)
+from repro_torch.kernels.screen.screen import (screen_fused, screen_scores,
+                                               ub_histogram)
+
+# kernel name -> the wrapper whose ``launches`` counts it
+KERNELS = {"screen_fused": screen_fused, "ub_histogram": ub_histogram,
+           "cm_burst": cm_burst_xt}
+
+
+def on_cuda() -> bool:
+    """A Hopper-class card (compute capability 9.x) is present."""
+    return (torch.cuda.is_available()
+            and torch.cuda.get_device_capability(0)[0] == 9)
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+__all__ = ["screen_fused", "screen_scores", "ub_histogram", "cm_burst",
+           "cm_burst_xt", "cm_smem_ok", "CM_SMEM_BUDGET_BYTES",
+           "screen_fused_ref", "screen_scores_ref", "ub_histogram_ref",
+           "cm_burst_ref", "on_cuda", "launch_counts",
+           "reset_launch_counts", "KERNELS"]

@@ -1,0 +1,61 @@
+"""Plain PyTorch versions of the screening kernels.
+
+They compute what the CUDA kernels in ``screen.py`` compute, output for
+output: the CPU path runs them, the tests hold them against the reference
+package, and ``chip_smoke.py`` holds the kernels against them on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+Tensor = torch.Tensor
+
+# columns per CTA of the fused scan kernel = lanes of one top-h tile
+BP = 256
+
+
+def screen_scores_ref(X: Tensor, theta: Tensor, col_norm: Tensor, r):
+    """score = |X^T theta|, ub = score + ||x||r, lb = |score - ||x||r|."""
+    score = torch.abs(theta @ X)
+    nr = col_norm * r
+    return score, score + nr, torch.abs(score - nr)
+
+
+def screen_fused_ref(X: Tensor, theta: Tensor, col_norm: Tensor,
+                     active: Tensor, r, *, h: int):
+    """The fused ADD-phase scan, tile for tile as the kernel lays it out.
+
+    Returns (score, ub, lb) (p,) with active features masked to
+    score = ub = -inf and lb = +inf; per BP-column tile its top
+    ``min(h, BP)`` (score, global id) with ties to the lowest lane, padding
+    lanes counting as active; and per tile the max ub.
+    """
+    p = X.shape[1]
+    score = torch.abs(theta @ X)
+    nr = col_norm * r
+    masked = torch.where(active, -torch.inf, score)
+    ub = masked + nr
+    lb = torch.abs(masked - nr)
+    p_blocks = -(-p // BP)
+    pad = p_blocks * BP - p
+    h_tile = max(1, min(h, BP))
+    ms_t = torch.nn.functional.pad(masked, (0, pad), value=-torch.inf)
+    ub_t = torch.nn.functional.pad(ub, (0, pad), value=-torch.inf)
+    ms_t = ms_t.reshape(p_blocks, BP)
+    tops, lane = torch.sort(ms_t, dim=1, descending=True, stable=True)
+    base = torch.arange(p_blocks, device=X.device)[:, None] * BP
+    topi = (lane[:, :h_tile] + base).to(torch.int32)
+    tmax = ub_t.reshape(p_blocks, BP).amax(dim=1)
+    return masked, ub, lb, tops[:, :h_tile].contiguous(), topi, tmax
+
+
+def ub_histogram_ref(ub: Tensor, lb_sorted: Tensor) -> Tensor:
+    """hist[m] = #{i : #{l : lb_sorted[l] <= ub_i} = m}, m = 0..h, int32.
+
+    The count is the kernel's: a sum of ``<=`` comparisons (-inf counts 0,
+    NaN compares false), which equals searchsorted(lb_sorted, ub, 'right')
+    for every non-NaN ub.
+    """
+    h = lb_sorted.shape[0]
+    c = (lb_sorted[None, :] <= ub[:, None]).sum(dim=1)
+    return torch.bincount(c, minlength=h + 1).to(torch.int32)
