@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive repro_torch's main path on one NVIDIA card and hold its kernels
+"""Drive repro_torch's main paths on one NVIDIA card and hold its kernels
 against their plain PyTorch versions.
 
     python3 chip_smoke.py            # from the repository root
@@ -11,25 +11,38 @@ Phases (each one fails the run by raising):
 2. least squares at full size: the paper's Sec 5.1.1 simulation (X ~
    U[-10, 10], 20% of the betas nonzero in [-1, 1], N(0, 1) noise) at
    n = 1000, p = 100,000, float64, solved three ways — ``auto`` (K1/K2
-   screen + gram inner), ``inner_backend="cuda"`` (K3 on least squares) and
-   ``torch``/``torch`` (the plain path, on the card). Each solve must be
-   certified on the card (gap <= eps, KKT residual <= 1e-3 lam) and all
-   three must find the same support;
+   screen + K3 burst), ``inner_backend="gram"`` (the Gram engine on the
+   card) and ``torch``/``torch`` (the plain path, on the card). Each solve
+   must be certified on the card (gap <= eps, KKT residual <= 1e-3 lam) and
+   all three must find the same support;
 3. logistic at full size: gaussian design, 40 true features, labels from
    their sign (n = 1000, p = 100,000, float64); ``auto`` must route the
    burst through K3; the same certificates;
-4. every kernel against its plain version on the card, in float64 and
+4. the fused transform at full width: phase 2's X through ``prepare_fused``
+   on a chain under ``auto`` launches K4 exactly once, and K4 equals its
+   plain version bit for bit in float64 and float32;
+5. fused least squares: the chain problem of benchmarks/bench_fused.py at
+   n = 1000, p = 5,000, float64, at FUSED_LS_LAM lambda_max, through
+   ``saif_fused`` under ``auto`` (K4, K1, K2 and K3-pen) and plain; each
+   certified (gap <= eps and the KKT residual with b's weight 0 <= 1e-3
+   lam), one support;
+6. fused logistic on the same design, labels sign(X beta + 0.3 noise), at
+   FUSED_LOGIT_LAM lambda_max, the same two ways and certificates;
+7. ``fused_path`` over 4 lambdas from 0.7 to 0.3 lambda_max (geometric) on
+   phase 5's problem: every point certified, supports growing;
+8. every kernel against its plain version on the card, in float64 and
    float32, at the shapes the solves gave it: max error against a stated
    tolerance, the kernel's time, the plain version's time, the time of a
    PyTorch call computing the same function where one exists, and the
    least time the card could take (bytes or operations, whichever bounds).
 
-Launch counters are zeroed just before each solve and read just after;
-the kernel launches of phase 4, and of one extra solve of the K3 runs
-under torch.profiler (the device's busy time and idle share), do not
-count. The last two lines are the
-card's name and power limit and ``{"ok": true, "device": {...}}``; the
-line before them is the per-kernel JSON record.
+Launch counters are zeroed just before each solve (and the transform of
+phase 4) and read just after; the kernel launches of phase 8, of the
+comparisons of phase 4, of the lambda_max helpers and of one extra solve
+under torch.profiler (the device's busy time and idle share) do not
+count. The last two lines are the card's name and power limit and
+``{"ok": true, "device": {...}}``; the line before them is the per-kernel
+JSON record.
 """
 from __future__ import annotations
 
@@ -52,6 +65,16 @@ N = 1000
 # scripts/ls_lambda_probe_torch.py).
 LS_LAM = 0.3
 LOGIT_LAM = 0.2
+# The fused phases run where the solve certifies. On the chain problem
+# cyclic CM crawls on the nearly collinear suffix-sum columns and ends
+# max_outer uncertified, in the reference as in the port: least squares
+# past p of about 10,000, logistic at p = 5,000 below about 0.6
+# lambda_max (PERF.md, section 4, from scripts/ref_fused_probe.py and
+# scripts/fused_lambda_probe_torch.py).
+FUSED_P = 5000
+FUSED_LS_LAM = 0.3
+FUSED_LOGIT_LAM = 0.7
+FUSED_PATH = (0.7, 0.3, 4)       # first, last lambda / lambda_max, points
 
 
 def nvidia_smi_line() -> str:
@@ -81,6 +104,23 @@ def logistic_data(n, p, seed=2, k=40):
     w = np.zeros(p)
     w[rng.choice(p, k, replace=False)] = rng.uniform(-2, 2, k)
     y = np.sign(X @ w + 0.3 * rng.normal(size=n))
+    y[y == 0] = 1.0
+    return X, y
+
+
+def fused_chain_data(n, p, seed=0, logistic=False):
+    """benchmarks/bench_fused.py's chain problem: X ~ N(0, 1), beta = 2 on
+    the first p/8 and -1 on the next p/8, y = X beta + 0.1 noise; with
+    ``logistic`` the labels are sign(X beta + 0.3 noise) instead."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, p))
+    beta = np.zeros(p)
+    beta[: p // 8] = 2.0
+    beta[p // 8: p // 4] = -1.0
+    if not logistic:
+        return X, X @ beta + 0.1 * rng.normal(size=n)
+    y = np.sign(X @ beta + 0.3 * rng.normal(size=n))
     y[y == 0] = 1.0
     return X, y
 
@@ -135,46 +175,38 @@ def profile_solve(tag, solve, wall):
           f"idle_share={1 - busy_s / wall:.3f} top: {tops}", flush=True)
 
 
-def solve_phase(name, X, y, lam, cfg, runs, expect, profiled=()):
-    """Run ``saif`` once per entry of ``runs`` (label -> config overrides),
-    certify each solve on the card and check the launch counts; the labels
+def solve_phase(name, lam, cfg, runs, expect, solve, kkt, profiled=()):
+    """Run ``solve(config)`` once per entry of ``runs`` (label -> config
+    overrides), certify each solve on the card (gap <= eps and
+    ``kkt(result) <= 1e-3 lam``) and check the launch counts; the labels
     in ``profiled`` are then profiled in one more, uncounted solve."""
     import dataclasses
     import torch
-    import repro_torch as rt
     from repro_torch.kernels import ops
 
-    loss = rt.get_loss(cfg.loss)
     results, launches = {}, {}
     for label, over in runs.items():
         c = dataclasses.replace(cfg, **over)
         torch.cuda.synchronize()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        res = rt.saif(X, y, lam, c)
+        res = solve(c)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = ops.launch_counts()
-        kkt = float(rt.kkt_residual(loss, X, y, res.beta, lam))
+        kkt_v = float(kkt(res))
         gap = float(res.gap)
         print(f"[{name}/{label}] outer={res.n_outer} n_active="
               f"{res.n_active} k_max={res.active_idx.shape[0]} gap={gap:.3e}"
-              f" eps={c.eps:.1e} kkt={kkt:.3e} kkt_limit={1e-3 * lam:.3e} "
+              f" eps={c.eps:.1e} kkt={kkt_v:.3e} kkt_limit={1e-3 * lam:.3e} "
               f"wall_s={wall:.3f} launches={counts}", flush=True)
-        if not (gap <= c.eps and kkt <= 1e-3 * lam):
+        if not (gap <= c.eps and kkt_v <= 1e-3 * lam):
             raise RuntimeError(f"{name}/{label}: solve not certified")
-        for kname, must in expect[label].items():
-            if must and counts[kname] == 0:
-                raise RuntimeError(f"{name}/{label}: kernel {kname} was "
-                                   f"never launched on the main path")
-            if not must and counts[kname] != 0:
-                raise RuntimeError(f"{name}/{label}: kernel {kname} "
-                                   f"launched on a plain run")
+        check_launches(f"{name}/{label}", counts, expect[label])
         results[label] = res
         launches[label] = counts
         if label in profiled:
-            profile_solve(f"{name}/{label}",
-                          lambda: rt.saif(X, y, lam, c), wall)
+            profile_solve(f"{name}/{label}", lambda: solve(c), wall)
     sups = {label: support(r.beta) for label, r in results.items()}
     first = next(iter(sups.values()))
     if any(s != first for s in sups.values()):
@@ -185,8 +217,56 @@ def solve_phase(name, X, y, lam, cfg, runs, expect, profiled=()):
     return results, launches
 
 
-def check_kernels(dtype, X, y, lam, h, ls_res, logit, logit_res, records):
-    """Hold K1, K2, K3 against their plain versions at the solves' shapes."""
+def check_launches(tag, counts, expect):
+    """``expect``: kernel -> True (launched at least once), False (never)
+    or an int (exactly that many times)."""
+    for kname, must in expect.items():
+        got = counts[kname]
+        if must is True and got == 0:
+            raise RuntimeError(f"{tag}: kernel {kname} was never launched "
+                               f"on the main path")
+        if must is False and got != 0:
+            raise RuntimeError(f"{tag}: kernel {kname} launched {got} times "
+                               f"where it has no place")
+        if not isinstance(must, bool) and got != must:
+            raise RuntimeError(f"{tag}: kernel {kname} launched {got} times,"
+                               f" expected {must}")
+
+
+def errs(pairs):
+    """(max abs error, max error over each reference's own scale) on the
+    finite entries; a different non-finite pattern is inf."""
+    import torch
+    worst_abs = worst_rel = 0.0
+    for a, b in pairs:
+        fin = torch.isfinite(b)
+        if not bool((a[~fin] == b[~fin]).all()):
+            return float("inf"), float("inf")
+        if bool(fin.any()):
+            d = float((a[fin] - b[fin]).abs().max())
+            worst_abs = max(worst_abs, d)
+            worst_rel = max(worst_rel,
+                            d / max(float(b[fin].abs().max()), 1e-300))
+    return worst_abs, worst_rel
+
+
+def burst_error(loss_name, out, ref, ys, lam_s):
+    """K3's error against its plain twin: beta, z, theta against their own
+    scale; the gap, a difference P - D of two near-equal objectives,
+    against the scale of D."""
+    import repro_torch as rt
+    abs3, err3 = errs(zip(out[:3], ref[:3]))
+    d_scale = 1.0 + abs(float(rt.get_loss(loss_name).dual_objective(
+        ys, ref[2], lam_s)))
+    gap_err = abs(float(out[3]) - float(ref[3]))
+    return max(abs3, gap_err), max(err3, gap_err / d_scale)
+
+
+def check_kernels(dtype, X, y, lam, h, ls_res, logit, logit_res, fused,
+                  records):
+    """Hold K1, K2, K3 and K3-pen against their plain versions at the
+    solves' shapes; ``fused`` holds (loss, Xt, y, lam, result) of the
+    fused solves."""
     import torch
     import repro_torch as rt
     from repro_torch.core.active_set import compact_order
@@ -207,21 +287,6 @@ def check_kernels(dtype, X, y, lam, h, ls_res, logit, logit_res, records):
     active = torch.zeros(p, dtype=torch.bool, device=Xd.device)
     active[ls_res.active_idx[ls_res.active_mask]] = True
     r = 0.05
-
-    def errs(pairs):
-        """(max abs error, max error over each reference's own scale) on
-        the finite entries; a different non-finite pattern is inf."""
-        worst_abs = worst_rel = 0.0
-        for a, b in pairs:
-            fin = torch.isfinite(b)
-            if not bool((a[~fin] == b[~fin]).all()):
-                return float("inf"), float("inf")
-            if bool(fin.any()):
-                d = float((a[fin] - b[fin]).abs().max())
-                worst_abs = max(worst_abs, d)
-                worst_rel = max(worst_rel,
-                                d / max(float(b[fin].abs().max()), 1e-300))
-        return worst_abs, worst_rel
 
     # K1 masked (the main path's mode) and unmasked
     k1 = ops.screen_fused(Xd, theta, col_norm, active, r, h=h)
@@ -315,13 +380,7 @@ def check_kernels(dtype, X, y, lam, h, ls_res, logit, logit_res, records):
                                     n_ep, count, loss_name=loss_name)
 
         out, ref = run_k(), run_p()
-        # beta, z, theta against their own scale; the gap, a difference
-        # P - D of two near-equal objectives, against the scale of D
-        abs3, err3 = errs(zip(out[:3], ref[:3]))
-        d_scale = 1.0 + abs(float(rt.get_loss(loss_name).dual_objective(
-            ys, ref[2], lam_s)))
-        gap_err = abs(float(out[3]) - float(ref[3]))
-        abs3, err3 = max(abs3, gap_err), max(err3, gap_err / d_scale)
+        abs3, err3 = burst_error(loss_name, out, ref, ys, lam_s)
         ms3 = time_ms(run_k, 3)
         plain3 = time_ms(run_p, 1)
         steps = n_ep * count
@@ -337,6 +396,57 @@ def check_kernels(dtype, X, y, lam, h, ls_res, logit, logit_res, records):
             raise RuntimeError(f"cm_burst {dtype} {loss_name} disagrees")
         k3[loss_name] = (abs3, ms3, plain3, b3, by3)
 
+    # K3-pen at each fused solve's final block, pen from its slot map
+    k3p = {}
+    for loss_name, Xt, ys, lam_s, res in fused:
+        Xs, ys = Xt.to(dt), ys.to(dt)
+        mask = res.active_mask
+        k = mask.shape[0]
+        count = int(mask.sum())
+        order = compact_order(torch.arange(k, device=mask.device), mask)
+        A = torch.where(mask[None, :], Xs[:, res.active_idx], 0.0)
+        AT = A.T.contiguous()
+        cn = torch.where(mask, torch.linalg.vector_norm(A, dim=0), 0.0)
+        col_sq = cn * cn
+        pen = torch.where(mask & (res.active_idx == Xs.shape[1] - 1), 0.0,
+                          1.0).to(dt)
+        beta0 = torch.zeros(k, dtype=dt, device=A.device)
+        n_ep = 40
+
+        def run_k(AT=AT, ys=ys, col_sq=col_sq, mask=mask, order=order,
+                  pen=pen, lam_s=lam_s, count=count, loss_name=loss_name,
+                  beta0=beta0):
+            return ops.cm_burst_pen_xt(AT, ys, beta0, col_sq, mask, order,
+                                       pen, lam_s, n_ep, count,
+                                       loss_name=loss_name)
+
+        def run_p(A=A, ys=ys, col_sq=col_sq, mask=mask, order=order,
+                  pen=pen, lam_s=lam_s, count=count, loss_name=loss_name,
+                  beta0=beta0):
+            return ops.cm_burst_ref(A, ys, beta0, col_sq, mask, order, lam_s,
+                                    n_ep, count, pen, loss_name=loss_name)
+
+        out, ref = run_k(), run_p()
+        abs4, err4 = burst_error(loss_name, out, ref, ys, lam_s)
+        ms4 = time_ms(run_k, 3)
+        plain4 = time_ms(run_p, 1)
+        n_s = Xs.shape[0]
+        # the sweep's steps, and the tail: fresh z, 4 x 2 polish dots for
+        # logistic, 2 projection dots, the dual correlations
+        flops = (n_ep * count * 4 * n_s + 4 * n_s * k
+                 + (16 * n_s if loss_name == "logistic" else 0) + 4 * n_s)
+        b4, by4 = bound_ms(k * n_s * isz + 3 * n_s * isz + 4 * k * isz
+                           + 5 * k + isz, flops, dtype)
+        print(f"[kernel cm_burst_pen {dtype} {loss_name}] n={n_s} k={k} "
+              f"count={count} n_epochs={n_ep} max_abs_err={abs4:.3e} "
+              f"rel_err={err4:.3e} tol={tol3:.0e} ms={ms4:.4f} "
+              f"plain_ms={plain4:.4f} bound_ms={b4:.6f} ({by4})",
+              flush=True)
+        if not err4 <= tol3:
+            raise RuntimeError(f"cm_burst_pen {dtype} {loss_name} "
+                               f"disagrees")
+        k3p[loss_name] = (abs4, ms4, plain4, b4, by4)
+
     if dtype == "float64":
         e3, m3, pl3, bb3, bby3 = k3["least_squares"]
         records["screen_fused"].update(
@@ -348,12 +458,175 @@ def check_kernels(dtype, X, y, lam, h, ls_res, logit, logit_res, records):
         records["cm_burst"].update(
             max_abs_err=max(e3, k3["logistic"][0]), ms=m3, plain_ms=pl3,
             bound_ms=bb3, bound_by=bby3, library_ms=None)
+        e4, m4, pl4, bb4, bby4 = k3p["least_squares"]
+        records["cm_burst_pen"].update(
+            max_abs_err=max(e4, k3p["logistic"][0]), ms=m4, plain_ms=pl4,
+            bound_ms=bb4, bound_by=bby4, library_ms=None)
+
+
+def transform_phase(X, records):
+    """Phase 4: ``prepare_fused`` on a chain at full width launches K4 once;
+    K4 equals its plain version bit for bit in float64 and float32; times
+    against the bound, the latency floor and the cumsum yardstick."""
+    import numpy as np
+    import torch
+    import repro_torch as rt
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused.fused import add_latency_cycles
+
+    n, p = X.shape
+    parent = np.arange(p) - 1
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    design = rt.prepare_fused(X, parent)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    t0 = time.perf_counter()         # the host part, timed once more alone
+    rt.build_schedule(rt.build_tree(parent))
+    host = time.perf_counter() - t0
+    print(f"[fused-transform] n={n} p={p} float64 prepare_fused "
+          f"wall_s={wall:.3f} (build_tree + build_schedule on the host "
+          f"alone: {host:.3f} s) launches={counts}", flush=True)
+    check_launches("fused-transform", counts,
+                   {k: (1 if k == "chain_suffix_sums" else False)
+                    for k in counts})
+    launches = counts["chain_suffix_sums"]
+
+    def bits(t):
+        return t.view(torch.int64 if t.dtype == torch.float64
+                      else torch.int32)
+
+    def yardstick(A):
+        return torch.flip(torch.cumsum(torch.flip(A, [1]), 1), [1])
+
+    clock = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    rec = None
+    for dtype in ("float64", "float32"):
+        dt = getattr(torch, dtype)
+        Xd = X.to(dt)
+        S = ops.chain_suffix_sums(Xd)
+        S_ref = ops.chain_suffix_sums_ref(Xd)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(bits(S), bits(S_ref)))
+        if dtype == "float64":
+            same = same and bool(torch.equal(
+                bits(design.Xt), bits(torch.cat([S_ref[:, 1:],
+                                                 S_ref[:, :1]], 1))))
+            del design
+        err = float((S - S_ref).abs().max())
+        ycut = float((yardstick(Xd) - S_ref).abs().max())
+        del S, S_ref
+        ms = time_ms(lambda: ops.chain_suffix_sums(Xd), 10)
+        plain = time_ms(lambda: ops.chain_suffix_sums_ref(Xd), 1)
+        lib = time_ms(lambda: yardstick(Xd), 10)
+        isz = Xd.element_size()
+        bnd, by = bound_ms(2 * n * p * isz, n * (p - 1), dtype)
+        cyc = add_latency_cycles(dt)
+        floor = (p - 1) * cyc / (clock * 1e6) * 1e3
+        print(f"[kernel chain_suffix_sums {dtype}] n={n} p={p} "
+              f"bitwise_equal={same} max_abs_err={err:.3e} tol=0 (bits) "
+              f"ms={ms:.4f} plain_ms={plain:.4f} "
+              f"library_ms(flip-cumsum-flip)={lib:.4f} "
+              f"library_max_abs_dev={ycut:.3e} bound_ms={bnd:.4f} ({by}) "
+              f"add_latency_cycles={cyc:.2f} max_sm_clock_mhz={clock:.0f} "
+              f"latency_floor_ms={floor:.4f}", flush=True)
+        if not same:
+            raise RuntimeError(f"chain_suffix_sums {dtype} is not bitwise "
+                               f"its plain version")
+        if rec is None:
+            rec = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
+                       bound_by=by, library_ms=lib)
+        del Xd
+    records["chain_suffix_sums"].update(rec)
+    return launches
+
+
+def fused_phases():
+    """Phases 5-7: fused least squares and logistic at FUSED_P, and the
+    fused path. Returns the kernel-path results, the problems and the
+    summed launch counts."""
+    import numpy as np
+    import torch
+    import repro_torch as rt
+
+    dev = torch.device("cuda")
+    p = FUSED_P
+    parent = np.arange(p) - 1
+    pen = torch.ones(p, dtype=torch.float64, device=dev)
+    pen[p - 1] = 0.0
+    Xn, yn = fused_chain_data(N, p)
+    X = torch.from_numpy(Xn).to(dev)
+    Xt = rt.prepare_fused(X, parent).Xt
+    on = {"screen_fused": True, "ub_histogram": True, "cm_burst": False,
+          "cm_burst_pen": True, "chain_suffix_sums": 1}
+    off = {k: False for k in on}
+    out, launches, fused = {}, [], []
+    for loss_name, frac, logistic in (("least_squares", FUSED_LS_LAM, False),
+                                      ("logistic", FUSED_LOGIT_LAM, True)):
+        y = torch.from_numpy(fused_chain_data(N, p, logistic=logistic)[1]
+                             ).to(dev)
+        loss = rt.get_loss(loss_name)
+        lam = frac * rt.fused_lambda_max(X, y, parent, loss=loss_name)
+        cfg = rt.SaifConfig(eps=1e-6, loss=loss_name)
+        res, counts = solve_phase(
+            f"fused-{loss_name}", lam, cfg,
+            {"auto": {},
+             "plain": {"screen_backend": "torch", "inner_backend": "torch"}},
+            {"auto": on, "plain": off},
+            lambda c: rt.saif_fused(
+                X, y, parent, lam, c, transform_backend=(
+                    "torch" if c.inner_backend == "torch" else "auto"))[1],
+            lambda r: rt.kkt_residual(loss, Xt, y, r.beta, lam, pen),
+            profiled=("auto",) if loss_name == "least_squares" else ())
+        launches.append(counts["auto"])
+        fused.append((loss_name, Xt, y, lam, res["auto"]))
+        out[loss_name] = (y, lam)
+
+    # the path, on the least-squares problem
+    y, _ = out["least_squares"]
+    loss = rt.get_loss("least_squares")
+    lm = rt.fused_lambda_max(X, y, parent)
+    hi, lo, m = FUSED_PATH
+    lams = np.geomspace(hi * lm, lo * lm, m)
+    cfg = rt.SaifConfig(eps=1e-6)
+    torch.cuda.synchronize()
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    fp = rt.fused_path(X, y, parent, lams, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    sizes = []
+    for lam, r in zip(fp.lams, fp.path.results):
+        kkt = float(rt.kkt_residual(loss, Xt, y, r.beta, lam, pen))
+        sizes.append(len(support(r.beta)))
+        print(f"[fused-path] lam/lam_max={lam / lm:.4f} outer={r.n_outer} "
+              f"n_active={r.n_active} support={sizes[-1]} "
+              f"gap={float(r.gap):.3e} kkt={kkt:.3e} "
+              f"kkt_limit={1e-3 * lam:.3e}", flush=True)
+        if not (float(r.gap) <= cfg.eps and kkt <= 1e-3 * lam):
+            raise RuntimeError("fused-path: a point is not certified")
+    print(f"[fused-path] {m} lambdas wall_s={wall:.3f} launches={counts}",
+          flush=True)
+    check_launches("fused-path", counts, on)
+    if sizes != sorted(sizes):
+        raise RuntimeError(f"fused-path: supports shrink down the path: "
+                           f"{sizes}")
+    launches.append(counts)
+    return fused, launches
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--p", type=int, default=100_000,
-                    help="features; cut it for a quick shakedown")
+                    help="features of phases 2-4; cut it for a quick "
+                         "shakedown")
     args = ap.parse_args()
 
     import torch
@@ -390,30 +663,35 @@ def main() -> int:
     print(f"[data] LS and logistic X ({N}, {args.p}) float64 on the "
           f"card in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    on = {"screen_fused": True, "ub_histogram": True}
-    lm = float(rt.lambda_max(rt.get_loss("least_squares"), X, y))
+    plain_lasso = {"cm_burst_pen": False, "chain_suffix_sums": False}
+    on = {"screen_fused": True, "ub_histogram": True, **plain_lasso}
+    ls = rt.get_loss("least_squares")
+    lm = float(rt.lambda_max(ls, X, y))
     lam = LS_LAM * lm
     cfg = rt.SaifConfig(eps=1e-6)
     ls_res, ls_counts = solve_phase(
-        "ls", X, y, lam, cfg,
+        "ls", lam, cfg,
         {"auto": {},
-         "cuda-inner": {"inner_backend": "cuda"},
+         "gram": {"inner_backend": "gram"},
          "plain": {"screen_backend": "torch", "inner_backend": "torch"}},
-        {"auto": {**on, "cm_burst": False},
-         "cuda-inner": {**on, "cm_burst": True},
-         "plain": {"screen_fused": False, "ub_histogram": False,
-                   "cm_burst": False}},
-        profiled=("cuda-inner",))
+        {"auto": {**on, "cm_burst": True},
+         "gram": {**on, "cm_burst": False},
+         "plain": {k: False for k in ops.KERNELS}},
+        lambda c: rt.saif(X, y, lam, c),
+        lambda r: rt.kkt_residual(ls, X, y, r.beta, lam),
+        profiled=("auto",))
 
-    lmL = float(rt.lambda_max(rt.get_loss("logistic"), XL, yL))
+    lg = rt.get_loss("logistic")
+    lmL = float(rt.lambda_max(lg, XL, yL))
     lamL = LOGIT_LAM * lmL
     cfgL = rt.SaifConfig(eps=1e-6, loss="logistic")
     lg_res, lg_counts = solve_phase(
-        "logistic", XL, yL, lamL, cfgL, {"auto": {}},
-        {"auto": {**on, "cm_burst": True}}, profiled=("auto",))
+        "logistic", lamL, cfgL, {"auto": {}},
+        {"auto": {**on, "cm_burst": True}},
+        lambda c: rt.saif(XL, yL, lamL, c),
+        lambda r: rt.kkt_residual(lg, XL, yL, r.beta, lamL),
+        profiled=("auto",))
 
-    launches = {k: ls_counts["auto"][k] + ls_counts["cuda-inner"][k]
-                + lg_counts["auto"][k] for k in ops.KERNELS}
     records = {
         "screen_fused": {"name": "screen_fused", "route": "cuda",
                          "source": "src/repro_torch/csrc/screen.cu",
@@ -424,9 +702,22 @@ def main() -> int:
         "cm_burst": {"name": "cm_burst", "route": "cuda",
                      "source": "src/repro_torch/csrc/cm_burst.cu",
                      "replaces": "src/repro/kernels/cm/cm.py:355"},
+        "cm_burst_pen": {"name": "cm_burst_pen", "route": "cuda",
+                         "source": "src/repro_torch/csrc/cm_burst.cu",
+                         "replaces": "src/repro/kernels/cm/cm.py:184"},
+        "chain_suffix_sums": {"name": "chain_suffix_sums", "route": "cuda",
+                              "source": "src/repro_torch/csrc/chain_suffix.cu",
+                              "replaces": "src/repro/kernels/fused/fused.py:76"},
     }
+
+    k4_launches = transform_phase(X, records)
+    fused, fused_counts = fused_phases()
+
+    runs = [ls_counts["auto"], ls_counts["gram"], lg_counts["auto"],
+            *fused_counts]
     for k, rec in records.items():
-        rec["launches"] = launches[k]
+        rec["launches"] = sum(c[k] for c in runs) + (
+            k4_launches if k == "chain_suffix_sums" else 0)
 
     from repro_torch.core.saif import add_batch_size_static, prepare_path
     prep = prepare_path(X, y, cfg)
@@ -434,8 +725,8 @@ def main() -> int:
                               args.p)
     del prep
     for dtype in ("float64", "float32"):
-        check_kernels(dtype, X, y, lam, h, ls_res["cuda-inner"],
-                      (XL, yL, lamL), lg_res["auto"], records)
+        check_kernels(dtype, X, y, lam, h, ls_res["auto"], (XL, yL, lamL),
+                      lg_res["auto"], fused, records)
 
     print(json.dumps({"kernels": list(records.values())}))
     print(nvidia_smi_line())

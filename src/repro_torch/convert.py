@@ -3,13 +3,17 @@
 ``repro``'s ``PathState`` and a solve's final slots, read out with
 ``np.asarray`` on each field, become the port's ``PathState`` and the
 ``(warm_idx, warm_beta)`` pair that :func:`~repro_torch.core.saif.solve_scalar`
-takes. Nothing here imports the reference.
+takes, or the slot-preserving warm state of the path engine; its
+``FusedDesign`` becomes the port's. Nothing here imports the reference.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core.fused import FusedDesign, LevelSchedule, TreeTransform
+from repro_torch.core.inner_backend import cold_inner_carry
+from repro_torch.core.path import WarmState, _warm_state
 from repro_torch.core.saif import PathState, as_tensor, resolve_device
 
 
@@ -36,3 +40,41 @@ def warm_start_from_numpy(active_idx, active_mask, beta):
     idx = np.asarray(active_idx)[np.asarray(active_mask, bool)]
     vals = np.asarray(beta)[idx]
     return torch.from_numpy(idx.astype(np.int64)), torch.from_numpy(vals)
+
+
+def warm_state_from_numpy(active_idx, active_mask, beta, unpen_idx=None,
+                          inner_backend: str = "torch",
+                          device=None) -> WarmState:
+    """The path engine's slot-preserving warm state from a solve's final
+    slots and full solution, as the reference's ``_warm_state`` builds it:
+    the slot layout masked down to the nonzero support, the unpenalized
+    slot (``unpen_idx``) kept resident at any value. The inner carry is a
+    cold one for the resolved backend ``inner_backend`` (a Gram engine
+    rebuilds it once)."""
+    dev = resolve_device(device)
+    idx = torch.from_numpy(np.asarray(active_idx).astype(np.int64)).to(dev)
+    mask = torch.from_numpy(np.array(active_mask, bool)).to(dev)
+    beta = as_tensor(np.asarray(beta), dev)
+    carry = cold_inner_carry(idx.shape[0], beta.dtype, dev,
+                             backend=inner_backend)
+    return _warm_state(idx, mask, beta, carry,
+                       -1 if unpen_idx is None else int(unpen_idx))
+
+
+def fused_design_from_ref(design, device=None) -> FusedDesign:
+    """The port's :class:`FusedDesign` from the reference's (its tree, level
+    schedule, transformed design ``Xt`` and ``unpen_idx``, each read with
+    ``np.asarray``), with ``Xt`` on ``device`` (None = the card)."""
+    t, s = design.tree, design.schedule
+    tree = TreeTransform(parent=np.asarray(t.parent),
+                         edge_child=np.asarray(t.edge_child),
+                         topo=np.asarray(t.topo), root=int(t.root))
+    schedule = LevelSchedule(child=np.asarray(s.child),
+                             parent=np.asarray(s.parent),
+                             edge=np.asarray(s.edge),
+                             valid=np.asarray(s.valid),
+                             is_chain=bool(s.is_chain))
+    return FusedDesign(tree=tree, schedule=schedule,
+                       Xt=as_tensor(np.asarray(design.Xt),
+                                    resolve_device(device)),
+                       unpen_idx=int(design.unpen_idx))

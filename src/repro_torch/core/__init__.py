@@ -1,8 +1,29 @@
-"""SAIF core in torch: the serial solve and its building blocks."""
+"""SAIF core in torch: the serial solve, the lambda path, fused LASSO and
+their building blocks."""
 from repro_torch.core.duality import kkt_residual, lambda_max
+from repro_torch.core.fused import (FusedDesign, FusedPathResult,
+                                    build_schedule, build_tree,
+                                    eliminate_b_ls, fused_baseline_cm,
+                                    fused_lambda_max, fused_objective,
+                                    fused_path, prepare_fused, recover_b_ls,
+                                    recover_beta, recover_beta_device,
+                                    recover_from_transformed, saif_fused,
+                                    saif_fused_eliminated, transform_design,
+                                    transform_design_device,
+                                    transform_design_scan)
 from repro_torch.core.losses import get_loss
+from repro_torch.core.path import (SaifPathResult, lambda_grid, run_path,
+                                   saif_path, saif_path_naive)
 from repro_torch.core.saif import (PathState, SaifConfig, SaifResult,
                                    prepare_path, saif, solve_scalar)
 
 __all__ = ["saif", "SaifConfig", "SaifResult", "PathState", "prepare_path",
-           "solve_scalar", "get_loss", "kkt_residual", "lambda_max"]
+           "solve_scalar", "get_loss", "kkt_residual", "lambda_max",
+           "saif_path", "saif_path_naive", "run_path", "lambda_grid",
+           "SaifPathResult", "saif_fused", "fused_path", "prepare_fused",
+           "FusedDesign", "FusedPathResult", "fused_lambda_max",
+           "fused_baseline_cm", "fused_objective", "saif_fused_eliminated",
+           "eliminate_b_ls", "recover_b_ls", "build_tree", "build_schedule",
+           "transform_design", "transform_design_scan",
+           "transform_design_device", "recover_beta", "recover_beta_device",
+           "recover_from_transformed"]

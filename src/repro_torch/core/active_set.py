@@ -79,6 +79,17 @@ def gather_columns(X: Tensor, aset: ActiveSet) -> Tensor:
     return torch.where(aset.mask[None, :], X[:, aset.idx], 0.0)
 
 
+def pen_weights(aset: ActiveSet, unpen_idx: int, dtype) -> Tensor:
+    """(k_max,) per-slot l1 weight: 0 on the slot that holds the
+    unpenalized feature ``unpen_idx`` (fused LASSO's ``b``; -1 = none), 1
+    everywhere else. The weight follows the slot the feature occupies, so
+    it survives ADD/DEL churn and capacity growth."""
+    if unpen_idx < 0:
+        return torch.ones_like(aset.beta, dtype=dtype)
+    unpen_slot = aset.mask & (aset.idx == unpen_idx)
+    return torch.where(unpen_slot, 0.0, 1.0).to(dtype)
+
+
 def delete_features(aset: ActiveSet, drop_slot_mask: Tensor) -> ActiveSet:
     """DEL: clear slots flagged in ``drop_slot_mask`` (bool (k_max,))."""
     drop = drop_slot_mask & aset.mask

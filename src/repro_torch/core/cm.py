@@ -40,55 +40,70 @@ def _soft_threshold_f(u: float, t: float) -> float:
 
 
 def _coordinate_step(loss: Loss, Xa: Tensor, y: Tensor, live: bool,
-                     lam: float, lj: float, j: int, beta: List[float],
+                     lam_j: float, lj: float, j: int, beta: List[float],
                      z: Tensor) -> None:
     """One prox coordinate update of slot ``j``, in place: ``beta`` is a
-    host list of coefficients, ``z`` the model vector on the device."""
+    host list of coefficients, ``z`` the model vector on the device.
+    ``lam_j`` is slot j's l1 weight times lambda (0 = unpenalized, an
+    unthresholded step)."""
     xj = Xa[:, j]
     g = float(torch.dot(xj, loss.grad(z, y)))
     bj = beta[j]
-    b_new = _soft_threshold_f(bj - g / lj, lam / lj) if live else 0.0
+    b_new = _soft_threshold_f(bj - g / lj, lam_j / lj) if live else 0.0
     if b_new != bj:
         z.add_(xj, alpha=b_new - bj)
     beta[j] = b_new
 
 
+def _slot_lams(lam, pen: Tensor | None, k: int) -> List[float]:
+    """lambda times each slot's l1 weight, as host floats."""
+    lam_f = float(lam)
+    if pen is None:
+        return [lam_f] * k
+    return [lam_f * w for w in pen.tolist()]
+
+
 def cm_sweeps(loss: Loss, Xa: Tensor, y: Tensor, beta: Tensor, z: Tensor,
               mask: Tensor, lam, col_sq: Tensor, order: Tensor, count: int,
-              n_epochs: int) -> Tuple[Tensor, Tensor]:
+              n_epochs: int, pen: Tensor | None = None
+              ) -> Tuple[Tensor, Tensor]:
     """``n_epochs`` compact sweeps over the ``count`` live slots listed
-    first in ``order``, with the per-slot squared norms ``col_sq`` given.
-    Shared by :func:`cm_epochs_compact` and the plain CM burst."""
+    first in ``order``, with the per-slot squared norms ``col_sq`` given
+    and the optional per-slot l1 weights ``pen``. Shared by
+    :func:`cm_epochs_compact` and the plain CM burst."""
     sched = order[:int(count)].tolist()
     live = mask.tolist()
     lj = torch.clamp(loss.smoothness * col_sq, min=1e-30).tolist()
-    lam_f = float(lam)
+    lams = _slot_lams(lam, pen, len(live))
     b = beta.tolist()
     z = z.clone()
     for _ in range(int(n_epochs)):
         for j in sched:
-            _coordinate_step(loss, Xa, y, live[j], lam_f, lj[j], j, b, z)
+            _coordinate_step(loss, Xa, y, live[j], lams[j], lj[j], j, b, z)
     return torch.tensor(b, dtype=beta.dtype, device=beta.device), z
 
 
 def cm_epochs_compact(loss: Loss, Xa: Tensor, y: Tensor, beta: Tensor,
                       z: Tensor, mask: Tensor, lam, order: Tensor, count,
-                      n_epochs) -> Tuple[Tensor, Tensor]:
+                      n_epochs, pen: Tensor | None = None
+                      ) -> Tuple[Tensor, Tensor]:
     """``n_epochs`` compact sweeps (the reference's jnp inner burst)."""
     col_sq = torch.sum(Xa * Xa, dim=0)
     return cm_sweeps(loss, Xa, y, beta, z, mask, lam, col_sq, order, count,
-                     n_epochs)
+                     n_epochs, pen)
 
 
 def gram_epochs(G: Tensor, rho: Tensor, beta: Tensor, mask: Tensor, lam,
                 order: Tensor, count, n_epochs,
-                smoothness: float = 1.0) -> Tensor:
+                smoothness: float = 1.0,
+                pen: Tensor | None = None) -> Tensor:
     """Covariance-update CM sweeps (least squares): every step reads
     qr_j = (G beta - rho)_j and updates qr by one Gram-column axpy.
-    ``G`` must hold x_s^T x_t for every pair of live slots. Returns the
-    updated beta (the caller rebuilds z once per burst)."""
+    ``G`` must hold x_s^T x_t for every pair of live slots; ``pen`` is the
+    optional per-slot l1 weight (0 = unpenalized). Returns the updated beta
+    (the caller rebuilds z once per burst)."""
     inv_l = 1.0 / torch.clamp(smoothness * torch.diagonal(G), min=1e-30)
-    thr = (lam * inv_l).tolist()
+    thr = (lam * inv_l if pen is None else lam * pen * inv_l).tolist()
     inv_l = inv_l.tolist()
     qr = G @ beta - rho
     sched = order[:int(count)].tolist()
@@ -106,21 +121,34 @@ def gram_epochs(G: Tensor, rho: Tensor, beta: Tensor, mask: Tensor, lam,
 
 
 def solve_lasso_cm(loss: Loss, X: Tensor, y: Tensor, lam: float,
-                   tol: float = 1e-9, max_epochs: int = 100_000) -> Tensor:
+                   tol: float = 1e-9, max_epochs: int = 100_000,
+                   unpen_idx: int | None = None) -> Tensor:
     """Unscreened full LASSO solve to duality gap <= tol (the "No Scr."
-    baseline and the oracle of the tests)."""
-    from repro_torch.core.duality import duality_gap, feasible_dual
+    baseline and the oracle of the tests). ``unpen_idx`` exempts one
+    coordinate from the l1 penalty (fused LASSO's ``b``): its step is
+    unthresholded, for a general loss it is Newton-polished after every
+    sweep, and the dual point is projected onto its equality constraint."""
+    from repro_torch.core.duality import (duality_gap, feasible_dual,
+                                          polish_unpen)
 
     p = X.shape[1]
     mask = torch.ones(p, dtype=torch.bool, device=X.device)
     order = torch.arange(p, device=X.device)
+    pen = x_unpen = None
+    if unpen_idx is not None:
+        pen = torch.ones(p, dtype=X.dtype, device=X.device)
+        pen[unpen_idx] = 0.0
+        x_unpen = X[:, unpen_idx]
     beta = torch.zeros(p, dtype=X.dtype, device=X.device)
     z = torch.zeros_like(y)
     for _ in range(max_epochs):
         beta, z = cm_epochs_compact(loss, X, y, beta, z, mask, lam, order,
-                                    p, 1)
+                                    p, 1, pen)
+        if unpen_idx is not None and loss.name != "least_squares":
+            b_new, z = polish_unpen(loss, x_unpen, y, z, beta[unpen_idx])
+            beta[unpen_idx] = b_new
         hat = -loss.grad(z, y) / lam
-        theta = feasible_dual(loss, X, y, hat, lam)
-        if float(duality_gap(loss, X, y, beta, theta, lam)) <= tol:
+        theta = feasible_dual(loss, X, y, hat, lam, pen=pen, x_unpen=x_unpen)
+        if float(duality_gap(loss, X, y, beta, theta, lam, pen=pen)) <= tol:
             break
     return beta

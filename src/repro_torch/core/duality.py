@@ -7,9 +7,10 @@
   * the post-hoc KKT residual, lambda_max and the null-model gradient
 
 Every function works on a sub-problem given by an explicit design block
-``Xa`` (n x k, the gathered active columns). Only the plain-LASSO branch is
-ported: the unpenalized-slot machinery (``pen``, ``x_unpen``,
-``polish_unpen``) belongs to the fused-LASSO slice.
+``Xa`` (n x k, the gathered active columns). An unpenalized coordinate
+(fused LASSO's ``b``, Thm 7) enters through ``pen`` (per-column l1 weight,
+0 on it) and ``x_unpen`` (its column): its dual constraint is the equality
+x_b^T theta = 0, and :func:`polish_unpen` drives b to stationarity.
 """
 from __future__ import annotations
 
@@ -28,18 +29,28 @@ class Ball(NamedTuple):
 
 
 def feasible_dual(loss: Loss, X_for_constraints: Tensor, y: Tensor,
-                  hat_theta: Tensor, lam, mask: Tensor | None = None
-                  ) -> Tensor:
+                  hat_theta: Tensor, lam, mask: Tensor | None = None,
+                  pen: Tensor | None = None,
+                  x_unpen: Tensor | None = None) -> Tensor:
     """Scale hat_theta into Omega = {theta : |x_i^T theta| <= 1 for i in set}.
 
     Lemma 2 scaling by 1 / max_i |x_i^T hat_theta| (when that exceeds 1);
     for least squares the DPP-style optimal scaling
     tau* = y^T hat_theta / (lam ||hat_theta||^2), clipped into the feasible
-    range. ``mask`` marks valid columns of ``X_for_constraints``.
+    range. ``mask`` marks valid columns of ``X_for_constraints``. With an
+    unpenalized column ``x_unpen`` (weight 0 in ``pen``), hat_theta is first
+    projected onto the hyperplane x_unpen^T theta = 0 and the scaling sees
+    only the penalized columns.
     """
+    if x_unpen is not None:
+        sq_b = torch.sum(x_unpen * x_unpen)
+        hat_theta = hat_theta - x_unpen * (
+            torch.dot(x_unpen, hat_theta) / torch.clamp(sq_b, min=1e-30))
     corr = X_for_constraints.T @ hat_theta
     if mask is not None:
         corr = torch.where(mask, corr, 0.0)
+    if pen is not None:
+        corr = corr * pen
     max_corr = torch.max(torch.abs(corr))
     denom = torch.clamp(max_corr, min=1.0)
     bound = 1.0 / torch.clamp(max_corr, min=1e-30)
@@ -55,11 +66,13 @@ def feasible_dual(loss: Loss, X_for_constraints: Tensor, y: Tensor,
 
 
 def duality_gap(loss: Loss, Xa: Tensor, y: Tensor, beta: Tensor,
-                theta: Tensor, lam, mask: Tensor | None = None) -> Tensor:
-    """P_t(beta) - D_t(theta) for the sub-problem restricted to ``Xa``."""
+                theta: Tensor, lam, mask: Tensor | None = None,
+                pen: Tensor | None = None) -> Tensor:
+    """P_t(beta) - D_t(theta) for the sub-problem restricted to ``Xa``;
+    ``pen`` weights the l1 term per column (0 = unpenalized)."""
     if mask is not None:
         beta = torch.where(mask, beta, 0.0)
-    return (loss.primal_objective(Xa, y, beta, lam)
+    return (loss.primal_objective(Xa, y, beta, lam, weights=pen)
             - loss.dual_objective(y, theta, lam))
 
 
@@ -120,15 +133,19 @@ def intersect_balls(b1: Ball, b2: Ball) -> Ball:
 
 
 def kkt_residual(loss: Loss, X: Tensor, y: Tensor, beta: Tensor, lam,
+                 pen: Tensor | None = None,
                  active_tol: float = 0.0) -> Tensor:
     """Max KKT violation of a candidate LASSO solution over all p
     coordinates (0 at the exact optimum): with g = X^T f'(X beta),
-    |g_i| <= lam off the support and g_i = -lam sign(beta_i) on it."""
+    |g_i| <= lam off the support, g_i = -lam sign(beta_i) on it, and
+    g_i = 0 on an unpenalized coordinate (``pen`` weights lam per column;
+    0 = unpenalized)."""
     g = loss.grad(X @ beta, y)
     c = X.T @ g
+    lam_i = lam * pen if pen is not None else lam
     active = torch.abs(beta) > active_tol
-    inactive_viol = torch.clamp(torch.abs(c) - lam, min=0.0)
-    active_viol = torch.abs(c + lam * torch.sign(beta))
+    inactive_viol = torch.clamp(torch.abs(c) - lam_i, min=0.0)
+    active_viol = torch.abs(c + lam_i * torch.sign(beta))
     return torch.max(torch.where(active, active_viol, inactive_viol))
 
 
@@ -138,8 +155,46 @@ def lambda_max(loss: Loss, X: Tensor, y: Tensor) -> Tensor:
     return torch.max(torch.abs(X.T @ g0))
 
 
-def null_gradient(loss: Loss, X: Tensor, y: Tensor):
-    """(g0, c0, b0) of the penalized-null model of a plain LASSO:
-    g0 = f'(0), c0 = |X^T g0|, b0 = 0."""
-    g0 = loss.grad(torch.zeros_like(y), y)
-    return g0, torch.abs(X.T @ g0), 0.0
+def polish_unpen(loss: Loss, x: Tensor, y: Tensor, z: Tensor, b,
+                 iters: int = 4):
+    """``iters`` exact 1-D Newton steps on the unpenalized coordinate ``b``
+    along its column ``x`` from the model vector ``z`` (which includes
+    x b). Returns (b, z) with x^T f'(z) ~ 0, so the dual point meets the
+    equality constraint through the gradient itself. The Hessian is floored
+    and the step clipped to 1e3 / max|x|, so separable logistic data cannot
+    send b to infinity."""
+    scale = torch.clamp(torch.max(torch.abs(x)), min=1e-30)
+    lim = 1e3 / scale
+    for _ in range(iters):
+        g = torch.dot(x, loss.grad(z, y))
+        H = torch.dot(x * x, loss.hess(z, y))
+        d = torch.clamp(g / torch.clamp(H, min=1e-30), -lim, lim)
+        b = b - d
+        z = z - d * x
+    return b, z
+
+
+def fit_unpenalized(loss: Loss, x: Tensor, y: Tensor,
+                    iters: int = 30) -> Tensor:
+    """1-D Newton for min_b sum_j f(x_j b, y_j): the unpenalized slot's
+    value in the penalized-null model."""
+    b0 = torch.zeros((), dtype=x.dtype, device=x.device)
+    b, _ = polish_unpen(loss, x, y, torch.zeros_like(y), b0, iters=iters)
+    return b
+
+
+def null_gradient(loss: Loss, X: Tensor, y: Tensor,
+                  unpen_idx: int | None = None):
+    """(g0, c0, b0) of the penalized-null model. Plain LASSO: g0 = f'(0),
+    c0 = |X^T g0|, b0 = 0. With an unpenalized coordinate the null model is
+    its partial optimum b0: g0 = f'(x_b b0), and c0[unpen_idx] = 0 (the slot
+    is always resident and must not set lambda_max)."""
+    if unpen_idx is None:
+        g0 = loss.grad(torch.zeros_like(y), y)
+        return g0, torch.abs(X.T @ g0), 0.0
+    xb = X[:, unpen_idx]
+    b0 = fit_unpenalized(loss, xb, y)
+    g0 = loss.grad(xb * b0, y)
+    c0 = torch.abs(X.T @ g0)
+    c0[unpen_idx] = 0.0
+    return g0, c0, b0

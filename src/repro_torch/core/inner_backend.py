@@ -17,6 +17,13 @@ the feasible dual point theta and the sub-problem duality gap — one
   * ``cuda``  — kernel K3 (``kernels/cm``): the whole burst, the dual point
                 and the gap in one launch (the reference's ``pallas``).
 
+Fused LASSO's unpenalized slot (``unpen_idx`` >= 0, the feature id of
+``b``) reaches every backend as per-slot l1 weights (0 on the slot holding
+it, :func:`~repro_torch.core.active_set.pen_weights`) and, in the dual tail,
+as its column: the dual point is projected onto x_b^T theta = 0 and the l1
+term skips b. The plain backend Newton-polishes b for a general loss
+before the tail; K3's ``_pen`` entries do the same in the kernel.
+
 The Gram carry keeps the reference's invariants: ``gidx[s]`` names the
 feature backing row/column s of G (-1 = nothing valid); G[s, t] = x_s^T x_t
 for every pair of live slots whose ``gidx`` matches ``idx``; ``refresh``
@@ -28,9 +35,10 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from repro_torch.core import active_set as aset_lib
 from repro_torch.core.active_set import ActiveSet
 from repro_torch.core.cm import cm_epochs_compact, gram_epochs
-from repro_torch.core.duality import duality_gap, feasible_dual
+from repro_torch.core.duality import duality_gap, feasible_dual, polish_unpen
 from repro_torch.core.losses import Loss
 
 Tensor = torch.Tensor
@@ -71,13 +79,21 @@ def cold_inner_carry(k_max: int, dtype, device,
                                       device=device))
 
 
-def _dual_and_gap(loss: Loss, Xa, y, beta, z, mask, lam):
+def _dual_and_gap(loss: Loss, Xa, y, beta, z, mask, lam, pen=None,
+                  x_unpen=None):
     """Post-burst tail of the torch and gram backends: the feasible dual
-    point and the sub-problem duality gap."""
+    point and the sub-problem duality gap (``pen``/``x_unpen``: the
+    unpenalized slot's weights and column)."""
     hat = -loss.grad(z, y) / lam
-    theta = feasible_dual(loss, Xa, y, hat, lam, mask)
-    gap = duality_gap(loss, Xa, y, beta, theta, lam, mask)
+    theta = feasible_dual(loss, Xa, y, hat, lam, mask, pen=pen,
+                          x_unpen=x_unpen)
+    gap = duality_gap(loss, Xa, y, beta, theta, lam, mask, pen=pen)
     return theta, gap
+
+
+def _pen(aset: ActiveSet, unpen_idx: int, dtype):
+    return (aset_lib.pen_weights(aset, unpen_idx, dtype)
+            if unpen_idx >= 0 else None)
 
 
 def _no_init(aset, carry, Xa):
@@ -88,25 +104,42 @@ def _no_refresh(carry, aset, Xa):
     return carry
 
 
-def make_inner_torch(loss: Loss, X: Tensor, y: Tensor) -> InnerBackend:
+def make_inner_torch(loss: Loss, X: Tensor, y: Tensor,
+                     unpen_idx: int = -1) -> InnerBackend:
     """Plain backend: residual-update epochs, O(n) per coordinate step."""
+    x_unpen = X[:, unpen_idx] if unpen_idx >= 0 else None
+
     def run(carry, aset, Xa, lam, n_ep):
+        pen = _pen(aset, unpen_idx, X.dtype)
         beta, z = cm_epochs_compact(loss, Xa, y, aset.beta, Xa @ aset.beta,
                                     aset.mask, lam, aset.order, aset.count,
-                                    n_ep)
-        theta, gap = _dual_and_gap(loss, Xa, y, beta, z, aset.mask, lam)
+                                    n_ep, pen)
+        if unpen_idx >= 0 and loss.name != "least_squares":
+            # general loss: polish b to stationarity so the dual point meets
+            # its equality constraint through the gradient itself
+            slots = torch.nonzero(aset.mask & (aset.idx == unpen_idx))
+            if slots.numel():
+                s = int(slots[0])
+                b_new, z = polish_unpen(loss, x_unpen, y, z, beta[s])
+                beta = beta.clone()
+                beta[s] = b_new
+        theta, gap = _dual_and_gap(loss, Xa, y, beta, z, aset.mask, lam,
+                                   pen, x_unpen)
         return InnerOut(beta=beta, z=z, theta=theta, gap=gap)
 
     return InnerBackend(name="torch", init=_no_init, refresh=_no_refresh,
                         run=run)
 
 
-def make_inner_gram(loss: Loss, X: Tensor, y: Tensor, h: int
-                    ) -> InnerBackend:
-    """Covariance-update backend: O(k_max) coordinate steps (LS only)."""
+def make_inner_gram(loss: Loss, X: Tensor, y: Tensor, h: int,
+                    unpen_idx: int = -1) -> InnerBackend:
+    """Covariance-update backend: O(k_max) coordinate steps (LS only). The
+    unpenalized slot needs no Gram handling of its own: it is always
+    resident, so its row and column of G stay valid."""
     if loss.name != "least_squares":
         raise ValueError("the gram inner backend needs a linear gradient "
                          f"(least squares); got loss {loss.name!r}")
+    x_unpen = X[:, unpen_idx] if unpen_idx >= 0 else None
 
     def _rebuild(aset, Xa):
         return InnerCarry(G=Xa.T @ Xa, rho=Xa.T @ y,
@@ -139,21 +172,24 @@ def make_inner_gram(loss: Loss, X: Tensor, y: Tensor, h: int
         return InnerCarry(G=G, rho=rho, gidx=gidx)
 
     def run(carry, aset, Xa, lam, n_ep):
+        pen = _pen(aset, unpen_idx, X.dtype)
         beta = gram_epochs(carry.G, carry.rho, aset.beta, aset.mask, lam,
                            aset.order, aset.count, n_ep,
-                           smoothness=loss.smoothness)
+                           smoothness=loss.smoothness, pen=pen)
         z = Xa @ beta                # the only O(n k) term: once per burst
-        theta, gap = _dual_and_gap(loss, Xa, y, beta, z, aset.mask, lam)
+        theta, gap = _dual_and_gap(loss, Xa, y, beta, z, aset.mask, lam,
+                                   pen, x_unpen)
         return InnerOut(beta=beta, z=z, theta=theta, gap=gap)
 
     return InnerBackend(name="gram", init=init, refresh=refresh, run=run)
 
 
-def make_inner_cuda(loss: Loss, X: Tensor, y: Tensor,
-                    col_norm: Tensor) -> InnerBackend:
+def make_inner_cuda(loss: Loss, X: Tensor, y: Tensor, col_norm: Tensor,
+                    unpen_idx: int = -1) -> InnerBackend:
     """Kernel backend: one K3 launch per burst, on the transposed active
-    block gathered straight from X."""
-    from repro_torch.kernels.cm.cm import cm_burst_xt
+    block gathered straight from X; K3's ``_pen`` entries with an
+    unpenalized slot."""
+    from repro_torch.kernels.cm.cm import cm_burst_pen_xt, cm_burst_xt
 
     XT = X.T
 
@@ -163,9 +199,15 @@ def make_inner_cuda(loss: Loss, X: Tensor, y: Tensor,
                           0.0).contiguous()
         # O(k_max) gather of the precomputed column norms
         norms = torch.where(aset.mask, col_norm[aset.idx], 0.0)
-        beta, z, theta, gap = cm_burst_xt(
-            XaT, y, aset.beta, norms * norms, aset.mask, aset.order, lam,
-            n_ep, aset.count, loss_name=loss.name)
+        if unpen_idx >= 0:
+            beta, z, theta, gap = cm_burst_pen_xt(
+                XaT, y, aset.beta, norms * norms, aset.mask, aset.order,
+                aset_lib.pen_weights(aset, unpen_idx, X.dtype), lam, n_ep,
+                aset.count, loss_name=loss.name)
+        else:
+            beta, z, theta, gap = cm_burst_xt(
+                XaT, y, aset.beta, norms * norms, aset.mask, aset.order, lam,
+                n_ep, aset.count, loss_name=loss.name)
         return InnerOut(beta=beta, z=z, theta=theta, gap=gap)
 
     return InnerBackend(name="cuda", init=_no_init, refresh=_no_refresh,
@@ -173,42 +215,53 @@ def make_inner_cuda(loss: Loss, X: Tensor, y: Tensor,
 
 
 def make_inner(name: str, loss: Loss, X: Tensor, y: Tensor,
-               col_norm: Tensor, h: int) -> InnerBackend:
+               col_norm: Tensor, h: int, unpen_idx: int = -1
+               ) -> InnerBackend:
     if name == "gram":
-        return make_inner_gram(loss, X, y, h)
+        return make_inner_gram(loss, X, y, h, unpen_idx)
     if name == "cuda":
-        return make_inner_cuda(loss, X, y, col_norm)
-    return make_inner_torch(loss, X, y)
+        return make_inner_cuda(loss, X, y, col_norm, unpen_idx)
+    return make_inner_torch(loss, X, y, unpen_idx)
 
 
 # n/k_max crossover of the auto policy, the reference's: the gram step is an
-# O(k_max) axpy against ~3 O(n) passes of the residual step.
+# O(k_max) axpy against ~3 O(n) passes of the residual step. It decides only
+# where the Gram sweep competes with a plain loop: on the CPU, and on the card
+# past K3's shared-memory gate.
 GRAM_CROSSOVER = 4.0
 
 
 def resolve_inner_backend(name: str, loss_name: str, n: int, k_max: int,
-                          device: torch.device, itemsize: int = 8) -> str:
-    """Inner-backend policy: an explicit name wins; ``auto`` picks the
-    covariance-update engine for least squares while GRAM_CROSSOVER * n >=
-    k_max, else the K3 kernel on a CUDA device and the plain path on the
-    CPU. A block over K3's shared-memory budget raises on a CUDA device,
-    under ``auto`` as under ``cuda``: the plain path there is a host loop
-    that the caller must ask for by name."""
+                          device: torch.device, itemsize: int = 8,
+                          unpen: bool = False) -> str:
+    """Inner-backend policy: an explicit name wins. ``auto`` on a CUDA
+    device runs the K3 kernel while the burst fits its shared memory
+    (``cm_smem_ok``; ``unpen``: with the unpenalized slot's weights), for
+    least squares too, since the port's Gram sweep is a host loop with one
+    device read per coordinate step; past that gate least squares takes
+    the Gram engine while GRAM_CROSSOVER * n >= k_max. On the CPU ``auto``
+    keeps the reference's choice: the Gram engine for least squares under
+    the same crossover, else the plain path. A burst that neither fits K3
+    nor (least squares) the crossover raises on a CUDA device, under
+    ``auto`` as under ``cuda``: the plain path there is a host loop that
+    the caller must ask for by name."""
     from repro_torch.kernels.cm.cm import cm_smem_ok
 
+    ls = loss_name == "least_squares"
     if name == "auto":
-        if loss_name == "least_squares" and GRAM_CROSSOVER * n >= k_max:
-            return "gram"
         if torch.device(device).type != "cuda":
-            return "torch"
+            return "gram" if ls and GRAM_CROSSOVER * n >= k_max else "torch"
+        if (ls and not cm_smem_ok(n, k_max, itemsize, unpen)
+                and GRAM_CROSSOVER * n >= k_max):
+            return "gram"
         name = "cuda"
     if name not in ("torch", "gram", "cuda"):
         raise ValueError(f"unknown inner backend {name!r}")
-    if name == "gram" and loss_name != "least_squares":
+    if name == "gram" and not ls:
         raise ValueError("inner_backend='gram' requires loss='least_squares'"
                          " (covariance updates need a linear gradient); use"
                          " 'torch' or 'cuda'")
-    if name == "cuda" and not cm_smem_ok(n, k_max, itemsize):
+    if name == "cuda" and not cm_smem_ok(n, k_max, itemsize, unpen):
         raise ValueError(
             f"CUDA inner backend: a {n}x{k_max} active block exceeds the "
             f"CM kernel's shared-memory budget; shrink k_max, or pass "

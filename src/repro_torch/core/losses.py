@@ -41,10 +41,12 @@ class Loss:
     hess: Callable[[Tensor, Tensor], Tensor]
 
     def primal_objective(self, X: Tensor, y: Tensor, beta: Tensor,
-                         lam) -> Tensor:
-        """P(beta) = sum_j f(x_j. beta, y_j) + lam sum_i |beta_i|."""
+                         lam, weights: Tensor | None = None) -> Tensor:
+        """P(beta) = sum_j f(x_j. beta, y_j) + lam sum_i w_i |beta_i|;
+        ``weights`` (None = all 1) is 0 on an unpenalized coordinate."""
         z = X @ beta
-        return torch.sum(self.value(z, y)) + lam * torch.sum(torch.abs(beta))
+        l1 = torch.abs(beta) if weights is None else weights * torch.abs(beta)
+        return torch.sum(self.value(z, y)) + lam * torch.sum(l1)
 
     def dual_objective(self, y: Tensor, theta: Tensor, lam) -> Tensor:
         """D(theta) = -sum_j f*(-lam theta_j, y_j)   (paper Eq. 2)."""

@@ -10,6 +10,12 @@ phase), done by a :data:`~repro_torch.core.screen_backend.ScreenFn`; the CM
 burst, dual point and gap come from an
 :class:`~repro_torch.core.inner_backend.InnerBackend`.
 
+An unpenalized coordinate (``SaifConfig.unpen_idx``, fused LASSO's ``b``,
+Thm 7) is pinned at slot 0 of the active set from its null fit ``b0``,
+never DELed, unthresholded in the CM steps, and its equality constraint
+shapes the dual point; the Thm-2 sequential ball and the hybrid rule's
+Newton polish assume an all-penalized problem and are off then.
+
 Entry points take ``device=None``, which means ``"cuda"``: without a card
 they raise unless the caller asks for ``device="cpu"``.
 """
@@ -53,14 +59,11 @@ class SaifConfig:
     loss: str = "least_squares"
     screen_backend: str = "auto"  # "auto" | "torch" | "cuda"
     inner_backend: str = "auto"   # "auto" | "torch" | "gram" | "cuda"
-    unpen_idx: Optional[int] = None  # not ported yet (fused-LASSO slice)
+    unpen_idx: Optional[int] = None  # feature id exempt from the l1
+    #   penalty (fused LASSO's always-resident b slot); None = plain LASSO
     screen_rule: str = "saif"     # "saif" | "gap_safe" | "hybrid"
 
     def __post_init__(self):
-        if self.unpen_idx is not None:
-            raise NotImplementedError(
-                "unpen_idx (the unpenalized slot of fused LASSO) is not "
-                "ported to repro_torch yet")
         resolve_screen_rule(self.screen_rule)   # fail fast on unknown names
 
 
@@ -96,23 +99,35 @@ def default_capacity(h: int, p: int) -> int:
     return int(min(p, max(8 * h, 64)))
 
 
-def initial_support(c0: Tensor, h: int, k_max: int, p: int):
+def initial_support(c0: Tensor, h: int, k_max: int, p: int,
+                    unpen_idx: Optional[int] = None, b0=0.0):
     """Cold-start support (Algorithm 1 line 1): the top-h' features by c0,
-    ties to the lowest id. Returns (init_idx (k_max,), init_beta (k_max,),
-    n_init)."""
-    n_init = min(h, k_max, p)
-    top = torch.sort(c0, descending=True, stable=True).indices[:n_init]
-    init_idx = torch.zeros(k_max, dtype=torch.long, device=c0.device)
-    init_idx[:n_init] = top
-    return init_idx, torch.zeros(k_max, dtype=c0.dtype, device=c0.device), \
-        n_init
+    ties to the lowest id. With an unpenalized coordinate it is pinned at
+    slot 0, seeded at its null fit ``b0``, and kept out of the top-h'.
+    Returns (init_idx (k_max,), init_beta (k_max,), n_init)."""
+    dev = c0.device
+    init_idx = torch.zeros(k_max, dtype=torch.long, device=dev)
+    init_beta = torch.zeros(k_max, dtype=c0.dtype, device=dev)
+    if unpen_idx is None:
+        n_init = min(h, k_max, p)
+        init_idx[:n_init] = torch.sort(c0, descending=True,
+                                       stable=True).indices[:n_init]
+        return init_idx, init_beta, n_init
+    n_init = min(h + 1, k_max, p)
+    c0_top = c0.clone()
+    c0_top[unpen_idx] = -torch.inf       # ties at 0 must not pick it
+    top = torch.sort(c0_top, descending=True, stable=True).indices
+    init_idx[0] = unpen_idx
+    init_idx[1:n_init] = top[:n_init - 1]
+    init_beta[0] = float(b0)
+    return init_idx, init_beta, n_init
 
 
 def _solve(X, y, col_norm, c0, lam, eps, delta0, init_idx, init_beta,
            init_mask, carry_in: InnerCarry, h_tilde, h_cap, *, loss_name,
            h, k_max, inner_epochs, polish_factor, max_outer, use_seq_ball,
-           screen_backend, inner_backend,
-           screen_rule: ScreenRule) -> SaifResult:
+           screen_backend, inner_backend, screen_rule: ScreenRule,
+           unpen_idx: int = -1) -> SaifResult:
     """The outer loop of Algorithm 1/2 (the reference's ``_saif_jit``).
 
     The loop ends at the first ADD that runs out of slots. The reference
@@ -129,10 +144,10 @@ def _solve(X, y, col_norm, c0, lam, eps, delta0, init_idx, init_beta,
     make_screen = (make_screen_cuda if screen_backend == "cuda"
                    else make_screen_torch)
     screen = make_screen(X, col_norm, h)
-    inner = make_inner(inner_backend, loss, X, y, col_norm, h)
+    inner = make_inner(inner_backend, loss, X, y, col_norm, h, unpen_idx)
     g0 = loss.grad(torch.zeros_like(y), y)          # f'(0)
     newton = (screen_rule.newton_polish and inner_backend == "gram"
-              and loss_name == "least_squares")
+              and loss_name == "least_squares" and unpen_idx < 0)
     ranks = torch.arange(h, device=dev)
 
     aset = aset_lib.init_active_set(p, k_max, init_idx, dt, init_beta,
@@ -194,6 +209,10 @@ def _solve(X, y, col_norm, c0, lam, eps, delta0, init_idx, init_beta,
             corr_act = torch.abs(Xa.T @ theta_c)
             norm_act = torch.where(aset.mask, col_norm[aset.idx], 0.0)
             del_mask = aset.mask & (corr_act + norm_act * r_del < 1.0)
+            if unpen_idx >= 0:
+                # the unpenalized slot's dual constraint is an equality:
+                # the < 1 DEL rule never applies to it
+                del_mask = del_mask & (aset.idx != unpen_idx)
             aset = aset_lib.delete_features(aset, del_mask)
 
         # --- ADD phase
@@ -316,12 +335,14 @@ def _median(v: Tensor) -> float:
 def prepare_path(X, y, config: SaifConfig = SaifConfig(),
                  device=None) -> PathState:
     """The one-time preparation pass (see :class:`PathState`). ``X`` and
-    ``y`` may be numpy arrays or tensors; the dtype follows ``X``."""
+    ``y`` may be numpy arrays or tensors; the dtype follows ``X``. With an
+    unpenalized coordinate the null model sits at its partial optimum b0
+    and c0[unpen_idx] is 0."""
     dev = resolve_device(device)
     loss = get_loss(config.loss)
     X = as_tensor(X, dev)
     y = as_tensor(y, dev, X.dtype)
-    _, c0, b0 = null_gradient(loss, X, y)
+    _, c0, b0 = null_gradient(loss, X, y, config.unpen_idx)
     col_norm = torch.linalg.vector_norm(X, dim=0)
     c0_max = float(torch.max(c0))
     return PathState(X=X, y=y, c0=c0, col_norm=col_norm, lam_max=c0_max,
@@ -340,8 +361,10 @@ def solve_scalar(prep: PathState, lam: float,
     n, p = X.shape
     n_true = prep.n_true or n
     p_true = prep.p_true or p
+    unpen = config.unpen_idx
     rule = resolve_screen_rule(config.screen_rule)
-    use_seq = config.use_seq_ball and rule.use_seq_ball
+    # the Thm-2 ball assumes the all-penalized null dual -f'(0)/lam_max
+    use_seq = config.use_seq_ball and unpen is None and rule.use_seq_ball
 
     h = add_batch_size_static(config.c, lam, prep.c0_max, prep.c0_median,
                               p_true)
@@ -354,14 +377,23 @@ def solve_scalar(prep: PathState, lam: float,
     if warm_idx is not None:
         k_max = max(k_max, default_capacity(h, p_true))
         warm_idx = as_tensor(warm_idx, dev, torch.long)
+        warm_beta = (torch.zeros(warm_idx.shape[0], dtype=X.dtype,
+                                 device=dev) if warm_beta is None
+                     else as_tensor(warm_beta, dev, X.dtype))
+        if unpen is not None and not bool((warm_idx == unpen).any()):
+            # the unpenalized slot is always resident: prepend it, so a
+            # capacity-full warm support can never truncate it away
+            warm_idx = torch.cat([warm_idx.new_tensor([unpen]), warm_idx])
+            warm_beta = torch.cat([warm_beta.new_tensor([prep.b0]),
+                                   warm_beta])
         n_init = min(int(warm_idx.shape[0]), k_max, p_true)
         init_idx = torch.zeros(k_max, dtype=torch.long, device=dev)
         init_idx[:n_init] = warm_idx[:n_init]
         init_beta = torch.zeros(k_max, dtype=X.dtype, device=dev)
-        if warm_beta is not None:
-            init_beta[:n_init] = as_tensor(warm_beta, dev, X.dtype)[:n_init]
+        init_beta[:n_init] = warm_beta[:n_init]
     else:
-        init_idx, init_beta, n_init = initial_support(c0, h, k_max, p_true)
+        init_idx, init_beta, n_init = initial_support(c0, h, k_max, p_true,
+                                                      unpen, prep.b0)
 
     while True:
         init_idx = init_idx[:k_max]
@@ -372,7 +404,8 @@ def solve_scalar(prep: PathState, lam: float,
             init_beta = torch.nn.functional.pad(init_beta, (0, pad))
         # capacity growth can move the auto crossover
         inner = resolve_inner_backend(config.inner_backend, config.loss,
-                                      n_true, k_max, dev, X.element_size())
+                                      n_true, k_max, dev, X.element_size(),
+                                      unpen is not None)
         res = _solve(
             X, y, col_norm, c0, lam, config.eps, delta0, init_idx,
             init_beta, torch.arange(k_max, device=dev) < n_init,
@@ -381,7 +414,8 @@ def solve_scalar(prep: PathState, lam: float,
             inner_epochs=config.inner_epochs,
             polish_factor=config.polish_factor, max_outer=config.max_outer,
             use_seq_ball=use_seq, screen_backend=screen,
-            inner_backend=inner, screen_rule=rule)
+            inner_backend=inner, screen_rule=rule,
+            unpen_idx=-1 if unpen is None else unpen)
         if not res.overflowed or k_max >= p_true:
             return res
         k_max = min(2 * k_max, p_true)  # elastic capacity growth

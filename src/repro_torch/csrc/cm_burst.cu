@@ -6,6 +6,14 @@
 //    `order` on the active block, z = A beta kept by rank-1 updates; then a
 //    fresh z = A beta, the feasible dual point theta (LS: the tau* scaling;
 //    logistic: rescale + dom f* clip) and the primal-dual gap.
+//    With `pen` (the _pen entries) it is the has_unpen=True branch
+//    (cm.py:184-206): per-slot l1 weights in the threshold, and a tail
+//    that takes the first live slot with weight 0 as fused LASSO's
+//    unpenalized column ab (read from the block, not copied), Newton-
+//    polishes b along it for logistic (4 steps: Hessian floor 1e-30, step
+//    clip 1e3 / max|ab|, two block reductions each), projects the dual
+//    point onto ab's orthogonal complement (one more block reduction),
+//    scales over the penalized columns only and weights the l1 term.
 //    Bound on this card: the sweep is count * n_epochs dependent coordinate
 //    steps, each a length-n dot product, a scalar soft-threshold and a
 //    length-n axpy. Its bytes (one column of A from L2 per step, a few MB
@@ -61,6 +69,13 @@ __device__ __forceinline__ T value(T z, T y) {
   return fmax(T(0), m) + Num<T>::log1p(Num<T>::exp(-fabs(m)));
 }
 
+template <typename T, int L>
+__device__ __forceinline__ T hess(T z, T y) {
+  if (L == LS) return T(1);
+  const T s = sigmoid<T>(-y * z);
+  return s * (T(1) - s);
+}
+
 template <typename T>
 __device__ __forceinline__ T xlogx(T s) { return s > T(0) ? s * Num<T>::log(s) : T(0); }
 
@@ -89,13 +104,43 @@ __device__ __forceinline__ T block_sum(T v, T* buf) {
   return s;
 }
 
-template <typename T, int L>
+// Block max; every thread gets the same value. Same buffer rule as above.
+template <typename T>
+__device__ __forceinline__ T block_max(T v, T* buf) {
+  for (int off = 16; off > 0; off >>= 1)
+    v = fmax(v, __shfl_down_sync(0xffffffffu, v, off));
+  if ((threadIdx.x & 31) == 0) buf[threadIdx.x >> 5] = v;
+  __syncthreads();
+  T s = buf[0];
+  for (int i = 1; i < NW; ++i) s = fmax(s, buf[i]);
+  return s;
+}
+
+// Two block sums behind one barrier; `buf` holds 2 * NW slots.
+template <typename T>
+__device__ __forceinline__ void block_sum2(T& a, T& b, T* buf) {
+  a = warp_sum(a);
+  b = warp_sum(b);
+  if ((threadIdx.x & 31) == 0) {
+    buf[threadIdx.x >> 5] = a;
+    buf[NW + (threadIdx.x >> 5)] = b;
+  }
+  __syncthreads();
+  a = buf[0];
+  b = buf[NW];
+  for (int i = 1; i < NW; ++i) {
+    a += buf[i];
+    b += buf[NW + i];
+  }
+}
+
+template <typename T, int L, bool PEN>
 __global__ void __launch_bounds__(NT)
 cm_burst_kernel(const T* __restrict__ AT, const T* __restrict__ y,
                 T* __restrict__ beta, const T* __restrict__ col_sq,
                 const uint8_t* __restrict__ mask, const int* __restrict__ order,
-                T lam, int n_epochs, int count, int n, int k,
-                T* __restrict__ z_out, T* __restrict__ theta_out,
+                const T* __restrict__ pen, T lam, int n_epochs, int count,
+                int n, int k, T* __restrict__ z_out, T* __restrict__ theta_out,
                 T* __restrict__ gap_out) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* y_s = reinterpret_cast<T*>(smem);
@@ -103,7 +148,8 @@ cm_burst_kernel(const T* __restrict__ AT, const T* __restrict__ y,
   T* w_s = z_s + n;                   // unscaled dual point, then theta
   T* b_s = w_s + n;
   T* c_s = b_s + k;
-  T* red = c_s + k;                   // 4 * NW reduction slots
+  T* p_s = c_s + k;                   // PEN: the (k,) l1 weights
+  T* red = p_s + (PEN ? k : 0);       // 4 * NW reduction slots
   int* o_s = reinterpret_cast<int*>(red + 4 * NW);
   uint8_t* m_s = reinterpret_cast<uint8_t*>(o_s + k);
   const T alpha = (L == LS) ? T(1) : T(0.25);
@@ -113,6 +159,7 @@ cm_burst_kernel(const T* __restrict__ AT, const T* __restrict__ y,
   for (int j = tid; j < k; j += NT) {
     b_s[j] = beta[j];
     c_s[j] = col_sq[j];
+    if (PEN) p_s[j] = pen[j];
     o_s[j] = order[j];
     m_s[j] = mask[j];
   }
@@ -140,7 +187,7 @@ cm_burst_kernel(const T* __restrict__ AT, const T* __restrict__ y,
       parity ^= 1;
       const T lj = fmax(alpha * c_s[j], T(1e-30));
       const T u = bj - g / lj;
-      const T t = lam / lj;
+      const T t = PEN ? lam * p_s[j] / lj : lam / lj;
       const T a = fabs(u) - t;
       T b_new = a > T(0) ? copysign(a, u) : T(0);
       if (!m_s[j]) b_new = T(0);
@@ -152,19 +199,65 @@ cm_burst_kernel(const T* __restrict__ AT, const T* __restrict__ y,
   }
   __syncthreads();
 
-  // ---- tail: fresh z, dual point, gap ----
-  T part_val = T(0), part_sq = T(0), part_yh = T(0);
+  // ---- tail: fresh z, [polish b,] dual point, gap ----
   for (int i = tid; i < n; i += NT) {
     T acc = T(0);
     for (int j = 0; j < k; ++j) {
       const T bj = b_s[j];
       if (bj != T(0)) acc += AT[(size_t)j * n + i] * bj;
     }
-    z_s[i] = acc;
-    z_out[i] = acc;
-    const T hat = -grad<T, L>(acc, y_s[i]) / lam;
+    z_s[i] = acc;                     // each thread keeps to its own rows
+  }
+  // the unpenalized slot: the first live one with weight 0 (same in every
+  // thread); u < 0 leaves the plain-LASSO tail
+  int u = -1;
+  if (PEN)
+    for (int j = 0; j < k; ++j)
+      if (m_s[j] && p_s[j] == T(0)) { u = j; break; }
+  const T* ab = AT + (size_t)(u < 0 ? 0 : u) * n;
+  if (PEN && L != LS && u >= 0) {
+    // Newton polish of b (duality.polish_unpen): x_b^T f'(z) ~ 0 so the
+    // projection below is a benign correction
+    T amax = T(0);
+    for (int i = tid; i < n; i += NT) amax = fmax(amax, fabs(ab[i]));
+    const T lim = T(1e3) / fmax(block_max(amax, red), T(1e-30));
+    T b = b_s[u];
+    for (int it = 0; it < 4; ++it) {
+      T pg = T(0), ph = T(0);
+      for (int i = tid; i < n; i += NT) {
+        const T a = ab[i];
+        pg += a * grad<T, L>(z_s[i], y_s[i]);
+        ph += a * a * hess<T, L>(z_s[i], y_s[i]);
+      }
+      // alternate halves of `red`: the other half was last read before
+      // the previous call's barrier (block_max took the first half)
+      block_sum2(pg, ph, red + 2 * NW * ((it + 1) & 1));
+      const T d = fmin(fmax(pg / fmax(ph, T(1e-30)), -lim), lim);
+      b -= d;
+      for (int i = tid; i < n; i += NT) z_s[i] -= d * ab[i];
+    }
+    if (tid == 0) b_s[u] = b;         // read again only after a barrier
+  }
+  T cproj = T(0);                     // hat -= ab * cproj (Thm 7 projection)
+  if (PEN && u >= 0) {
+    __syncthreads();                  // the polish's buffers are free
+    T pah = T(0), paa = T(0);
+    for (int i = tid; i < n; i += NT) {
+      const T a = ab[i];
+      pah += a * (-grad<T, L>(z_s[i], y_s[i]) / lam);
+      paa += a * a;
+    }
+    block_sum2(pah, paa, red);
+    cproj = pah / fmax(paa, T(1e-30));
+  }
+  T part_val = T(0), part_sq = T(0), part_yh = T(0);
+  for (int i = tid; i < n; i += NT) {
+    const T zi = z_s[i];
+    z_out[i] = zi;
+    T hat = -grad<T, L>(zi, y_s[i]) / lam;
+    if (PEN && u >= 0) hat -= ab[i] * cproj;
     w_s[i] = hat;
-    part_val += value<T, L>(acc, y_s[i]);
+    part_val += value<T, L>(zi, y_s[i]);
     part_sq += hat * hat;
     part_yh += y_s[i] * hat;
   }
@@ -177,11 +270,11 @@ cm_burst_kernel(const T* __restrict__ AT, const T* __restrict__ y,
     T c = T(0);
     for (int i = wl; i < n; i += 32) c += w_s[i] * aj[i];
     c = warp_sum(c);
-    mx = fmax(mx, fabs(c));
+    mx = fmax(mx, PEN ? fabs(c) * p_s[j] : fabs(c));   // penalized only
   }
   if (wl == 0) red[2 * NW + w] = mx;
   T l1 = T(0);
-  for (int j = tid; j < k; j += NT) l1 += fabs(b_s[j]);
+  for (int j = tid; j < k; j += NT) l1 += PEN ? p_s[j] * fabs(b_s[j]) : fabs(b_s[j]);
   __syncthreads();
   T max_corr = red[2 * NW];
   for (int i = 1; i < NW; ++i) max_corr = fmax(max_corr, red[2 * NW + i]);
@@ -219,27 +312,27 @@ cm_burst_kernel(const T* __restrict__ AT, const T* __restrict__ y,
 }
 
 // keep in step with kernels/cm/cm.py::cm_smem_bytes
-size_t smem_bytes(int n, int k, size_t itemsize) {
-  return (3 * (size_t)n + 2 * (size_t)k + 4 * NW) * itemsize +
+size_t smem_bytes(int n, int k, size_t itemsize, bool pen) {
+  return (3 * (size_t)n + (pen ? 3 : 2) * (size_t)k + 4 * NW) * itemsize +
          (size_t)k * (sizeof(int) + 1);
 }
 
-template <typename T, int L>
+template <typename T, int L, bool PEN>
 int launch(const void* AT, const void* y, void* beta, const void* col_sq,
-           const void* mask, const void* order, T lam, int n_epochs,
-           int count, int n, int k, void* z, void* theta, void* gap,
-           void* stream) {
-  const size_t smem = smem_bytes(n, k, sizeof(T));
+           const void* mask, const void* order, const void* pen, T lam,
+           int n_epochs, int count, int n, int k, void* z, void* theta,
+           void* gap, void* stream) {
+  const size_t smem = smem_bytes(n, k, sizeof(T), PEN);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        cm_burst_kernel<T, L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        cm_burst_kernel<T, L, PEN>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  cm_burst_kernel<T, L><<<1, NT, smem, (cudaStream_t)stream>>>(
+  cm_burst_kernel<T, L, PEN><<<1, NT, smem, (cudaStream_t)stream>>>(
       (const T*)AT, (const T*)y, (T*)beta, (const T*)col_sq,
-      (const uint8_t*)mask, (const int*)order, lam, n_epochs, count, n, k,
-      (T*)z, (T*)theta, (T*)gap);
+      (const uint8_t*)mask, (const int*)order, (const T*)pen, lam, n_epochs,
+      count, n, k, (T*)z, (T*)theta, (T*)gap);
   return (int)cudaGetLastError();
 }
 
@@ -252,13 +345,27 @@ extern "C" {
            const void* mask, const void* order, T lam, int n_epochs,          \
            int count, int n, int k, void* z, void* theta, void* gap,          \
            void* stream) {                                                     \
-    return launch<T, L>(AT, y, beta, col_sq, mask, order, lam, n_epochs,      \
-                        count, n, k, z, theta, gap, stream);                  \
+    return launch<T, L, false>(AT, y, beta, col_sq, mask, order, nullptr,     \
+                               lam, n_epochs, count, n, k, z, theta, gap,     \
+                               stream);                                        \
+  }
+
+#define CM_ENTRY_PEN(NAME, T, L)                                               \
+  int NAME(const void* AT, const void* y, void* beta, const void* col_sq,     \
+           const void* mask, const void* order, const void* pen, T lam,       \
+           int n_epochs, int count, int n, int k, void* z, void* theta,       \
+           void* gap, void* stream) {                                          \
+    return launch<T, L, true>(AT, y, beta, col_sq, mask, order, pen, lam,     \
+                              n_epochs, count, n, k, z, theta, gap, stream);  \
   }
 
 CM_ENTRY(cm_burst_ls_f32, float, LS)
 CM_ENTRY(cm_burst_ls_f64, double, LS)
 CM_ENTRY(cm_burst_logit_f32, float, LOGIT)
 CM_ENTRY(cm_burst_logit_f64, double, LOGIT)
+CM_ENTRY_PEN(cm_burst_ls_f32_pen, float, LS)
+CM_ENTRY_PEN(cm_burst_ls_f64_pen, double, LS)
+CM_ENTRY_PEN(cm_burst_logit_f32_pen, float, LOGIT)
+CM_ENTRY_PEN(cm_burst_logit_f64_pen, double, LOGIT)
 
 }  // extern "C"

@@ -22,25 +22,31 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("screen", "cm_burst")
+SOURCES = ("screen", "cm_burst", "chain_suffix")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# argument types of every exported function; the float type of a
-# "_f32"/"_f64" entry's scalar is filled in below
+# argument types of every exported function, by name with "{dt}" standing
+# for "f32" or "f64"; None is the float scalar of that type
+_CM = [_P, _P, _P, _P, _P, _P, None, _I, _I, _I, _I, _P, _P, _P, _P]
+_CM_PEN = _CM[:6] + [_P] + _CM[6:]
 _SIGNATURES = {
     "screen": {
-        "screen_fused": [_P, _P, _P, _P, None, _I, _I, _I, _I,
-                         _P, _P, _P, _P, _P, _P, _P],
-        "ub_histogram": [_P, _P, _I, _I, _P, _P],
+        "screen_fused_{dt}": [_P, _P, _P, _P, None, _I, _I, _I, _I,
+                              _P, _P, _P, _P, _P, _P, _P],
+        "ub_histogram_{dt}": [_P, _P, _I, _I, _P, _P],
     },
     "cm_burst": {
-        "cm_burst_ls": [_P, _P, _P, _P, _P, _P, None, _I, _I, _I, _I,
-                        _P, _P, _P, _P],
-        "cm_burst_logit": [_P, _P, _P, _P, _P, _P, None, _I, _I, _I, _I,
-                           _P, _P, _P, _P],
+        "cm_burst_ls_{dt}": _CM,
+        "cm_burst_logit_{dt}": _CM,
+        "cm_burst_ls_{dt}_pen": _CM_PEN,
+        "cm_burst_logit_{dt}_pen": _CM_PEN,
+    },
+    "chain_suffix": {
+        "chain_suffix_sums_{dt}": [_P, _P, _I, _I, _P],
+        "add_latency_{dt}": [_I, _P, _P],
     },
 }
 
@@ -98,10 +104,9 @@ def library(name: str) -> ctypes.CDLL:
         return lib
     build((name,))
     lib = ctypes.CDLL(str(_lib_path(name)))
-    for base, args in _SIGNATURES[name].items():
-        for suffix, ftype in (("_f32", ctypes.c_float),
-                              ("_f64", ctypes.c_double)):
-            fn = getattr(lib, base + suffix)
+    for pattern, args in _SIGNATURES[name].items():
+        for dt, ftype in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
+            fn = getattr(lib, pattern.format(dt=dt))
             fn.argtypes = [ftype if a is None else a for a in args]
             fn.restype = ctypes.c_int
     _LIBS[name] = lib

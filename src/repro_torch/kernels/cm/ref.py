@@ -1,22 +1,29 @@
 """Plain PyTorch version of the CM burst kernel.
 
 The reference package has no plain twin of ``cm_burst_pallas``; this one
-repeats its arithmetic for the plain-LASSO specialisation (every slot
-penalized): the compact prox-Newton sweeps of ``core/cm.py``, then a fresh
-z = A beta, the feasible dual point and the primal-dual gap.
+repeats its arithmetic: the compact prox-Newton sweeps of ``core/cm.py``,
+then a fresh z = A beta, the feasible dual point and the primal-dual gap.
+With ``pen`` (per-slot l1 weights, 0 on fused LASSO's unpenalized slot) it
+is the ``has_unpen=True`` branch: the unpenalized column
+ab = A (mask (1 - pen)), for a general loss a Newton polish of b along it
+before the dual point, the projection of the dual point onto ab's
+orthogonal complement, the scaling over the penalized columns only and the
+pen-weighted l1 term in the primal.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.cm import cm_sweeps
+from repro_torch.core.duality import polish_unpen
 from repro_torch.core.losses import get_loss
 
 Tensor = torch.Tensor
 
 
 def cm_burst_ref(A: Tensor, y: Tensor, beta: Tensor, col_sq: Tensor,
-                 mask: Tensor, order: Tensor, lam, n_epochs, count, *,
+                 mask: Tensor, order: Tensor, lam, n_epochs, count,
+                 pen: Tensor | None = None, *,
                  loss_name: str = "least_squares"):
     """One "CM burst + gap" on the (n, k) active block ``A``.
 
@@ -24,10 +31,20 @@ def cm_burst_ref(A: Tensor, y: Tensor, beta: Tensor, col_sq: Tensor,
     """
     loss = get_loss(loss_name)
     beta, _ = cm_sweeps(loss, A, y, beta, A @ beta, mask, lam, col_sq,
-                        order, count, n_epochs)
+                        order, count, n_epochs, pen)
     z = A @ beta                                   # fresh, drift-free
+    if pen is not None:
+        w = torch.where(mask, 1.0 - pen, 0.0).to(A.dtype)
+        ab = A @ w                                 # the unpenalized column
+        if loss.name != "least_squares":
+            b_new, z = polish_unpen(loss, ab, y, z, torch.dot(beta, w))
+            beta = torch.where(w > 0.5, b_new, beta)
     hat = -loss.grad(z, y) / lam
-    max_corr = torch.max(torch.abs(hat @ A))
+    if pen is not None:
+        sq_b = torch.dot(ab, ab)
+        hat = hat - ab * (torch.dot(ab, hat) / torch.clamp(sq_b, min=1e-30))
+    corr = torch.abs(hat @ A)
+    max_corr = torch.max(corr if pen is None else corr * pen)
     if loss.name == "least_squares":
         bound = 1.0 / torch.clamp(max_corr, min=1e-30)
         sq = torch.sum(hat * hat)
@@ -39,6 +56,7 @@ def cm_burst_ref(A: Tensor, y: Tensor, beta: Tensor, col_sq: Tensor,
     else:
         theta = hat / torch.clamp(max_corr, min=1.0)
         theta = -loss.dual_clip(-lam * theta, y) / lam
-    p_val = torch.sum(loss.value(z, y)) + lam * torch.sum(torch.abs(beta))
+    l1 = torch.abs(beta) if pen is None else pen * torch.abs(beta)
+    p_val = torch.sum(loss.value(z, y)) + lam * torch.sum(l1)
     d_val = -torch.sum(loss.conj(-lam * theta, y))
     return beta, z, theta, p_val - d_val

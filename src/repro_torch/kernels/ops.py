@@ -11,8 +11,11 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels.cm.cm import (CM_SMEM_BUDGET_BYTES, cm_burst,
-                                       cm_burst_xt, cm_smem_ok)
+                                       cm_burst_pen_xt, cm_burst_xt,
+                                       cm_smem_ok)
 from repro_torch.kernels.cm.ref import cm_burst_ref
+from repro_torch.kernels.fused.fused import chain_suffix_sums
+from repro_torch.kernels.fused.ref import chain_suffix_sums_ref
 from repro_torch.kernels.screen.ref import (screen_fused_ref,
                                             screen_scores_ref,
                                             ub_histogram_ref)
@@ -21,7 +24,8 @@ from repro_torch.kernels.screen.screen import (screen_fused, screen_scores,
 
 # kernel name -> the wrapper whose ``launches`` counts it
 KERNELS = {"screen_fused": screen_fused, "ub_histogram": ub_histogram,
-           "cm_burst": cm_burst_xt}
+           "cm_burst": cm_burst_xt, "cm_burst_pen": cm_burst_pen_xt,
+           "chain_suffix_sums": chain_suffix_sums}
 
 
 def on_cuda() -> bool:
@@ -40,7 +44,8 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ["screen_fused", "screen_scores", "ub_histogram", "cm_burst",
-           "cm_burst_xt", "cm_smem_ok", "CM_SMEM_BUDGET_BYTES",
+           "cm_burst_xt", "cm_burst_pen_xt", "cm_smem_ok",
+           "CM_SMEM_BUDGET_BYTES", "chain_suffix_sums",
            "screen_fused_ref", "screen_scores_ref", "ub_histogram_ref",
-           "cm_burst_ref", "on_cuda", "launch_counts",
+           "cm_burst_ref", "chain_suffix_sums_ref", "on_cuda", "launch_counts",
            "reset_launch_counts", "KERNELS"]

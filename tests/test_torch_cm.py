@@ -71,10 +71,14 @@ def test_cm_burst_matches_pallas(loss_name, n, k, count):
 
 
 def test_cm_burst_pen_not_ported():
+    """The pen branch is ported (its cases are in test_torch_fused.py): with
+    every slot penalized it is the plain-LASSO burst, bit for bit."""
     A, y, beta, mask, order, lam = _block(0, 8, 4, 3, "least_squares")
-    with pytest.raises(NotImplementedError):
-        ops.cm_burst(_t(A), _t(y), _t(beta), _t(np.ones(4)), _t(mask),
-                     _t(order), lam, 1, 3, pen=_t(np.ones(4)))
+    args = (_t(A), _t(y), _t(beta), _t(np.ones(4)), _t(mask), _t(order),
+            lam, 1, 3)
+    for a, b in zip(ops.cm_burst(*args, pen=_t(np.ones(4))),
+                    ops.cm_burst(*args)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("loss_name", ["least_squares", "logistic"])
