@@ -34,11 +34,31 @@ Phases (each one fails the run by raising):
    float32, at the shapes the solves gave it: max error against a stated
    tolerance, the kernel's time, the plain version's time, the time of a
    PyTorch call computing the same function where one exists, and the
-   least time the card could take (bytes or operations, whichever bounds).
+   least time the card could take (bytes or operations, whichever bounds);
+9. the least-squares fleet at full width: phase 2's X with B = 16
+   responses built as benchmarks/bench_batch.py's ``_fleet_problem``
+   builds them (15 true features in [-1, 1], N(0, 1) noise, a seed per
+   response), lambda_b spread geometrically from 0.8 down to 0.3 of each
+   problem's lambda_max, through ``fleet_solve`` under ``auto`` (K1b, K2b,
+   K3b and no serial kernel); every problem certified (gap <= eps, KKT
+   <= 1e-3 lambda_b) and its row bit for bit the port's serial ``saif``
+   on the card (K1/K2/K3); the fleet's wall against the sum of the 16
+   serial walls, and the fleet profiled;
+10. the logistic fleet: B = 8 label vectors over phase 3's design (40 true
+   features each, a seed per vector), lambda from 0.5 down to 0.2
+   lambda_max, the same checks;
+11. the plain fleet on the card: ``torch`` screen and inner on 2 problems
+   of phase 9 (its largest and smallest lambda): the kernel fleet's
+   support, beta within rtol 1e-6, gap <= eps;
+12. K1b, K2b and K3b against their plain versions at the fleet's shapes
+   (B = 16, n = 1000, p = 100,000, its h and k_max), in float64 and
+   float32, and each against B launches of its serial kernel (K1, K2,
+   K3), bit for bit.
 
 Launch counters are zeroed just before each solve (and the transform of
-phase 4) and read just after; the kernel launches of phase 8, of the
-comparisons of phase 4, of the lambda_max helpers and of one extra solve
+phase 4) and read just after; the kernel launches of phases 8 and 12, of
+the comparisons of phase 4, of the serial solves that phases 9-10 compare
+with, of the lambda_max helpers and of one extra solve
 under torch.profiler (the device's busy time and idle share) do not
 count. The last two lines are the card's name and power limit and
 ``{"ok": true, "device": {...}}``; the line before them is the per-kernel
@@ -75,6 +95,9 @@ FUSED_P = 5000
 FUSED_LS_LAM = 0.3
 FUSED_LOGIT_LAM = 0.7
 FUSED_PATH = (0.7, 0.3, 4)       # first, last lambda / lambda_max, points
+# fleets: first and last lambda / lambda_max (geometric), problems
+FLEET_LS = (0.8, 0.3, 16)
+FLEET_LOGIT = (0.5, 0.2, 8)
 
 
 def nvidia_smi_line() -> str:
@@ -563,7 +586,9 @@ def fused_phases():
     X = torch.from_numpy(Xn).to(dev)
     Xt = rt.prepare_fused(X, parent).Xt
     on = {"screen_fused": True, "ub_histogram": True, "cm_burst": False,
-          "cm_burst_pen": True, "chain_suffix_sums": 1}
+          "cm_burst_pen": True, "chain_suffix_sums": 1,
+          "screen_fused_batch": False, "ub_histogram_batch": False,
+          "cm_burst_batch": False}
     off = {k: False for k in on}
     out, launches, fused = {}, [], []
     for loss_name, frac, logistic in (("least_squares", FUSED_LS_LAM, False),
@@ -622,6 +647,271 @@ def fused_phases():
     return fused, launches
 
 
+def fleet_responses(X, b, seed, logistic=False, k=15):
+    """B responses over the design X on the card: per response (its own
+    seed) k true features, in [-1, 1] with N(0, 1) noise
+    (bench_batch.py's ``_fleet_problem``), or, for ``logistic``, in
+    [-2, 2] with labels sign(X w + 0.3 noise) (phase 3's protocol)."""
+    import numpy as np
+    import torch
+    n, p = X.shape
+    ys = []
+    for i in range(b):
+        rng = np.random.default_rng(seed + i)
+        w = np.zeros(p)
+        lo = 2.0 if logistic else 1.0
+        w[rng.choice(p, k, replace=False)] = rng.uniform(-lo, lo, k)
+        noise = rng.normal(0, 1, n) * (0.3 if logistic else 1.0)
+        y = X @ torch.from_numpy(w).to(X.device) + torch.from_numpy(
+            noise).to(X.device)
+        if logistic:
+            y = torch.where(y >= 0, 1.0, -1.0).to(X.dtype)
+        ys.append(y)
+    return torch.stack(ys)
+
+
+def fleet_phase(name, X, Y, fracs, loss_name, serial_expect, fleet_expect):
+    """Solve the fleet under ``auto`` (counted) and certify each problem;
+    solve each problem serially (uncounted) and hold the fleet's row
+    against it bit for bit; print the walls and profile the fleet.
+    Returns (result, lams, launch counts, the fleet's h)."""
+    import torch
+    import repro_torch as rt
+    from repro_torch.kernels import ops
+
+    loss = rt.get_loss(loss_name)
+    lms = [float(rt.lambda_max(loss, X, y)) for y in Y]
+    lams = [f * lm for f, lm in zip(fracs, lms)]
+    cfg = rt.SaifConfig(eps=1e-6, loss=loss_name)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = rt.fleet_solve(X, Y, lams, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    print(f"[{name}] B={Y.shape[0]} n={X.shape[0]} p={X.shape[1]} "
+          f"k_max={res.active_idx.shape[1]} wall_s={wall:.3f} "
+          f"launches={counts}", flush=True)
+    check_launches(name, counts, fleet_expect)
+    walls, bad = [], []
+    for i, lam in enumerate(lams):
+        kkt = float(rt.kkt_residual(loss, X, Y[i], res.beta[i], lam))
+        gap = float(res.gap[i])
+        t0 = time.perf_counter()
+        s = rt.saif(X, Y[i], lam, cfg)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        same = (torch.equal(res.beta[i], s.beta)
+                and torch.equal(res.gap[i], s.gap)
+                and int(res.n_outer[i]) == s.n_outer
+                and int(res.n_active[i]) == s.n_active
+                and bool(res.overflowed[i]) == s.overflowed
+                and all(torch.equal(getattr(res, f)[i], getattr(s, f))
+                        for f in ("trace_gap", "trace_dual",
+                                  "trace_n_active", "trace_screened",
+                                  "trace_survivors", "trace_post_viol")))
+        print(f"[{name}/{i}] lam/lam_max={fracs[i]:.4f} "
+              f"outer={int(res.n_outer[i])} n_active={int(res.n_active[i])} "
+              f"support={len(support(res.beta[i]))} gap={gap:.3e} "
+              f"kkt={kkt:.3e} kkt_limit={1e-3 * lam:.3e} "
+              f"serial_k_max={s.active_idx.shape[0]} serial_wall_s="
+              f"{walls[-1]:.3f} bitwise_serial={same}", flush=True)
+        if not (gap <= cfg.eps and kkt <= 1e-3 * lam and same):
+            bad.append(i)
+    # the serial solves' own kernels (uncounted above)
+    ops.reset_launch_counts()
+    rt.saif(X, Y[0], lams[0], cfg)
+    check_launches(f"{name}/serial", ops.launch_counts(), serial_expect)
+    print(f"[{name}] fleet_wall_s={wall:.3f} serial_walls_sum_s="
+          f"{sum(walls):.3f} outer_per_problem="
+          f"{res.n_outer.tolist()}", flush=True)
+    if bad:
+        raise RuntimeError(f"{name}: problems {bad} not certified or not "
+                           f"bitwise their serial solves")
+    profile_solve(name, lambda: rt.fleet_solve(X, Y, lams, cfg), wall)
+    from repro_torch.core.batch import fleet_batch_sizes, prepare_fleet
+    _, h = fleet_batch_sizes(prepare_fleet(X, Y, cfg), lams, cfg)
+    return res, lams, counts, h
+
+
+def plain_fleet_phase(X, Y, lams, kres):
+    """The plain fleet (``torch`` screen and inner) on the card against the
+    kernel fleet's rows ``kres``."""
+    import torch
+    import repro_torch as rt
+    from repro_torch.kernels import ops
+
+    cfg = rt.SaifConfig(eps=1e-6, screen_backend="torch",
+                        inner_backend="torch")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = rt.fleet_solve(X, Y, lams, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_launches("fleet-plain", ops.launch_counts(),
+                   {k: False for k in ops.KERNELS})
+    for i in range(Y.shape[0]):
+        ok = (support(res.beta[i]) == support(kres[i])
+              and bool(torch.allclose(res.beta[i], kres[i], rtol=1e-6,
+                                      atol=1e-8))
+              and float(res.gap[i]) <= cfg.eps)
+        print(f"[fleet-plain/{i}] outer={int(res.n_outer[i])} "
+              f"support={len(support(res.beta[i]))} "
+              f"gap={float(res.gap[i]):.3e} max_abs_dev_vs_kernel_fleet="
+              f"{float((res.beta[i] - kres[i]).abs().max()):.3e} ok={ok}",
+              flush=True)
+        if not ok:
+            raise RuntimeError("fleet-plain disagrees with the kernel fleet")
+    print(f"[fleet-plain] B={Y.shape[0]} wall_s={wall:.3f}", flush=True)
+
+
+def check_fleet_kernels(dtype, X, Y, lams, h, res, loss_name, records):
+    """K1b, K2b and K3b against their plain versions and against B
+    launches of K1, K2 and K3, at the fleet's shapes."""
+    import torch
+    from repro_torch.core.active_set import compact_order
+    from repro_torch.kernels import ops
+
+    dt = getattr(torch, dtype)
+    isz = torch.finfo(dt).bits // 8
+    tol = {"float64": 1e-10, "float32": 1e-4}[dtype]
+    Xd = X.to(dt)
+    n, p = Xd.shape
+    b = Y.shape[0]
+    g = torch.Generator(device="cpu").manual_seed(1)
+    Theta = (torch.randn(b, n, generator=g, dtype=torch.float64) / n).to(
+        Xd.device, dt)
+    col_norm = torch.linalg.vector_norm(Xd, dim=0)
+    active = torch.zeros(b, p, dtype=torch.bool, device=Xd.device)
+    for i in range(b):
+        active[i, res.active_idx[i][res.active_mask[i]]] = True
+    r = torch.linspace(0.01, 0.1, b, dtype=dt, device=Xd.device)
+    h_tile = min(h, 256)
+    pb = -(-p // 256)
+
+    # K1b against its twin; candidate ids as K1's (near ties reported)
+    k1 = ops.screen_fused_batch(Xd, Theta, col_norm, active, r, h=h)
+    ref = ops.screen_fused_batch_ref(Xd, Theta, col_norm, active, r, h=h)
+    abs1, err1 = errs(zip((k1[0], k1[1], k1[2], k1[3], k1[5]),
+                          (ref[0], ref[1], ref[2], ref[3], ref[5])))
+    fin = torch.isfinite(ref[3])
+    ids_k, ids_p = k1[4][fin].long(), ref[4][fin].long()
+    swapped = ids_k != ids_p
+    rows = torch.nonzero(fin)[:, 0][swapped]
+    s_ref = ref[0]
+    scale1 = float(ref[3][fin].abs().max())
+    tie = ((s_ref[rows, ids_k[swapped]] - s_ref[rows, ids_p[swapped]]).abs()
+           <= tol * scale1)
+    ids_ok = bool(tie.all()) and (dtype == "float32" or
+                                  int(swapped.sum()) == 0)
+    # bitwise B launches of K1
+    same1 = True
+    for i in range(b):
+        one = ops.screen_fused(Xd, Theta[i].contiguous(), col_norm,
+                               active[i].contiguous(), r[i], h=h)
+        same1 = same1 and all(torch.equal(a[i], o) for a, o in zip(k1, one))
+    ms1 = time_ms(lambda: ops.screen_fused_batch(Xd, Theta, col_norm, active,
+                                                 r, h=h), 10)
+    plain1 = time_ms(lambda: ops.screen_fused_batch_ref(
+        Xd, Theta, col_norm, active, r, h=h), 2)
+    lib1 = time_ms(lambda: torch.abs(Theta @ Xd), 10)
+    b1, by1 = bound_ms(n * p * isz + b * n * isz + p * isz + b * p + b
+                       * isz + 3 * b * p * isz + b * pb * h_tile * (isz + 4)
+                       + b * pb * isz, 2 * n * p * b, dtype)
+    print(f"[kernel screen_fused_batch {dtype}] B={b} n={n} p={p} h={h} "
+          f"max_abs_err={abs1:.3e} rel_err={err1:.3e} tol={tol:.0e} "
+          f"ids_ok={ids_ok} (ids differing at near-ties: "
+          f"{int(swapped.sum())} of {int(fin.sum())}) bitwise_B_x_K1="
+          f"{same1} ms={ms1:.4f} plain_ms={plain1:.4f} "
+          f"library_ms(abs(Theta@X))={lib1:.4f} bound_ms={b1:.4f} ({by1})",
+          flush=True)
+    if not (err1 <= tol and ids_ok and same1):
+        raise RuntimeError(f"screen_fused_batch {dtype} disagrees")
+
+    # K2b on the scan's ub against each problem's h smallest finite lb
+    ub = ref[1]
+    lb_sorted = torch.stack([torch.sort(ref[2][i][torch.isfinite(
+        ref[2][i])][:h]).values for i in range(b)])
+    hist = ops.ub_histogram_batch(ub, lb_sorted)
+    err2 = int((hist - ops.ub_histogram_batch_ref(ub, lb_sorted)).abs().max())
+    same2 = all(torch.equal(hist[i], ops.ub_histogram(ub[i], lb_sorted[i]))
+                for i in range(b))
+    ms2 = time_ms(lambda: ops.ub_histogram_batch(ub, lb_sorted), 20)
+    plain2 = time_ms(lambda: ops.ub_histogram_batch_ref(ub, lb_sorted), 2)
+    b2, by2 = bound_ms(b * p * isz + b * h * isz + b * (h + 1) * 4,
+                       b * p * h, dtype)
+    print(f"[kernel ub_histogram_batch {dtype}] B={b} p={p} h={h} "
+          f"max_abs_err={err2} tol=0 bitwise_B_x_K2={same2} ms={ms2:.4f} "
+          f"plain_ms={plain2:.4f} bound_ms={b2:.6f} ({by2})", flush=True)
+    if err2 != 0 or not same2:
+        raise RuntimeError(f"ub_histogram_batch {dtype} disagrees")
+
+    # K3b at each problem's final active block, from beta = 0, one polish
+    # burst; the last problem frozen (0 epochs), as the fleet does
+    mask = res.active_mask
+    k = mask.shape[1]
+    count = mask.sum(dim=1).to(torch.int32)
+    order = torch.stack([compact_order(torch.arange(k, device=mask.device),
+                                       m) for m in mask])
+    AT = torch.where(mask[:, :, None], Xd.T[res.active_idx], 0.0)
+    cn = torch.where(mask, col_norm[res.active_idx], 0.0)
+    col_sq = cn * cn
+    Yd = Y.to(dt)
+    lam_t = torch.tensor(lams, dtype=dt, device=Xd.device)
+    n_ep = torch.full((b,), 40, dtype=torch.int32, device=Xd.device)
+    n_ep[-1] = 0
+    beta0 = torch.zeros(b, k, dtype=dt, device=Xd.device)
+
+    def run_k():
+        return ops.cm_burst_batch_xt(AT, Yd, beta0, col_sq, mask, order,
+                                     lam_t, n_ep, count, loss_name=loss_name)
+
+    def run_p():
+        return ops.cm_burst_batch_ref(AT.transpose(1, 2), Yd, beta0, col_sq,
+                                      mask, order, lam_t, n_ep, count,
+                                      loss_name=loss_name)
+
+    out, pout = run_k(), run_p()
+    abs3 = err3 = 0.0
+    same3 = True
+    for i in range(b):
+        a_i, e_i = burst_error(loss_name, [o[i] for o in out],
+                               [o[i] for o in pout], Yd[i], lams[i])
+        abs3, err3 = max(abs3, a_i), max(err3, e_i)
+        one = ops.cm_burst_xt(AT[i].contiguous(), Yd[i].contiguous(),
+                              beta0[i], col_sq[i].contiguous(), mask[i],
+                              order[i], float(lam_t[i]), int(n_ep[i]),
+                              int(count[i]),
+                              loss_name=loss_name)
+        same3 = same3 and all(torch.equal(o[i], s) for o, s in zip(out, one))
+    tol3 = {"float64": 1e-12, "float32": 1e-3}[dtype]
+    ms3 = time_ms(run_k, 3)
+    plain3 = time_ms(run_p, 1)
+    steps = int((n_ep.long() * count.long()).sum())
+    flops = steps * 4 * n + b * 4 * n * k
+    b3, by3 = bound_ms(b * (k * n * isz + 3 * n * isz + 3 * k * isz + 5 * k
+                            + isz), flops, dtype)
+    print(f"[kernel cm_burst_batch {dtype} {loss_name}] B={b} n={n} k={k} "
+          f"live={count.tolist()} n_epochs=40 (last problem 0) "
+          f"max_abs_err={abs3:.3e} rel_err={err3:.3e} tol={tol3:.0e} "
+          f"bitwise_B_x_K3={same3} ms={ms3:.4f} plain_ms={plain3:.4f} "
+          f"bound_ms={b3:.6f} ({by3})", flush=True)
+    if not (err3 <= tol3 and same3):
+        raise RuntimeError(f"cm_burst_batch {dtype} disagrees")
+    if dtype == "float64":
+        records["screen_fused_batch"].update(
+            max_abs_err=abs1, ms=ms1, plain_ms=plain1, bound_ms=b1,
+            bound_by=by1, library_ms=lib1)
+        records["ub_histogram_batch"].update(
+            max_abs_err=err2, ms=ms2, plain_ms=plain2, bound_ms=b2,
+            bound_by=by2, library_ms=None)
+        records["cm_burst_batch"].update(
+            max_abs_err=abs3, ms=ms3, plain_ms=plain3, bound_ms=b3,
+            bound_by=by3, library_ms=None)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--p", type=int, default=100_000,
@@ -663,7 +953,9 @@ def main() -> int:
     print(f"[data] LS and logistic X ({N}, {args.p}) float64 on the "
           f"card in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    plain_lasso = {"cm_burst_pen": False, "chain_suffix_sums": False}
+    plain_lasso = {"cm_burst_pen": False, "chain_suffix_sums": False,
+                   "screen_fused_batch": False, "ub_histogram_batch": False,
+                   "cm_burst_batch": False}
     on = {"screen_fused": True, "ub_histogram": True, **plain_lasso}
     ls = rt.get_loss("least_squares")
     lm = float(rt.lambda_max(ls, X, y))
@@ -708,13 +1000,47 @@ def main() -> int:
         "chain_suffix_sums": {"name": "chain_suffix_sums", "route": "cuda",
                               "source": "src/repro_torch/csrc/chain_suffix.cu",
                               "replaces": "src/repro/kernels/fused/fused.py:76"},
+        "screen_fused_batch": {
+            "name": "screen_fused_batch", "route": "cuda",
+            "source": "src/repro_torch/csrc/screen.cu",
+            "replaces": "src/repro/kernels/screen/screen.py:394"},
+        "ub_histogram_batch": {
+            "name": "ub_histogram_batch", "route": "cuda",
+            "source": "src/repro_torch/csrc/screen.cu",
+            "replaces": "src/repro/kernels/screen/screen.py:562"},
+        "cm_burst_batch": {
+            "name": "cm_burst_batch", "route": "cuda",
+            "source": "src/repro_torch/csrc/cm_burst.cu",
+            "replaces": "src/repro/kernels/cm/cm.py:296"},
     }
 
     k4_launches = transform_phase(X, records)
     fused, fused_counts = fused_phases()
 
+    import numpy as np
+    serial_only = {"screen_fused": True, "ub_histogram": True,
+                   "cm_burst": True, "screen_fused_batch": False,
+                   "ub_histogram_batch": False, "cm_burst_batch": False}
+    fleet_only = {"screen_fused": False, "ub_histogram": False,
+                  "cm_burst": False, "cm_burst_pen": False,
+                  "chain_suffix_sums": False, "screen_fused_batch": True,
+                  "ub_histogram_batch": True, "cm_burst_batch": True}
+    Yf = fleet_responses(X, FLEET_LS[2], seed=100)
+    fracs = np.geomspace(FLEET_LS[0], FLEET_LS[1], FLEET_LS[2]).tolist()
+    fl_res, fl_lams, fl_counts, fl_h = fleet_phase(
+        "fleet-ls", X, Yf, fracs, "least_squares", serial_only, fleet_only)
+    YL = fleet_responses(XL, FLEET_LOGIT[2], seed=200, logistic=True, k=40)
+    fracsL = np.geomspace(FLEET_LOGIT[0], FLEET_LOGIT[1],
+                          FLEET_LOGIT[2]).tolist()
+    _, _, flg_counts, _ = fleet_phase(
+        "fleet-logistic", XL, YL, fracsL, "logistic", serial_only,
+        fleet_only)
+    pick = [0, FLEET_LS[2] - 1]
+    plain_fleet_phase(X, Yf[pick], [fl_lams[i] for i in pick],
+                      fl_res.beta[pick])
+
     runs = [ls_counts["auto"], ls_counts["gram"], lg_counts["auto"],
-            *fused_counts]
+            *fused_counts, fl_counts, flg_counts]
     for k, rec in records.items():
         rec["launches"] = sum(c[k] for c in runs) + (
             k4_launches if k == "chain_suffix_sums" else 0)
@@ -727,6 +1053,8 @@ def main() -> int:
     for dtype in ("float64", "float32"):
         check_kernels(dtype, X, y, lam, h, ls_res["auto"], (XL, yL, lamL),
                       lg_res["auto"], fused, records)
+        check_fleet_kernels(dtype, X, Yf, fl_lams, fl_h, fl_res,
+                            "least_squares", records)
 
     print(json.dumps({"kernels": list(records.values())}))
     print(nvidia_smi_line())

@@ -4,13 +4,15 @@
 ``np.asarray`` on each field, become the port's ``PathState`` and the
 ``(warm_idx, warm_beta)`` pair that :func:`~repro_torch.core.saif.solve_scalar`
 takes, or the slot-preserving warm state of the path engine; its
-``FusedDesign`` becomes the port's. Nothing here imports the reference.
+``FusedDesign`` becomes the port's, and its ``FleetPrep`` the port's fleet
+preparation. Nothing here imports the reference.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core.batch import FleetPrep
 from repro_torch.core.fused import FusedDesign, LevelSchedule, TreeTransform
 from repro_torch.core.inner_backend import cold_inner_carry
 from repro_torch.core.path import WarmState, _warm_state
@@ -78,3 +80,26 @@ def fused_design_from_ref(design, device=None) -> FusedDesign:
                        Xt=as_tensor(np.asarray(design.Xt),
                                     resolve_device(device)),
                        unpen_idx=int(design.unpen_idx))
+
+
+def fleet_prep_from_numpy(X, Y, c0, col_norm, c0_max, c0_median,
+                          device=None) -> FleetPrep:
+    """A port :class:`~repro_torch.core.batch.FleetPrep` from the fields of
+    the reference's (``X`` (n, p), ``Y`` (B, n), ``c0`` (B, p), the column
+    norms as (p,) or as the reference's (B, p) broadcast of them, and the
+    per-problem ``c0_max`` / ``c0_median``), on ``device`` (None = the
+    card). Weighted or padded preparations are not ported."""
+    dev = resolve_device(device)
+    X = as_tensor(np.asarray(X), dev)
+    cn = np.asarray(col_norm)
+    if cn.ndim == 2:
+        if not (cn == cn[:1]).all():
+            raise ValueError("per-problem column norms (a weighted fleet) "
+                             "are not ported")
+        cn = cn[0]
+    return FleetPrep(X=X, Y=as_tensor(np.atleast_2d(np.asarray(Y)), dev,
+                                      X.dtype),
+                     c0=as_tensor(np.asarray(c0), dev, X.dtype),
+                     col_norm=as_tensor(cn, dev, X.dtype),
+                     c0_max=[float(v) for v in np.asarray(c0_max)],
+                     c0_median=[float(v) for v in np.asarray(c0_median)])

@@ -1,5 +1,7 @@
-"""SAIF core in torch: the serial solve, the lambda path, fused LASSO and
-their building blocks."""
+"""SAIF core in torch: the serial solve, the fleet, the lambda path, fused
+LASSO and their building blocks."""
+from repro_torch.core.batch import (FleetPrep, fleet_solve, prepare_fleet,
+                                    resolve_batch_inner, saif_batch)
 from repro_torch.core.duality import kkt_residual, lambda_max
 from repro_torch.core.fused import (FusedDesign, FusedPathResult,
                                     build_schedule, build_tree,
@@ -26,4 +28,5 @@ __all__ = ["saif", "SaifConfig", "SaifResult", "PathState", "prepare_path",
            "eliminate_b_ls", "recover_b_ls", "build_tree", "build_schedule",
            "transform_design", "transform_design_scan",
            "transform_design_device", "recover_beta", "recover_beta_device",
-           "recover_from_transformed"]
+           "recover_from_transformed", "fleet_solve", "saif_batch",
+           "prepare_fleet", "FleetPrep", "resolve_batch_inner"]

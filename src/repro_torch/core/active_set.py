@@ -90,54 +90,103 @@ def pen_weights(aset: ActiveSet, unpen_idx: int, dtype) -> Tensor:
     return torch.where(unpen_slot, 0.0, 1.0).to(dtype)
 
 
+def host_read(values) -> list:
+    """Host copies of same-dtype 0-d device values, in one read."""
+    return torch.stack(values).tolist() if values else []
+
+
+def delete_features_batch(asets, drop_slot_masks) -> list:
+    """DEL on several active sets at once (one per problem of a fleet):
+    each clears the slots flagged in its bool (k_max,) mask. The counts
+    are read back together; every set's slot arithmetic is the serial
+    one."""
+    drops = [m & a.mask for a, m in zip(asets, drop_slot_masks)]
+    out = []
+    for aset, drop, n_drop in zip(asets, drops,
+                                  host_read([d.sum() for d in drops])):
+        new_mask = aset.mask & ~drop
+        new_in_active = aset.in_active.clone()
+        new_in_active[aset.idx[drop]] = False
+        out.append(aset._replace(
+            mask=new_mask, beta=torch.where(drop, 0.0, aset.beta),
+            in_active=new_in_active,
+            order=compact_order(aset.order, new_mask),
+            count=aset.count - n_drop))
+    return out
+
+
 def delete_features(aset: ActiveSet, drop_slot_mask: Tensor) -> ActiveSet:
     """DEL: clear slots flagged in ``drop_slot_mask`` (bool (k_max,))."""
-    drop = drop_slot_mask & aset.mask
-    new_mask = aset.mask & ~drop
-    new_beta = torch.where(drop, 0.0, aset.beta)
-    new_in_active = aset.in_active.clone()
-    new_in_active[aset.idx[drop]] = False
-    return aset._replace(mask=new_mask, beta=new_beta,
-                         in_active=new_in_active,
-                         order=compact_order(aset.order, new_mask),
-                         count=aset.count - int(drop.sum()))
+    return delete_features_batch([aset], [drop_slot_mask])[0]
+
+
+def add_features_batch(asets, cand_idxs, cand_keeps) -> list:
+    """ADD on several active sets at once (one per problem of a fleet):
+    each scatters its kept candidates (descending score order) into its
+    free slots, the c-th kept candidate into the c-th free slot. The
+    counts are read back together."""
+    staged, counts = [], []
+    for aset, cand_idx, cand_keep in zip(asets, cand_idxs, cand_keeps):
+        k_max = aset.mask.shape[0]
+        free = ~aset.mask
+        free_i = free.long()
+        free_rank = torch.cumsum(free_i, 0) - free_i
+        n_free = free_i.sum()
+        keep_i = cand_keep.long()
+        cand_rank = torch.cumsum(keep_i, 0) - keep_i
+        n_want = keep_i.sum()
+        placed = cand_keep & (cand_rank < n_free)
+        order_key = torch.where(free, free_rank, k_max + 1)
+        slot_of_rank = torch.argsort(order_key, stable=True)
+        target_slot = slot_of_rank[torch.clamp(cand_rank, 0, k_max - 1)]
+        staged.append((target_slot[placed], cand_idx[placed].long()))
+        counts.append(torch.stack(((n_want > n_free).long(), placed.sum())))
+    out = []
+    for aset, (slots, ids), (over, n_placed) in zip(asets, staged,
+                                                    host_read(counts)):
+        new_idx = aset.idx.clone()
+        new_idx[slots] = ids
+        new_mask = aset.mask.clone()
+        new_mask[slots] = True
+        new_beta = aset.beta.clone()
+        new_beta[slots] = 0.0
+        new_in_active = aset.in_active.clone()
+        new_in_active[ids] = True
+        out.append(ActiveSet(new_idx, new_mask, new_beta, new_in_active,
+                             overflowed=aset.overflowed or bool(over),
+                             order=compact_order(aset.order, new_mask),
+                             count=aset.count + n_placed))
+    return out
 
 
 def add_features(aset: ActiveSet, cand_idx: Tensor,
                  cand_keep: Tensor) -> ActiveSet:
     """ADD: scatter kept candidates (descending score order) into free
     slots, the c-th kept candidate into the c-th free slot."""
-    k_max = aset.mask.shape[0]
-    free = ~aset.mask
-    free_i = free.long()
-    free_rank = torch.cumsum(free_i, 0) - free_i
-    n_free = free_i.sum()
-    keep_i = cand_keep.long()
-    cand_rank = torch.cumsum(keep_i, 0) - keep_i
-    n_want = keep_i.sum()
-    placed = cand_keep & (cand_rank < n_free)
-
-    order_key = torch.where(free, free_rank, k_max + 1)
-    slot_of_rank = torch.argsort(order_key, stable=True)
-    target_slot = slot_of_rank[torch.clamp(cand_rank, 0, k_max - 1)]
-    slots = target_slot[placed]
-    ids = cand_idx[placed].long()
-
-    new_idx = aset.idx.clone()
-    new_idx[slots] = ids
-    new_mask = aset.mask.clone()
-    new_mask[slots] = True
-    new_beta = aset.beta.clone()
-    new_beta[slots] = 0.0
-    new_in_active = aset.in_active.clone()
-    new_in_active[ids] = True
-    return ActiveSet(new_idx, new_mask, new_beta, new_in_active,
-                     overflowed=aset.overflowed or bool(n_want > n_free),
-                     order=compact_order(aset.order, new_mask),
-                     count=aset.count + int(placed.sum()))
+    return add_features_batch([aset], [cand_idx], [cand_keep])[0]
 
 
 def scatter_beta(aset: ActiveSet, p: int) -> Tensor:
     """Inflate the compact beta back to (p,) (Algorithm 1 last line)."""
     out = torch.zeros(p, dtype=aset.beta.dtype, device=aset.beta.device)
     return out.index_add_(0, aset.idx[aset.mask], aset.beta[aset.mask])
+
+
+# --------------------------------------------------------------------------
+# fleet views (core/batch.py): a fleet's active sets are a list of serial
+# ActiveSets, one per problem, so each problem's slot arithmetic is the
+# serial one (the reference vmaps the serial functions for the same reason)
+# --------------------------------------------------------------------------
+
+def init_active_set_batch(p: int, k_max: int, init_idx: Tensor, dtype,
+                          init_beta: Tensor, live_mask: Tensor) -> list:
+    """Slots-mode :func:`init_active_set` per row of the (B, k_max)
+    buffers."""
+    return [init_active_set(p, k_max, i, dtype, b, m)
+            for i, b, m in zip(init_idx, init_beta, live_mask)]
+
+
+def gather_columns_batch(X: Tensor, asets) -> list:
+    """The (n, k_max) active block of each active set, from a shared (n, p)
+    design, each its own tensor."""
+    return [gather_columns(X, a) for a in asets]

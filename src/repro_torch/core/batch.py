@@ -1,0 +1,268 @@
+"""The fleet: B LASSO problems over one shared design, solved together
+(port of the bitwise engine of ``repro.core.batch``).
+
+Traffic often arrives as fleets: many responses over one design, or one
+response over a lambda grid. Each problem has its own response and its own
+lambda; the fleet shares what is shared, the design and the O(n p)
+screening scan, and keeps everything else per problem:
+
+  * **one host loop** — :func:`_solve_fleet` drives every problem through
+    the serial engine (:func:`repro_torch.core.saif._advance`) at once; a
+    problem that stops, or whose ADD overflows its capacity, freezes there
+    and costs nothing more, while the stragglers go on;
+  * **shared scans** — one fleet screen per outer step covers every
+    problem whose ADD phase runs; on a card it is kernel K1b, which reads X
+    once per chunk of 16 problems, and K2b for the violation counts;
+  * **shared bursts** — on a card one K3b launch runs the CM bursts of
+    every live problem, one CTA each; the plain and Gram backends run each
+    problem's serial burst.
+
+The contract (the reference's DESIGN.md §8): row b of a fleet equals the
+port's serial ``saif(X, Y[b], lams[b], config)`` bit for bit — beta, gap,
+outer steps, active count, overflow flag and every trace — and, where the
+two capacities match, the slot layout too. Every float computation runs
+per problem on that problem's own tensors, in the serial order; only exact
+work is batched (elementwise ops, maxima, stable sorts, integer counts and
+the host reads). The fleet's candidate buffer is the largest h of its
+problems; each problem keeps its own h_cap, h~ and post-check width, and a
+stable top-h is a prefix of a longer one, so its decisions are its serial
+ones. Capacity invariance (dead slots add exact zeros) carries the rest.
+
+Not ported yet: ``parity="fast"`` (the relaxed lockstep engine), sample
+``weights`` (the CV fleets) — both ROADMAP A5 — and bucket padding
+(``pad_mask``, ``pad_fleet_prep``, ROADMAP A6); each raises.
+"""
+from __future__ import annotations
+
+import math
+from typing import List, NamedTuple, Optional
+
+import torch
+
+from repro_torch.core import active_set as aset_lib
+from repro_torch.core.inner_backend import (cold_inner_carry_batch,
+                                            make_batch_inner,
+                                            resolve_inner_backend)
+from repro_torch.core.losses import get_loss
+from repro_torch.core.saif import (SaifConfig, SaifResult, _advance,
+                                   _median, _Problem, add_batch_size_static,
+                                   as_tensor, default_capacity,
+                                   resolve_device)
+from repro_torch.core.screen_backend import (make_batch_screen,
+                                             resolve_batch_screen,
+                                             resolve_screen_rule)
+from repro_torch.core.duality import null_gradient
+
+Tensor = torch.Tensor
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(
+        f"repro_torch's fleet does not take {what} yet (ROADMAP {item})")
+
+
+class FleetPrep(NamedTuple):
+    """One-time per-fleet preparation (one host read for the h formula).
+    ``c0_max`` is each problem's lambda_max."""
+    X: Tensor               # (n, p) shared design
+    Y: Tensor               # (B, n)
+    c0: Tensor              # (B, p) per-problem |X^T f'(0)|
+    col_norm: Tensor        # (p,) column norms, shared by the fleet
+    c0_max: list            # B host floats (= per-problem lambda_max)
+    c0_median: list
+    n_true: int = 0         # 0 = unpadded (bucket padding: ROADMAP A6)
+    p_true: int = 0
+
+
+def prepare_fleet(X, Y, config: SaifConfig = SaifConfig(), weights=None,
+                  device=None) -> FleetPrep:
+    """Per-problem null gradients and c0, the column norms, and one host
+    read of the c0 statistics the h formula needs. Each problem's c0 is
+    the serial ``null_gradient`` matvec on its own response, so lambda_max,
+    delta0, the cold start and the Thm-2 ball are bitwise the serial
+    ones."""
+    if weights is not None:
+        raise _not_ported("sample weights", "A5")
+    if config.parity == "fast":
+        raise _not_ported("parity='fast'", "A5")
+    dev = resolve_device(device)
+    loss = get_loss(config.loss)
+    X = as_tensor(X, dev)
+    Y = as_tensor(Y, dev, X.dtype)
+    if Y.ndim == 1:
+        Y = Y[None]
+    c0 = [null_gradient(loss, X, y.clone())[1] for y in Y]
+    stats = torch.stack([torch.stack((torch.max(c), _median(c)))
+                         for c in c0]).tolist()
+    return FleetPrep(X=X, Y=Y, c0=torch.stack(c0),
+                     col_norm=torch.linalg.vector_norm(X, dim=0),
+                     c0_max=[s[0] for s in stats],
+                     c0_median=[s[1] for s in stats])
+
+
+def pad_fleet_prep(prep: FleetPrep, n_bucket: int, p_bucket: int):
+    """Bucket padding of a fleet preparation: not ported yet (it comes
+    with the Session and serving slice)."""
+    raise _not_ported("bucket padding", "A6")
+
+
+def fleet_batch_sizes(prep: FleetPrep, lams, config: SaifConfig):
+    """Per-problem h values and the fleet's candidate buffer, their
+    maximum (each already a power of two)."""
+    p = prep.p_true or prep.X.shape[1]
+    hs = [add_batch_size_static(config.c, float(lam), mx, md, p)
+          for lam, mx, md in zip(lams, prep.c0_max, prep.c0_median)]
+    return hs, (max(hs) if hs else 1)
+
+
+def initial_support_batch(c0: Tensor, hs, k_max: int, p: int, dtype):
+    """Cold start per problem: its top-h_b features by c0, ties to the
+    lowest id, in (B, k_max) slot buffers. One stable sort per row gives
+    every problem's serial ``initial_support`` layout (a stable top-h is a
+    prefix of a longer one). Returns (init_idx, init_beta, init_mask)."""
+    b = c0.shape[0]
+    n_cap = min(max(hs), k_max, p)
+    top = torch.sort(c0, dim=1, descending=True, stable=True).indices
+    n_init = torch.tensor([min(h, k_max, p) for h in hs], device=c0.device)
+    init_idx = torch.zeros((b, k_max), dtype=torch.long, device=c0.device)
+    init_idx[:, :n_cap] = top[:, :n_cap]
+    mask = torch.arange(k_max, device=c0.device)[None, :] < n_init[:, None]
+    init_idx = torch.where(mask, init_idx, 0)
+    return (init_idx, torch.zeros((b, k_max), dtype=dtype, device=c0.device),
+            mask)
+
+
+def _delta0s(prep: FleetPrep, lams, config: SaifConfig):
+    if config.delta0 is not None:
+        return [float(config.delta0)] * len(lams)
+    return [min(max(float(lam) / mx, 1e-3), 1.0)
+            for lam, mx in zip(lams, prep.c0_max)]
+
+
+def resolve_batch_inner(config: SaifConfig, n: int, k_max: int, b: int,
+                        device, itemsize: int = 8) -> str:
+    """Fleet inner policy: the serial one. On a card ``auto`` runs K3b
+    while one problem's burst fits K3's shared memory (``cm_smem_ok(n,
+    k_max)``): each problem has its own CTA and its own shared memory, so
+    the fleet size ``b`` adds nothing to the gate. Past it, and on the
+    CPU, the serial routing applies."""
+    del b                                   # no fleet factor on the card
+    return resolve_inner_backend(config.inner_backend, config.loss, n,
+                                 k_max, device, itemsize)
+
+
+def _solve_fleet(prep: FleetPrep, lams, config: SaifConfig, *, hs, h, k_max,
+                 init_idx, init_beta, init_mask, inner: str, screen: str,
+                 use_seq: bool, rule) -> List[SaifResult]:
+    """One pass of the fleet at capacity ``k_max`` (the reference's
+    ``_saif_batch_jit``): per-problem states advanced by one host loop.
+    Returns one serial-form result per problem."""
+    loss = get_loss(config.loss)
+    X, col_norm = prep.X, prep.col_norm
+    p, dt = X.shape[1], X.dtype
+    ys = [y.clone() for y in prep.Y]        # each problem's own tensor
+    binner = make_batch_inner(inner, loss, X, ys, col_norm, hs)
+    asets = aset_lib.init_active_set_batch(p, k_max, init_idx, dt, init_beta,
+                                           init_mask)
+    carries = binner.init(
+        asets, cold_inner_carry_batch(len(ys), k_max, dt, X.device, inner),
+        aset_lib.gather_columns_batch(X, asets))
+    delta0 = _delta0s(prep, lams, config)
+    probs = [_Problem(y, lam, config.eps, d0,
+                      max(int(math.ceil(config.zeta * h_b)), 1), h_b, h_b,
+                      c0, aset, carry,
+                      binner.make_one(y, h_b) if binner.make_one else None)
+             for y, lam, d0, h_b, c0, aset, carry in zip(
+                 ys, lams, delta0, hs, prep.c0, asets, carries)]
+    _advance(probs, X, col_norm, loss=loss, h=h,
+             inner_epochs=config.inner_epochs,
+             polish_factor=config.polish_factor, max_outer=config.max_outer,
+             use_seq_ball=use_seq,
+             screen=make_batch_screen(screen, X, col_norm, h),
+             fleet_step=binner.fleet_step, screen_rule=rule,
+             newton=(rule.newton_polish and inner == "gram"
+                     and config.loss == "least_squares"))
+    return [q.result(p, config.max_outer) for q in probs]
+
+
+def stack_results(results: List[SaifResult]) -> SaifResult:
+    """One :class:`SaifResult` whose every field has a leading problem
+    axis (counts and flags as (B,) tensors)."""
+    dev = results[0].beta.device
+
+    def col(name):
+        vals = [getattr(r, name) for r in results]
+        if isinstance(vals[0], Tensor):
+            return torch.stack(vals)
+        return torch.tensor(vals, device=dev)
+
+    inner = type(results[0].inner)(*[torch.stack(t) for t in zip(
+        *[r.inner for r in results])])
+    return SaifResult(**{f: (inner if f == "inner" else col(f))
+                         for f in SaifResult._fields})
+
+
+def fleet_solve(X, Y, lams, config: SaifConfig = SaifConfig(), device=None,
+                weights=None, prep: Optional[FleetPrep] = None
+                ) -> SaifResult:
+    """Solve B LASSO problems over one shared design together.
+
+    X (n, p) shared design; Y (B, n) responses (an (n,) vector is a fleet
+    of one); ``lams`` a scalar or B per-problem lambdas; ``prep`` a
+    :class:`FleetPrep` made before (X and Y are then ignored).
+    ``device=None`` runs on the card; pass ``device="cpu"`` for the plain
+    path on the CPU.
+
+    Returns a :class:`~repro_torch.core.saif.SaifResult` whose every field
+    has a leading problem axis; row b is bitwise the serial
+    ``saif(X, Y[b], lams[b], config)``. When any problem's ADD overflows
+    the shared capacity, the whole fleet starts over cold at twice the
+    capacity from the same initial supports, as the reference does.
+    """
+    if config.unpen_idx is not None:
+        raise NotImplementedError(
+            "fleet_solve solves plain-LASSO fleets; the fused unpenalized "
+            "slot is serial-only, as in the reference")
+    if config.parity == "fast":
+        raise _not_ported("parity='fast'", "A5")
+    if weights is not None:
+        raise _not_ported("sample weights", "A5")
+    dev = resolve_device(device)
+    if prep is None:
+        prep = prepare_fleet(X, Y, config, device=dev)
+    if prep.n_true or prep.p_true:
+        raise _not_ported("a padded preparation", "A6")
+    n, p = prep.X.shape
+    b = prep.Y.shape[0]
+    lam_list = torch.as_tensor(lams, dtype=torch.float64).reshape(-1)
+    lam_list = lam_list.expand(b).tolist()
+    rule = resolve_screen_rule(config.screen_rule)
+    use_seq = config.use_seq_ball and rule.use_seq_ball
+    screen = resolve_batch_screen(config.screen_backend, prep.X.device, b=b,
+                                  p=p)
+    hs, h = fleet_batch_sizes(prep, lam_list, config)
+    k_max = config.k_max or default_capacity(h, p)
+    # the cold start is made once, at the first capacity: a regrown fleet
+    # restarts from the same (possibly capacity-truncated) supports, as
+    # solve_scalar does, so its problems replay their serial regrowths
+    init = initial_support_batch(prep.c0, hs, k_max, p, prep.X.dtype)
+    while True:
+        pad = k_max - init[0].shape[1]
+        init = tuple(torch.nn.functional.pad(t, (0, pad)) for t in init)
+        inner = resolve_batch_inner(config, n, k_max, b, prep.X.device,
+                                    prep.X.element_size())
+        results = _solve_fleet(prep, lam_list, config, hs=hs, h=h,
+                               k_max=k_max, init_idx=init[0],
+                               init_beta=init[1], init_mask=init[2],
+                               inner=inner, screen=screen, use_seq=use_seq,
+                               rule=rule)
+        if not any(r.overflowed for r in results) or k_max >= p:
+            return stack_results(results)
+        k_max = min(2 * k_max, p)
+
+
+def saif_batch(X, Y, lams, config: SaifConfig = SaifConfig(),
+               device=None) -> SaifResult:
+    """Thin frontend of :func:`fleet_solve` (the reference's legacy name;
+    the port has no Session yet)."""
+    return fleet_solve(X, Y, lams, config, device=device)

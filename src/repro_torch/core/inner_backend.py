@@ -31,7 +31,7 @@ invalidates dead slots first and then recomputes the dirty live ones.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, List, NamedTuple, Optional
 
 import torch
 
@@ -222,6 +222,111 @@ def make_inner(name: str, loss: Loss, X: Tensor, y: Tensor,
     if name == "cuda":
         return make_inner_cuda(loss, X, y, col_norm, unpen_idx)
     return make_inner_torch(loss, X, y, unpen_idx)
+
+
+# --------------------------------------------------------------------------
+# fleet backends (core/batch.py): B problems over one shared design
+# --------------------------------------------------------------------------
+# ``torch`` and ``gram`` are map-fused: each problem runs the SERIAL backend
+# built for its own response (and its own h), so its burst, dual point and
+# gap are the literal serial computation. ``cuda`` is the problem-gridded
+# kernel K3b: one launch runs the bursts of every live problem, one CTA
+# each, with K3's body, so a fleet burst is bitwise a serial burst.
+
+
+class BatchInnerBackend(NamedTuple):
+    """The fleet inner interface the engine consumes; one of two paths:
+
+      * ``make_one(y_b, h_b) -> InnerBackend`` — map-fused (torch, gram):
+        each live problem runs the serial backend built here;
+      * ``fleet_step(problems, n_eps) -> [InnerOut]`` — the gridded kernel
+        (cuda): one launch for the bursts of the live ``problems`` (the
+        engine's per-problem states), each with its epoch count.
+
+    ``init`` reconciles the fleet's inbound carries with its initial
+    active sets, per problem, outside the loop."""
+    name: str
+    init: Callable
+    make_one: Optional[Callable] = None
+    fleet_step: Optional[Callable] = None
+
+
+def cold_inner_carry_batch(b: int, k_max: int, dtype, device,
+                           backend: str = "gram") -> List[InnerCarry]:
+    """All-invalid carries, one per problem of the fleet."""
+    return [cold_inner_carry(k_max, dtype, device, backend=backend)
+            for _ in range(b)]
+
+
+def _fleet_init(make_one, Y, hs):
+    """Per-problem init of the serial backends (the only place a Gram
+    carry is built in full)."""
+    def init(asets, carries, Xas):
+        return [make_one(y, h).init(a, c, Xa)
+                for y, h, a, c, Xa in zip(Y, hs, asets, carries, Xas)]
+    return init
+
+
+def make_batch_inner_torch(loss: Loss, X: Tensor, Y, hs) -> BatchInnerBackend:
+    """Fleet plain backend: the serial residual-update backend per problem
+    (``Y``: the per-problem responses, ``hs``: their batch sizes)."""
+    def make_one(y, h):
+        return make_inner_torch(loss, X, y)
+    return BatchInnerBackend(name="torch", init=_fleet_init(make_one, Y, hs),
+                             make_one=make_one)
+
+
+def make_batch_inner_gram(loss: Loss, X: Tensor, Y, hs) -> BatchInnerBackend:
+    """Fleet covariance-update backend: the serial Gram backend per problem,
+    each with its own (k_max, k_max) carry and its own refresh bound h."""
+    def make_one(y, h):
+        return make_inner_gram(loss, X, y, h)
+    return BatchInnerBackend(name="gram", init=_fleet_init(make_one, Y, hs),
+                             make_one=make_one)
+
+
+def make_batch_inner_cuda(loss: Loss, X: Tensor,
+                          col_norm: Tensor) -> BatchInnerBackend:
+    """Fleet kernel backend: one K3b launch per outer step for the bursts of
+    every live problem. The blocks are gathered transposed straight from X
+    in one gather; lambda, the epoch counts and the live-slot counts reach
+    the kernel as per-problem device arrays."""
+    from repro_torch.kernels.cm.cm import cm_burst_batch_xt
+
+    XT = X.T
+
+    def fleet_step(probs, n_eps):
+        asets = [q.aset for q in probs]
+        idx = torch.stack([a.idx for a in asets])
+        mask = torch.stack([a.mask for a in asets])
+        AT = torch.where(mask[:, :, None], XT[idx], 0.0)
+        norms = torch.where(mask, col_norm[idx], 0.0)
+        meta = torch.tensor([n_eps, [a.count for a in asets]],
+                            dtype=torch.int32).to(X.device)
+        beta, z, theta, gap = cm_burst_batch_xt(
+            AT, torch.stack([q.y for q in probs]),
+            torch.stack([a.beta for a in asets]), norms * norms, mask,
+            torch.stack([a.order for a in asets]),
+            torch.stack([q.lam for q in probs]), meta[0], meta[1],
+            loss_name=loss.name)
+        # each problem's own contiguous tensors, for its serial reductions
+        return [InnerOut(beta=beta[j].clone(), z=z[j],
+                         theta=theta[j].clone(), gap=gap[j])
+                for j in range(len(probs))]
+
+    return BatchInnerBackend(name="cuda",
+                             init=lambda asets, carries, Xas: carries,
+                             fleet_step=fleet_step)
+
+
+def make_batch_inner(name: str, loss: Loss, X: Tensor, Y, col_norm: Tensor,
+                     hs) -> BatchInnerBackend:
+    """Fleet inner backend by resolved name."""
+    if name == "gram":
+        return make_batch_inner_gram(loss, X, Y, hs)
+    if name == "cuda":
+        return make_batch_inner_cuda(loss, X, col_norm)
+    return make_batch_inner_torch(loss, X, Y, hs)
 
 
 # n/k_max crossover of the auto policy, the reference's: the gram step is an

@@ -36,7 +36,8 @@ from repro_torch.core.inner_backend import (InnerCarry, _dual_and_gap,
                                             cold_inner_carry, make_inner,
                                             resolve_inner_backend)
 from repro_torch.core.losses import get_loss
-from repro_torch.core.screen_backend import (ScreenRule, make_screen_cuda,
+from repro_torch.core.screen_backend import (BatchScreenFn, ScreenFn,
+                                             ScreenRule, make_screen_cuda,
                                              make_screen_torch,
                                              resolve_backend,
                                              resolve_screen_rule)
@@ -62,9 +63,15 @@ class SaifConfig:
     unpen_idx: Optional[int] = None  # feature id exempt from the l1
     #   penalty (fused LASSO's always-resident b slot); None = plain LASSO
     screen_rule: str = "saif"     # "saif" | "gap_safe" | "hybrid"
+    parity: str = "bitwise"       # fleets: "bitwise" (each problem is its
+    #   serial solve, bit for bit) | "fast" (the relaxed lockstep engine,
+    #   not ported yet)
 
     def __post_init__(self):
         resolve_screen_rule(self.screen_rule)   # fail fast on unknown names
+        if self.parity not in ("bitwise", "fast"):
+            raise ValueError(
+                f"parity must be 'bitwise' or 'fast', got {self.parity!r}")
 
 
 class SaifResult(NamedTuple):
@@ -123,170 +130,319 @@ def initial_support(c0: Tensor, h: int, k_max: int, p: int,
     return init_idx, init_beta, n_init
 
 
+class _Problem:
+    """One problem's state in the outer loop. The engine
+    (:func:`_advance`) steps every live problem of a fleet; a serial solve
+    is a fleet of one. ``inner`` is the problem's own (serial) inner
+    backend on the map-fused path, None where a fleet step owns the
+    bursts."""
+
+    def __init__(self, y, lam, eps, delta0, h_tilde, h_cap, h_post, c0,
+                 aset, carry, inner=None):
+        self.y, self.eps, self.c0 = y, float(eps), c0
+        self.lam = torch.tensor(lam, dtype=y.dtype, device=y.device)
+        self.delta = float(delta0)
+        self.h_tilde, self.h_cap, self.h_post = h_tilde, h_cap, h_post
+        self.aset, self.carry, self.inner = aset, carry, inner
+        self.gap = torch.tensor(math.inf, dtype=y.dtype, device=y.device)
+        self.is_add, self.stop, self.t = True, False, 0
+        # one outer step's values, set by the engine
+        self.g0 = self.theta = self.theta_c = self.r_eff = self.r_del = None
+        self.gap_f, self.stop_now, self.stop_final = math.inf, False, False
+        self.n_scr = self.n_sur = self.post_viol = -1
+        self.traces = {k: [] for k in ("n_active", "gap", "dual", "screened",
+                                       "survivors", "post_viol")}
+
+    def result(self, p: int, max_outer: int) -> SaifResult:
+        dt, dev = self.y.dtype, self.y.device
+
+        def _trace(vals, dtype):
+            tr = torch.full((max_outer,), -1, dtype=dtype, device=dev)
+            tr[:len(vals)] = torch.tensor(vals, dtype=dtype, device=dev)
+            return tr
+
+        tr = self.traces
+        return SaifResult(
+            beta=aset_lib.scatter_beta(self.aset, p), gap=self.gap,
+            n_outer=self.t, n_active=self.aset.count,
+            overflowed=self.aset.overflowed,
+            trace_n_active=_trace(tr["n_active"], dt),
+            trace_gap=_trace(tr["gap"], dt), trace_dual=_trace(tr["dual"], dt),
+            active_idx=self.aset.idx, active_mask=self.aset.mask,
+            inner=self.carry,
+            trace_screened=_trace(tr["screened"], torch.int32),
+            trace_survivors=_trace(tr["survivors"], torch.int32),
+            trace_post_viol=_trace(tr["post_viol"], torch.int32))
+
+
+def newton_polish(loss, carry: InnerCarry, aset, Xa, y, lam, beta, theta,
+                  gap):
+    """The hybrid rule's working-set Newton polish: one masked solve of
+    G b = rho - lam*sign on the CM iterate's support, kept only if its
+    certified gap beats the CM iterate's."""
+    dt = Xa.dtype
+    m = aset.mask & (beta != 0.0)
+    mf = m.to(dt)
+    Gm = carry.G * (mf[:, None] * mf[None, :]) + torch.diag(1.0 - mf)
+    rhs = (carry.rho - lam * torch.sign(beta)) * mf
+    # solve_ex: a singular system yields junk, which the gap rejects
+    b_n = torch.where(m, torch.linalg.solve_ex(Gm, rhs)[0], 0.0)
+    th_n, gap_n = _dual_and_gap(loss, Xa, y, b_n, Xa @ b_n, m, lam)
+    if bool(gap_n < gap):                          # NaN/junk reads False
+        return b_n, th_n, gap_n
+    return beta, theta, gap
+
+
+def certify(loss, y, g0, theta, gap, lam, delta, aset, c0, use_seq_ball,
+            screen_rule: ScreenRule):
+    """The ball region around the backend's dual point (Thm 2 / Eq. 12),
+    radius floored at the gap's own arithmetic precision. Returns its
+    center, the ADD-side radius (delta shrinks it for the ball rules; the
+    point bound screens at 0) and the full gap-safe radius DEL keeps."""
+    ball = gap_ball(loss, theta, gap, lam,
+                    floor=gap_precision_floor(theta, lam))
+    if use_seq_ball:
+        c0_active = torch.where(aset.mask, c0[aset.idx], -torch.inf)
+        lam0t = torch.maximum(torch.max(c0_active), lam * (1 + 1e-12))
+        b_seq = sequential_ball(loss, y, -g0 / lam0t, lam0t, lam)
+        ball = intersect_balls(b_seq, ball)
+    if screen_rule.add_bound == "point":
+        r_eff = torch.zeros_like(ball.radius)
+    else:
+        r_eff = delta * ball.radius
+    return ball.center, r_eff, ball.radius
+
+
+def del_mask(aset, Xa, theta_c, r_del, col_norm, unpen_idx: int = -1):
+    """DEL: the gap-safe rule on the sub-problem's live slots."""
+    corr_act = torch.abs(Xa.T @ theta_c)
+    norm_act = torch.where(aset.mask, col_norm[aset.idx], 0.0)
+    drop = aset.mask & (corr_act + norm_act * r_del < 1.0)
+    if unpen_idx >= 0:
+        # the unpenalized slot's dual constraint is an equality: the < 1
+        # DEL rule never applies to it
+        drop = drop & (aset.idx != unpen_idx)
+    return drop
+
+
+def add_keep(sout, ranks, h_tilde: int, h_cap: int, screen_rule, stuck: bool,
+             first_finite: bool):
+    """Algorithm 2: candidate l is added iff |V_l| < h~ against R_t minus
+    the better-ranked candidates (cumulative AND), at most ``h_cap`` of
+    them; the progress guarantee forces the top-scoring feature when the
+    sub-problem is near target (``stuck``) and nothing passes the test."""
+    v_count = torch.clamp(sout.cand_ge - 1 - ranks, min=0)
+    keep = ((v_count < h_tilde) & (ranks < h_cap)
+            & torch.isfinite(sout.cand_score))
+    if screen_rule.add_bound == "point":
+        keep = keep & (sout.cand_score >= 1.0)
+    keep = torch.cumprod(keep.long(), 0).bool()
+    if stuck and first_finite:
+        keep[0] = True
+    return keep
+
+
+def post_check_keep(chk, ranks, h_post: int, col_norm, r_del, p: int,
+                    first_finite: bool):
+    """The hybrid rule's post-check recruits: the candidates (at most
+    ``h_post``) whose upper bound at the full radius still reaches 1, and
+    always the top one."""
+    ub_c = (chk.cand_score
+            + col_norm[torch.clamp(chk.cand_idx, max=p - 1)] * r_del)
+    keep = torch.isfinite(chk.cand_score) & (ub_c >= 1.0) & (ranks < h_post)
+    keep[0] = first_finite
+    return keep
+
+
+def _advance(probs, X, col_norm, *, loss, h, inner_epochs, polish_factor,
+             max_outer, use_seq_ball, screen, fleet_step, screen_rule,
+             newton, unpen_idx=-1) -> None:
+    """The outer loop of Algorithm 1/2 (the reference's ``_saif_jit`` and,
+    for a fleet, its ``_saif_batch_jit``), over a list of
+    :class:`_Problem` whose states it advances in place until each stops.
+
+    Every float computation runs per problem, on that problem's own
+    tensors, in the serial order; only exact work is shared: the screen
+    (``screen``, a :data:`BatchScreenFn` over the problems whose ADD
+    phase runs), the bursts when ``fleet_step`` owns them, and the host
+    reads, which fetch the problems' values together. A problem ends at
+    its first ADD that runs out of slots: the reference runs it on to
+    ``max_outer`` and then discards it (the caller regrows the capacity
+    and starts over from the same initial support), so stopping there
+    gives the same final result without the wasted steps. An ADD cannot
+    overflow once k_max >= p.
+    """
+    p = X.shape[1]
+    ranks = torch.arange(h, device=X.device)
+    for q in probs:
+        q.g0 = loss.grad(torch.zeros_like(q.y), q.y)       # f'(0)
+    while True:
+        live = [q for q in probs if not q.stop and q.t < max_outer]
+        if not live:
+            return
+        n_eps = [inner_epochs if q.is_add else inner_epochs * polish_factor
+                 for q in live]
+        # --- K epochs of CM on each sub-problem (K * polish_factor once
+        #     recruiting is done), dual point and gap (Eq. 11)
+        if fleet_step is None:
+            Xas = []
+            for q, n_ep in zip(live, n_eps):
+                Xa = aset_lib.gather_columns(X, q.aset)
+                q.carry = q.inner.refresh(q.carry, q.aset, Xa)
+                out = q.inner.run(q.carry, q.aset, Xa, q.lam, n_ep)
+                beta, q.theta, q.gap = out.beta, out.theta, out.gap
+                if newton and not q.is_add:
+                    beta, q.theta, q.gap = newton_polish(
+                        loss, q.carry, q.aset, Xa, q.y, q.lam, beta,
+                        q.theta, q.gap)
+                q.aset = q.aset._replace(beta=beta)
+                Xas.append(Xa)
+        else:
+            outs = fleet_step(live, n_eps)
+            for q, out in zip(live, outs):
+                q.theta, q.gap = out.theta, out.gap
+                q.aset = q.aset._replace(beta=out.beta)
+            Xas = aset_lib.gather_columns_batch(X, [q.aset for q in live])
+        for q in live:
+            q.theta_c, q.r_eff, q.r_del = certify(
+                loss, q.y, q.g0, q.theta, q.gap, q.lam, q.delta, q.aset,
+                q.c0, use_seq_ball, screen_rule)
+
+        # --- global stop check (gap target reached & recruiting finished)
+        #     and DEL (gap-safe rule on the sub-problem)
+        deleting, drops = [], []
+        gap_fs = aset_lib.host_read([q.gap for q in live])
+        for q, Xa, gap_f in zip(live, Xas, gap_fs):
+            q.gap_f = gap_f
+            q.stop_now = (not q.is_add) and gap_f <= q.eps
+            q.n_scr = q.n_sur = q.post_viol = -1
+            if not q.stop_now:
+                deleting.append(q)
+                drops.append(del_mask(q.aset, Xa, q.theta_c, q.r_del,
+                                      col_norm, unpen_idx))
+        for q, aset in zip(deleting, aset_lib.delete_features_batch(
+                [q.aset for q in deleting], drops)):
+            q.aset = aset
+
+        # --- ADD phase, on the problems whose recruiting is on
+        adding = [q for q in live if not q.stop_now
+                  and (screen_rule.add_bound == "point" or q.is_add)]
+        add_q, cands, keeps = [], [], []
+        for q, sout, (mx, ns, ni, ff) in _screen(screen, probs, adding,
+                                                 "r_eff"):
+            q.n_sur = int(ns)
+            q.n_scr = int(ni) - q.n_sur
+            if mx < 1.0:                       # ADD stop (Remark 1)
+                if not screen_rule.delta_ramp:
+                    q.is_add = False
+                elif q.delta < 1.0:
+                    q.delta = min(10.0 * q.delta, 1.0)
+                else:
+                    q.is_add = False
+            else:
+                add_q.append(q)
+                cands.append(sout.cand_idx)
+                keeps.append(add_keep(sout, ranks, q.h_tilde, q.h_cap,
+                                      screen_rule,
+                                      q.gap_f <= 100.0 * q.eps, bool(ff)))
+        for q, aset in zip(add_q, aset_lib.add_features_batch(
+                [q.aset for q in add_q], cands, keeps)):
+            q.aset = aset
+
+        # --- safe post-check (hybrid rule): a stop needs one full screen
+        #     at the certified radius; violators deny it and are recruited
+        for q in live:
+            q.stop_final = q.stop_now
+        if screen_rule.post_check:
+            add_q, cands, keeps = [], [], []
+            checking = [q for q in live if q.stop_now]
+            for q, chk, (mx, _, _, ff) in _screen(screen, probs, checking,
+                                                  "r_del"):
+                viol = mx >= 1.0
+                q.post_viol = int(viol)
+                if viol:
+                    add_q.append(q)
+                    cands.append(chk.cand_idx)
+                    keeps.append(post_check_keep(chk, ranks, q.h_post,
+                                                 col_norm, q.r_del, p,
+                                                 bool(ff)))
+                    q.stop_final = False
+            for q, aset in zip(add_q, aset_lib.add_features_batch(
+                    [q.aset for q in add_q], cands, keeps)):
+                q.aset = aset
+
+        duals = aset_lib.host_read([loss.dual_objective(q.y, q.theta, q.lam)
+                                    for q in live])
+        for q, dual in zip(live, duals):
+            tr = q.traces
+            tr["n_active"].append(float(q.aset.count))
+            tr["gap"].append(q.gap_f)
+            tr["dual"].append(dual)
+            tr["screened"].append(q.n_scr)
+            tr["survivors"].append(q.n_sur)
+            tr["post_viol"].append(q.post_viol)
+            q.stop = q.stop_final or q.aset.overflowed
+            q.t += 1
+
+
+def _screen(screen, probs, picked, radius: str):
+    """Run the fleet screen on the ``picked`` problems at their radius
+    attribute ``radius``; yield (problem, its ScreenOut, host values
+    (max_ub, n_surv, #inactive, top candidate finite)) read in one go."""
+    if not picked:
+        return []
+    on = set(picked)
+    do = [q in on for q in probs]
+    picked = [q for q in probs if q in on]          # in the fleet's order
+    outs = screen([q.theta_c if d else None for q, d in zip(probs, do)],
+                  [getattr(q, radius) if d else None
+                   for q, d in zip(probs, do)],
+                  [q.aset.in_active if d else None
+                   for q, d in zip(probs, do)], do)
+    outs = [o for o, d in zip(outs, do) if d]
+    f64 = torch.float64
+    vals = aset_lib.host_read([
+        torch.stack((o.max_ub.to(f64), o.n_surv.to(f64),
+                     (~q.aset.in_active).sum().to(f64),
+                     torch.isfinite(o.cand_score[0]).to(f64)))
+        for q, o in zip(picked, outs)])
+    return zip(picked, outs, vals)
+
+
+def one_problem_screen(screen: ScreenFn) -> BatchScreenFn:
+    """A serial screen as the engine's fleet screen of one problem."""
+    def fleet(thetas, rs, in_actives, do):
+        return [screen(thetas[0], rs[0], in_actives[0])]
+    return fleet
+
+
 def _solve(X, y, col_norm, c0, lam, eps, delta0, init_idx, init_beta,
            init_mask, carry_in: InnerCarry, h_tilde, h_cap, *, loss_name,
            h, k_max, inner_epochs, polish_factor, max_outer, use_seq_ball,
            screen_backend, inner_backend, screen_rule: ScreenRule,
            unpen_idx: int = -1) -> SaifResult:
-    """The outer loop of Algorithm 1/2 (the reference's ``_saif_jit``).
-
-    The loop ends at the first ADD that runs out of slots. The reference
-    runs such a solve on to ``max_outer`` and then discards it
-    (solve_scalar regrows the capacity and starts over from the same
-    initial support), so stopping there returns the same final result
-    without the wasted steps. An ADD cannot overflow once k_max >= p: its
-    candidates are inactive features, never more than the free slots.
-    """
+    """One serial solve (the reference's ``_saif_jit``): the engine
+    :func:`_advance` on a fleet of one, with the serial screen and inner
+    backend."""
     loss = get_loss(loss_name)
-    n, p = X.shape
-    dt, dev = X.dtype, X.device
-    lam = torch.tensor(lam, dtype=dt, device=dev)
+    p = X.shape[1]
     make_screen = (make_screen_cuda if screen_backend == "cuda"
                    else make_screen_torch)
-    screen = make_screen(X, col_norm, h)
     inner = make_inner(inner_backend, loss, X, y, col_norm, h, unpen_idx)
-    g0 = loss.grad(torch.zeros_like(y), y)          # f'(0)
-    newton = (screen_rule.newton_polish and inner_backend == "gram"
-              and loss_name == "least_squares" and unpen_idx < 0)
-    ranks = torch.arange(h, device=dev)
-
-    aset = aset_lib.init_active_set(p, k_max, init_idx, dt, init_beta,
+    aset = aset_lib.init_active_set(p, k_max, init_idx, X.dtype, init_beta,
                                     live_mask=init_mask)
     carry = inner.init(aset, carry_in, aset_lib.gather_columns(X, aset))
-    gap = torch.tensor(math.inf, dtype=dt, device=dev)
-    delta, is_add, stop, t = float(delta0), True, False, 0
-    traces = {k: [] for k in ("n_active", "gap", "dual", "screened",
-                              "survivors", "post_viol")}
-
-    while not stop and t < max_outer:
-        Xa = aset_lib.gather_columns(X, aset)
-        # --- K epochs of CM on the sub-problem (K * polish_factor once
-        #     recruiting is done), dual point and gap (Eq. 11)
-        carry = inner.refresh(carry, aset, Xa)
-        n_ep = inner_epochs if is_add else inner_epochs * polish_factor
-        out = inner.run(carry, aset, Xa, lam, n_ep)
-        beta, theta, gap = out.beta, out.theta, out.gap
-
-        # --- working-set Newton polish (hybrid rule): one masked solve of
-        #     G b = rho - lam*sign on the CM iterate's support, accepted only
-        #     if its certified gap beats the CM iterate's
-        if newton and not is_add:
-            m = aset.mask & (beta != 0.0)
-            mf = m.to(dt)
-            Gm = carry.G * (mf[:, None] * mf[None, :]) + torch.diag(1.0 - mf)
-            rhs = (carry.rho - lam * torch.sign(beta)) * mf
-            # solve_ex: a singular system yields junk, which the gap rejects
-            b_n = torch.where(m, torch.linalg.solve_ex(Gm, rhs)[0], 0.0)
-            th_n, gap_n = _dual_and_gap(loss, Xa, y, b_n, Xa @ b_n, m, lam)
-            if bool(gap_n < gap):                  # NaN/junk reads False
-                beta, theta, gap = b_n, th_n, gap_n
-        aset = aset._replace(beta=beta)
-
-        # --- ball region from the backend's dual point (Thm 2 / Eq. 12),
-        #     radius floored at the gap's own arithmetic precision
-        ball = gap_ball(loss, theta, gap, lam,
-                        floor=gap_precision_floor(theta, lam))
-        if use_seq_ball:
-            c0_active = torch.where(aset.mask, c0[aset.idx], -torch.inf)
-            lam0t = torch.maximum(torch.max(c0_active), lam * (1 + 1e-12))
-            b_seq = sequential_ball(loss, y, -g0 / lam0t, lam0t, lam)
-            ball = intersect_balls(b_seq, ball)
-        # delta shrinks the radius for the ADD-side rules only; DEL keeps
-        # the full gap-safe radius; the point bound screens at radius 0
-        if screen_rule.add_bound == "point":
-            r_eff = torch.zeros_like(ball.radius)
-        else:
-            r_eff = delta * ball.radius
-        r_del = ball.radius
-        theta_c = ball.center
-
-        # --- global stop check (gap target reached & recruiting finished)
-        gap_f = float(gap)
-        stop_now = (not is_add) and gap_f <= eps
-
-        # --- DEL (gap-safe rule on the sub-problem)
-        if not stop_now:
-            corr_act = torch.abs(Xa.T @ theta_c)
-            norm_act = torch.where(aset.mask, col_norm[aset.idx], 0.0)
-            del_mask = aset.mask & (corr_act + norm_act * r_del < 1.0)
-            if unpen_idx >= 0:
-                # the unpenalized slot's dual constraint is an equality:
-                # the < 1 DEL rule never applies to it
-                del_mask = del_mask & (aset.idx != unpen_idx)
-            aset = aset_lib.delete_features(aset, del_mask)
-
-        # --- ADD phase
-        do_add = (not stop_now) and (screen_rule.add_bound == "point"
-                                     or is_add)
-        n_scr = n_sur = -1
-        if do_add:
-            sout = screen(theta_c, r_eff, aset.in_active)
-            n_sur = int(sout.n_surv)
-            n_scr = int((~aset.in_active).sum()) - n_sur
-            if float(sout.max_ub) < 1.0:       # ADD stop (Remark 1)
-                if not screen_rule.delta_ramp:
-                    is_add = False
-                elif delta < 1.0:
-                    delta = min(10.0 * delta, 1.0)
-                else:
-                    is_add = False
-            else:
-                # Algorithm 2: candidate l is added iff |V_l| < h~ against
-                # R_t minus the better-ranked candidates (cumulative AND)
-                v_count = torch.clamp(sout.cand_ge - 1 - ranks, min=0)
-                keep = ((v_count < h_tilde) & (ranks < h_cap)
-                        & torch.isfinite(sout.cand_score))
-                if screen_rule.add_bound == "point":
-                    keep = keep & (sout.cand_score >= 1.0)
-                keep = torch.cumprod(keep.long(), 0).bool()
-                # progress guarantee: force the top-scoring feature when the
-                # sub-problem is near target and nothing passes the test
-                if gap_f <= 100.0 * eps and bool(
-                        torch.isfinite(sout.cand_score[0])):
-                    keep[0] = True
-                aset = aset_lib.add_features(aset, sout.cand_idx, keep)
-
-        # --- safe post-check (hybrid rule): a stop needs one full screen
-        #     at the certified radius; violators deny it and are recruited
-        post_viol = -1
-        stop_final = stop_now
-        if screen_rule.post_check and stop_now:
-            chk = screen(theta_c, r_del, aset.in_active)
-            viol = float(chk.max_ub) >= 1.0
-            post_viol = int(viol)
-            if viol:
-                ub_c = (chk.cand_score +
-                        col_norm[torch.clamp(chk.cand_idx, max=p - 1)]
-                        * r_del)
-                keep = torch.isfinite(chk.cand_score) & (ub_c >= 1.0)
-                keep[0] = bool(torch.isfinite(chk.cand_score[0]))
-                aset = aset_lib.add_features(aset, chk.cand_idx, keep)
-                stop_final = False
-
-        traces["n_active"].append(float(aset.count))
-        traces["gap"].append(gap_f)
-        traces["dual"].append(float(loss.dual_objective(y, theta, lam)))
-        traces["screened"].append(n_scr)
-        traces["survivors"].append(n_sur)
-        traces["post_viol"].append(post_viol)
-        stop = stop_final or aset.overflowed
-        t += 1
-
-    def _trace(vals, dtype):
-        tr = torch.full((max_outer,), -1, dtype=dtype, device=dev)
-        tr[:len(vals)] = torch.tensor(vals, dtype=dtype, device=dev)
-        return tr
-
-    return SaifResult(
-        beta=aset_lib.scatter_beta(aset, p), gap=gap, n_outer=t,
-        n_active=aset.count, overflowed=aset.overflowed,
-        trace_n_active=_trace(traces["n_active"], dt),
-        trace_gap=_trace(traces["gap"], dt),
-        trace_dual=_trace(traces["dual"], dt),
-        active_idx=aset.idx, active_mask=aset.mask, inner=carry,
-        trace_screened=_trace(traces["screened"], torch.int32),
-        trace_survivors=_trace(traces["survivors"], torch.int32),
-        trace_post_viol=_trace(traces["post_viol"], torch.int32))
+    prob = _Problem(y, lam, eps, delta0, h_tilde, h_cap, h, c0, aset, carry,
+                    inner)
+    _advance([prob], X, col_norm, loss=loss, h=h, inner_epochs=inner_epochs,
+             polish_factor=polish_factor, max_outer=max_outer,
+             use_seq_ball=use_seq_ball,
+             screen=one_problem_screen(make_screen(X, col_norm, h)),
+             fleet_step=None, screen_rule=screen_rule,
+             newton=(screen_rule.newton_polish and inner_backend == "gram"
+                     and loss_name == "least_squares" and unpen_idx < 0),
+             unpen_idx=unpen_idx)
+    return prob.result(p, max_outer)
 
 
 class PathState(NamedTuple):
@@ -323,13 +479,13 @@ def as_tensor(a, device, dtype=None) -> Tensor:
     return torch.as_tensor(a).to(device=device, dtype=dtype).contiguous()
 
 
-def _median(v: Tensor) -> float:
+def _median(v: Tensor) -> Tensor:
     """jnp.median: the mean of the two middle values for an even count."""
     s = torch.sort(v).values
     m = s.shape[0]
     if m % 2:
-        return float(s[m // 2])
-    return float((s[m // 2 - 1] + s[m // 2]) / 2)
+        return s[m // 2]
+    return (s[m // 2 - 1] + s[m // 2]) / 2
 
 
 def prepare_path(X, y, config: SaifConfig = SaifConfig(),
@@ -346,7 +502,8 @@ def prepare_path(X, y, config: SaifConfig = SaifConfig(),
     col_norm = torch.linalg.vector_norm(X, dim=0)
     c0_max = float(torch.max(c0))
     return PathState(X=X, y=y, c0=c0, col_norm=col_norm, lam_max=c0_max,
-                     c0_max=c0_max, c0_median=_median(c0), b0=float(b0))
+                     c0_max=c0_max, c0_median=float(_median(c0)),
+                     b0=float(b0))
 
 
 def solve_scalar(prep: PathState, lam: float,

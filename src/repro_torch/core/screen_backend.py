@@ -19,7 +19,7 @@ does not promise, so every top-h here is a stable sort.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, List, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -41,6 +41,13 @@ class ScreenOut(NamedTuple):
 
 # signature: (theta (n,), r scalar, in_active (p,) bool) -> ScreenOut
 ScreenFn = Callable[[Tensor, Tensor, Tensor], ScreenOut]
+# fleet signature, per problem of the fleet: (thetas, rs, in_actives, do)
+# -> one ScreenOut each; a problem whose ``do`` is False passes None and
+# gets the neutral :func:`_skip_screen_out`
+BatchScreenFn = Callable[[Sequence[Optional[Tensor]],
+                          Sequence[Optional[Tensor]],
+                          Sequence[Optional[Tensor]], Sequence[bool]],
+                         List[ScreenOut]]
 
 
 def _top(x: Tensor, h: int):
@@ -51,10 +58,12 @@ def _top(x: Tensor, h: int):
 
 def ge_counts_from_hist(hist: Tensor, lb_sorted: Tensor,
                         lb_cand: Tensor) -> Tensor:
-    """Per-candidate #{i : ub_i >= lb} from the c-histogram (exact)."""
-    suffix = torch.cumsum(hist.flip(0), 0).flip(0)     # suffix[m] = Σ_{t>=m}
+    """Per-candidate #{i : ub_i >= lb} from the c-histogram (exact); rows
+    of 2-D arguments are problems of a fleet."""
+    suffix = torch.cumsum(hist.flip(-1), -1).flip(-1)  # suffix[m] = Σ_{t>=m}
     pos = torch.searchsorted(lb_sorted, lb_cand, right=False)
-    return suffix[torch.clamp(pos + 1, max=hist.shape[0] - 1)].to(torch.int32)
+    return torch.gather(suffix, -1, torch.clamp(
+        pos + 1, max=hist.shape[-1] - 1)).to(torch.int32)
 
 
 def violation_ge_counts(ub: Tensor, lb_cand: Tensor) -> Tensor:
@@ -115,6 +124,188 @@ def make_screen_cuda(X: Tensor, col_norm: Tensor, h: int) -> ScreenFn:
                          cand_idx=cand_idx, cand_lb=cand_lb, cand_ge=cand_ge,
                          n_surv=survivor_count(ub))
     return screen
+
+
+# --------------------------------------------------------------------------
+# fleet screens (core/batch.py): B problems over one shared design
+# --------------------------------------------------------------------------
+# The default ``torch`` fleet screen is a loop of the SERIAL screen over the
+# problems whose ADD phase runs this step: each problem's scan is the
+# literal serial matvec on its own tensors, so fleet decisions are bitwise
+# those of B serial solves. ``cuda`` runs kernels K1b and K2b: one scan of
+# the shared X for the whole fleet, each problem's scores bitwise K1's. The
+# opt-in ``matmul`` screen turns the fleet's scans into one (B, n) x (n, p)
+# product (ulp-grade against serial scans); ``distinct`` scans per-problem
+# designs. A problem's top-h needs only the fleet's h candidates (the
+# maximum over the fleet): a stable top-h is a prefix of a stable top-h'
+# for h <= h', so each problem's own h_cap-prefix is its serial top-h.
+
+
+def fleet_col_norms(col_norm: Tensor, b: int) -> Tensor:
+    """(B, p) fleet column norms from a shared (p,) vector (a broadcast
+    view) or pass-through."""
+    return col_norm.expand(b, -1) if col_norm.ndim == 1 else col_norm
+
+
+def _skip_screen_out(h: int, dtype, device) -> ScreenOut:
+    """Neutral ScreenOut of a skipped problem: max_ub = -inf, no finite
+    candidates (the engine reads nothing of it)."""
+    return ScreenOut(max_ub=torch.tensor(-torch.inf, dtype=dtype,
+                                         device=device),
+                     cand_score=torch.full((h,), -torch.inf, dtype=dtype,
+                                           device=device),
+                     cand_idx=torch.zeros(h, dtype=torch.long, device=device),
+                     cand_lb=torch.full((h,), torch.inf, dtype=dtype,
+                                        device=device),
+                     cand_ge=torch.zeros(h, dtype=torch.int32, device=device),
+                     n_surv=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def _rows(out: ScreenOut, do: Sequence[bool], skip: ScreenOut
+          ) -> List[ScreenOut]:
+    """Split a batched ScreenOut over the ``do`` problems into one per
+    problem of the fleet, ``skip`` for the others."""
+    it = zip(*out)
+    return [ScreenOut(*next(it)) if d else skip for d in do]
+
+
+def _candidate_out_batch(masked: Tensor, ub: Tensor, col_norm: Tensor,
+                         r: Tensor, h: int) -> ScreenOut:
+    """Batched :func:`_candidate_out`: per-row top-h, bounds and counts
+    from masked scores and ub (B, p); ``col_norm`` (p,) or (B, p), r (B,).
+    The counts are exact: a per-row histogram of searchsorted positions."""
+    b, p = masked.shape
+    vals, idx = torch.sort(masked, dim=1, descending=True, stable=True)
+    cand_score, cand_idx = vals[:, :h], idx[:, :h]
+    cn = fleet_col_norms(col_norm, b)
+    cand_lb = torch.abs(cand_score - torch.gather(cn, 1, cand_idx)
+                        * r[:, None])
+    lb_sorted = torch.sort(cand_lb, dim=1).values
+    c = torch.searchsorted(lb_sorted, ub, right=True)
+    c = c + (h + 1) * torch.arange(b, device=c.device)[:, None]
+    hist = torch.bincount(c.flatten(), minlength=b * (h + 1)).reshape(b, -1)
+    return ScreenOut(max_ub=torch.amax(ub, dim=1), cand_score=cand_score,
+                     cand_idx=cand_idx, cand_lb=cand_lb,
+                     cand_ge=ge_counts_from_hist(hist, lb_sorted, cand_lb),
+                     n_surv=torch.sum(ub >= 1.0, dim=1, dtype=torch.int32))
+
+
+def make_batch_screen_torch(X: Tensor, col_norm: Tensor,
+                            h: int) -> BatchScreenFn:
+    """Default fleet screen: the serial plain screen per problem whose
+    ``do`` is set (the reference's ``jnp``)."""
+    serial = make_screen_torch(X, col_norm, h)
+    skip = _skip_screen_out(h, X.dtype, X.device)
+
+    def screen(thetas, rs, in_actives, do):
+        return [serial(th, r, act) if d else skip
+                for th, r, act, d in zip(thetas, rs, in_actives, do)]
+    return screen
+
+
+def make_batch_screen_matmul(X: Tensor, col_norm: Tensor,
+                             h: int) -> BatchScreenFn:
+    """Shared-X screen: one (B, n) x (n, p) product scans the fleet
+    (ulp-grade against serial scans; opt-in)."""
+    skip = _skip_screen_out(h, X.dtype, X.device)
+
+    def screen(thetas, rs, in_actives, do):
+        sel = [i for i, d in enumerate(do) if d]
+        Theta = torch.stack([thetas[i] for i in sel])
+        r = torch.stack([rs[i] for i in sel])
+        masked = torch.where(torch.stack([in_actives[i] for i in sel]),
+                             -torch.inf, torch.abs(Theta @ X))
+        ub = masked + fleet_col_norms(col_norm, len(sel)) * r[:, None]
+        return _rows(_candidate_out_batch(masked, ub, col_norm, r, h), do,
+                     skip)
+    return screen
+
+
+def make_batch_screen_distinct(Xs: Tensor, col_norm: Tensor,
+                               h: int) -> BatchScreenFn:
+    """Per-problem designs Xs (B, n, p): one batched contraction scans the
+    problems whose ``do`` is set."""
+    skip = _skip_screen_out(h, Xs.dtype, Xs.device)
+
+    def screen(thetas, rs, in_actives, do):
+        sel = [i for i, d in enumerate(do) if d]
+        Theta = torch.stack([thetas[i] for i in sel])
+        r = torch.stack([rs[i] for i in sel])
+        cn = fleet_col_norms(col_norm, len(do))[sel]
+        score = torch.abs(torch.einsum("bnp,bn->bp", Xs[sel], Theta))
+        masked = torch.where(torch.stack([in_actives[i] for i in sel]),
+                             -torch.inf, score)
+        ub = masked + cn * r[:, None]
+        return _rows(_candidate_out_batch(masked, ub, cn, r, h), do, skip)
+    return screen
+
+
+def make_batch_screen_cuda(X: Tensor, col_norm: Tensor,
+                           h: int) -> BatchScreenFn:
+    """Kernel fleet screen: K1b scans the shared X once for every problem
+    whose ``do`` is set, each problem's (p/BP) h tile winners merge into
+    its top-h, and K2b histograms each problem's ub against its
+    candidates' bounds (the reference's ``pallas``)."""
+    from repro_torch.kernels.screen.screen import (screen_fused_batch,
+                                                   ub_histogram_batch)
+
+    p = X.shape[1]
+    skip = _skip_screen_out(h, X.dtype, X.device)
+
+    def screen(thetas, rs, in_actives, do):
+        sel = [i for i, d in enumerate(do) if d]
+        m = len(sel)
+        r = torch.stack([rs[i] for i in sel])
+        _, ub, _, tops, topi, tmax = screen_fused_batch(
+            X, torch.stack([thetas[i] for i in sel]), col_norm,
+            torch.stack([in_actives[i] for i in sel]), r, h=h)
+        # merge each problem's tile winners: O((p/BP) h) candidates
+        vals, pos = torch.sort(tops.reshape(m, -1), dim=1, descending=True,
+                               stable=True)
+        cand_score = vals[:, :h]
+        cand_idx = torch.gather(topi.reshape(m, -1), 1, pos[:, :h]).long()
+        # a saturated tile can name a padding lane (id >= p) with score
+        # -inf; such a candidate is never kept, its gathers are clamped
+        cand_lb = torch.abs(cand_score - col_norm[
+            torch.clamp(cand_idx, max=p - 1)] * r[:, None])
+        lb_sorted = torch.sort(cand_lb, dim=1).values
+        hist = ub_histogram_batch(ub, lb_sorted)
+        out = ScreenOut(max_ub=torch.amax(tmax, dim=1), cand_score=cand_score,
+                        cand_idx=cand_idx, cand_lb=cand_lb,
+                        cand_ge=ge_counts_from_hist(hist, lb_sorted, cand_lb),
+                        n_surv=torch.sum(ub >= 1.0, dim=1, dtype=torch.int32))
+        return _rows(out, do, skip)
+    return screen
+
+
+def make_batch_screen(name: str, X: Tensor, col_norm: Tensor,
+                      h: int) -> BatchScreenFn:
+    """Fleet screen by resolved name (see :func:`resolve_batch_screen`)."""
+    if name == "cuda":
+        return make_batch_screen_cuda(X, col_norm, h)
+    if name == "matmul":
+        return make_batch_screen_matmul(X, col_norm, h)
+    return make_batch_screen_torch(X, col_norm, h)
+
+
+# The reference's measured CPU crossover (its DESIGN.md §8): below this B*p
+# the per-problem ``do`` skip of the serial-scan screen beats one product
+# for the whole fleet end to end, so an informed call downgrades ``matmul``.
+MATMUL_MIN_BP = 32_768
+
+
+def resolve_batch_screen(name: str, device: torch.device, *,
+                         b: Optional[int] = None,
+                         p: Optional[int] = None) -> str:
+    """Fleet screen policy: ``auto`` takes the kernels (K1b/K2b) on a CUDA
+    device and the serial-scan screen elsewhere; ``matmul`` is honoured on
+    a card, and on the CPU only when B*p reaches :data:`MATMUL_MIN_BP`
+    (an uninformed call, without ``b``/``p``, keeps it)."""
+    if name == "matmul":
+        if torch.device(device).type != "cpu" or b is None or p is None:
+            return name
+        return name if b * p >= MATMUL_MIN_BP else "torch"
+    return resolve_backend(name, device)
 
 
 def resolve_backend(name: str, device: torch.device) -> str:

@@ -29,6 +29,17 @@
 //    leaves the same sum in every thread, every thread computes the same
 //    soft-threshold, and each thread updates its own rows of z. A
 //    multi-CTA or cluster design that splits n is work for a later change.
+//
+// K3b cm_burst_batch — replaces repro/kernels/cm/cm.py:296
+//    cm_burst_batch_pallas: K3 (no unpenalized slot) for m problems, one
+//    CTA each, grid (m,). CTA b reads problem b's transposed block
+//    AT[b] (k, n), its y, state and order, and its lambda, epoch count and
+//    live-slot count from device arrays, so the host reads nothing to
+//    launch. The body is K3's own (K3 is the m = 1 launch with the scalars
+//    passed directly), so a fleet burst is bitwise a serial burst, and a
+//    CTA needs K3's shared memory (cm_smem_bytes), not more. Bound: as K3,
+//    the latency of each problem's chain of coordinate steps; the m chains
+//    run side by side on m SMs.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -140,9 +151,26 @@ cm_burst_kernel(const T* __restrict__ AT, const T* __restrict__ y,
                 T* __restrict__ beta, const T* __restrict__ col_sq,
                 const uint8_t* __restrict__ mask, const int* __restrict__ order,
                 const T* __restrict__ pen, T lam, int n_epochs, int count,
-                int n, int k, T* __restrict__ z_out, T* __restrict__ theta_out,
+                const T* __restrict__ lam_b, const int* __restrict__ nep_b,
+                const int* __restrict__ cnt_b, int n, int k,
+                T* __restrict__ z_out, T* __restrict__ theta_out,
                 T* __restrict__ gap_out) {
   extern __shared__ __align__(16) unsigned char smem[];
+  if (lam_b != nullptr) {             // K3b: CTA b owns problem b
+    const int b = blockIdx.x;
+    lam = lam_b[b];
+    n_epochs = nep_b[b];
+    count = cnt_b[b];
+    AT += (size_t)b * k * n;
+    y += (size_t)b * n;
+    beta += (size_t)b * k;
+    col_sq += (size_t)b * k;
+    mask += (size_t)b * k;
+    order += (size_t)b * k;
+    z_out += (size_t)b * n;
+    theta_out += (size_t)b * n;
+    gap_out += b;
+  }
   T* y_s = reinterpret_cast<T*>(smem);
   T* z_s = y_s + n;
   T* w_s = z_s + n;                   // unscaled dual point, then theta
@@ -320,7 +348,8 @@ size_t smem_bytes(int n, int k, size_t itemsize, bool pen) {
 template <typename T, int L, bool PEN>
 int launch(const void* AT, const void* y, void* beta, const void* col_sq,
            const void* mask, const void* order, const void* pen, T lam,
-           int n_epochs, int count, int n, int k, void* z, void* theta,
+           int n_epochs, int count, const void* lam_b, const void* nep_b,
+           const void* cnt_b, int m, int n, int k, void* z, void* theta,
            void* gap, void* stream) {
   const size_t smem = smem_bytes(n, k, sizeof(T), PEN);
   if (smem > 48 * 1024) {
@@ -329,10 +358,11 @@ int launch(const void* AT, const void* y, void* beta, const void* col_sq,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  cm_burst_kernel<T, L, PEN><<<1, NT, smem, (cudaStream_t)stream>>>(
+  cm_burst_kernel<T, L, PEN><<<m, NT, smem, (cudaStream_t)stream>>>(
       (const T*)AT, (const T*)y, (T*)beta, (const T*)col_sq,
       (const uint8_t*)mask, (const int*)order, (const T*)pen, lam, n_epochs,
-      count, n, k, (T*)z, (T*)theta, (T*)gap);
+      count, (const T*)lam_b, (const int*)nep_b, (const int*)cnt_b, n, k,
+      (T*)z, (T*)theta, (T*)gap);
   return (int)cudaGetLastError();
 }
 
@@ -346,8 +376,8 @@ extern "C" {
            int count, int n, int k, void* z, void* theta, void* gap,          \
            void* stream) {                                                     \
     return launch<T, L, false>(AT, y, beta, col_sq, mask, order, nullptr,     \
-                               lam, n_epochs, count, n, k, z, theta, gap,     \
-                               stream);                                        \
+                               lam, n_epochs, count, nullptr, nullptr,        \
+                               nullptr, 1, n, k, z, theta, gap, stream);      \
   }
 
 #define CM_ENTRY_PEN(NAME, T, L)                                               \
@@ -356,7 +386,19 @@ extern "C" {
            int n_epochs, int count, int n, int k, void* z, void* theta,       \
            void* gap, void* stream) {                                          \
     return launch<T, L, true>(AT, y, beta, col_sq, mask, order, pen, lam,     \
-                              n_epochs, count, n, k, z, theta, gap, stream);  \
+                              n_epochs, count, nullptr, nullptr, nullptr, 1,  \
+                              n, k, z, theta, gap, stream);                   \
+  }
+
+// K3b: m problems, lambda / epochs / live counts as device arrays (m,)
+#define CM_ENTRY_BATCH(NAME, T, L)                                             \
+  int NAME(const void* AT, const void* Y, void* beta, const void* col_sq,     \
+           const void* mask, const void* order, const void* lam,              \
+           const void* n_epochs, const void* count, int m, int n, int k,      \
+           void* z, void* theta, void* gap, void* stream) {                   \
+    return launch<T, L, false>(AT, Y, beta, col_sq, mask, order, nullptr,     \
+                               T(0), 0, 0, lam, n_epochs, count, m, n, k, z,  \
+                               theta, gap, stream);                           \
   }
 
 CM_ENTRY(cm_burst_ls_f32, float, LS)
@@ -367,5 +409,9 @@ CM_ENTRY_PEN(cm_burst_ls_f32_pen, float, LS)
 CM_ENTRY_PEN(cm_burst_ls_f64_pen, double, LS)
 CM_ENTRY_PEN(cm_burst_logit_f32_pen, float, LOGIT)
 CM_ENTRY_PEN(cm_burst_logit_f64_pen, double, LOGIT)
+CM_ENTRY_BATCH(cm_burst_batch_ls_f32, float, LS)
+CM_ENTRY_BATCH(cm_burst_batch_ls_f64, double, LS)
+CM_ENTRY_BATCH(cm_burst_batch_logit_f32, float, LOGIT)
+CM_ENTRY_BATCH(cm_burst_batch_logit_f64, double, LOGIT)
 
 }  // extern "C"

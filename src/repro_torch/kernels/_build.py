@@ -32,17 +32,22 @@ _I = ctypes.c_int
 # for "f32" or "f64"; None is the float scalar of that type
 _CM = [_P, _P, _P, _P, _P, _P, None, _I, _I, _I, _I, _P, _P, _P, _P]
 _CM_PEN = _CM[:6] + [_P] + _CM[6:]
+_CM_BATCH = [_P] * 9 + [_I, _I, _I, _P, _P, _P, _P]
+_SCREEN = [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+           _P, _P]
 _SIGNATURES = {
     "screen": {
-        "screen_fused_{dt}": [_P, _P, _P, _P, None, _I, _I, _I, _I,
-                              _P, _P, _P, _P, _P, _P, _P],
-        "ub_histogram_{dt}": [_P, _P, _I, _I, _P, _P],
+        "screen_fused_{dt}": _SCREEN,
+        "screen_fused_batch_{dt}": _SCREEN,
+        "ub_histogram_{dt}": [_P, _P, _I, _I, _I, _P, _P],
     },
     "cm_burst": {
         "cm_burst_ls_{dt}": _CM,
         "cm_burst_logit_{dt}": _CM,
         "cm_burst_ls_{dt}_pen": _CM_PEN,
         "cm_burst_logit_{dt}_pen": _CM_PEN,
+        "cm_burst_batch_ls_{dt}": _CM_BATCH,
+        "cm_burst_batch_logit_{dt}": _CM_BATCH,
     },
     "chain_suffix": {
         "chain_suffix_sums_{dt}": [_P, _P, _I, _I, _P],

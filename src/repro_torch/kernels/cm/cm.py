@@ -9,21 +9,25 @@ K3 replaces ``repro/kernels/cm/cm.py:355 cm_burst_pallas``: without
 counts in ``cm_burst_xt.launches``; with ``pen`` (fused LASSO's
 unpenalized slot, the reference's ``has_unpen=True`` branch at
 ``cm.py:184-206``) it launches the ``_pen`` entries and counts in
-``cm_burst_pen_xt.launches``.
+``cm_burst_pen_xt.launches``. K3b (:func:`cm_burst_batch_xt`) replaces
+``cm.py:296 cm_burst_batch_pallas``: K3 for a fleet, one CTA per problem,
+counted in ``cm_burst_batch_xt.launches``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.cm.ref import cm_burst_ref
-from repro_torch.kernels.screen.screen import _ptr, _require, _stream
+from repro_torch.kernels.cm.ref import cm_burst_batch_ref, cm_burst_ref
+from repro_torch.kernels.screen.screen import (_FLOATS, _ptr, _require,
+                                               _stream)
 
 Tensor = torch.Tensor
 
 # Dynamic shared memory one CTA may take on Hopper is 227 KB; keep headroom.
 CM_SMEM_BUDGET_BYTES = 200 * 1024
 _NW = 8                      # warps of the kernel's one CTA (NT = 256)
+_LOSS = {"least_squares": "ls", "logistic": "logit"}
 _ENTRY = {("least_squares", torch.float32): "cm_burst_ls_f32",
           ("least_squares", torch.float64): "cm_burst_ls_f64",
           ("logistic", torch.float32): "cm_burst_logit_f32",
@@ -119,6 +123,59 @@ def cm_burst_pen_xt(AT: Tensor, y: Tensor, beta: Tensor, col_sq: Tensor,
     return out
 
 
+def cm_burst_batch_xt(AT: Tensor, Y: Tensor, beta: Tensor, col_sq: Tensor,
+                      mask: Tensor, order: Tensor, lam, n_epochs, count, *,
+                      loss_name: str = "least_squares"):
+    """K3b: K3 for m problems at once, one CTA each, every slot penalized.
+
+    AT (m, k, n) the transposed active blocks (dead rows zeroed), Y (m, n),
+    beta/col_sq (m, k), mask (m, k) bool, order (m, k); lam, n_epochs and
+    count (m,) per problem (tensors on the card, or sequences). Returns
+    (beta (m, k), z (m, n), theta (m, n), gap (m,)): per problem bitwise
+    what K3 returns. The shared-memory gate is K3's, for one problem.
+    """
+    if AT.device.type == "cpu":
+        return cm_burst_batch_ref(AT.transpose(1, 2), Y, beta, col_sq, mask,
+                                  order, lam, n_epochs, count,
+                                  loss_name=loss_name)
+    m, k, n = AT.shape
+    dt, dev = AT.dtype, AT.device
+    if dt not in _FLOATS or loss_name not in _LOSS:
+        raise ValueError(f"cm_burst_batch: no kernel for loss {loss_name!r}"
+                         f" in {dt}")
+    if not cm_smem_ok(n, k, AT.element_size()):
+        raise ValueError(f"cm_burst_batch: a {n}x{k} block ({dt}) exceeds "
+                         f"the kernel's shared-memory budget")
+    _require(AT, "AT", dt, (m, k, n), dev)
+    _require(Y, "Y", dt, (m, n), dev)
+    _require(col_sq, "col_sq", dt, (m, k), dev)
+    _require(mask, "mask", torch.bool, (m, k), dev)
+    order32 = order.to(torch.int32).contiguous()
+    _require(order32, "order", torch.int32, (m, k), dev)
+    beta_out = beta.to(dt).clone().contiguous()
+    _require(beta_out, "beta", dt, (m, k), dev)
+    lam = torch.as_tensor(lam, dtype=dt, device=dev).contiguous()
+    nep = torch.as_tensor(n_epochs, dtype=torch.int32, device=dev
+                          ).contiguous()
+    cnt = torch.as_tensor(count, dtype=torch.int32, device=dev).contiguous()
+    for t, what in ((lam, "lam"), (nep, "n_epochs"), (cnt, "count")):
+        if tuple(t.shape) != (m,):
+            raise ValueError(f"{what} has shape {tuple(t.shape)}, "
+                             f"expected ({m},)")
+    z = torch.empty((m, n), dtype=dt, device=dev)
+    theta = torch.empty((m, n), dtype=dt, device=dev)
+    gap = torch.empty(m, dtype=dt, device=dev)
+    dts = "f64" if dt == torch.float64 else "f32"
+    fn = getattr(_build.library("cm_burst"),
+                 f"cm_burst_batch_{_LOSS[loss_name]}_{dts}")
+    rc = fn(_ptr(AT), _ptr(Y), _ptr(beta_out), _ptr(col_sq), _ptr(mask),
+            _ptr(order32), _ptr(lam), _ptr(nep), _ptr(cnt), m, n, k, _ptr(z),
+            _ptr(theta), _ptr(gap), _stream())
+    _build.check(rc, "cm_burst_batch")
+    cm_burst_batch_xt.launches += 1
+    return beta_out, z, theta, gap
+
+
 def cm_burst(A: Tensor, y: Tensor, beta: Tensor, col_sq: Tensor,
              mask: Tensor, order: Tensor, lam, n_epochs, count, pen=None, *,
              loss_name: str = "least_squares"):
@@ -137,3 +194,4 @@ def cm_burst(A: Tensor, y: Tensor, beta: Tensor, col_sq: Tensor,
 
 cm_burst_xt.launches = 0
 cm_burst_pen_xt.launches = 0
+cm_burst_batch_xt.launches = 0

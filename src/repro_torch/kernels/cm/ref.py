@@ -60,3 +60,18 @@ def cm_burst_ref(A: Tensor, y: Tensor, beta: Tensor, col_sq: Tensor,
     p_val = torch.sum(loss.value(z, y)) + lam * torch.sum(l1)
     d_val = -torch.sum(loss.conj(-lam * theta, y))
     return beta, z, theta, p_val - d_val
+
+
+def cm_burst_batch_ref(A: Tensor, Y: Tensor, beta: Tensor, col_sq: Tensor,
+                       mask: Tensor, order: Tensor, lam, n_epochs, count, *,
+                       loss_name: str = "least_squares"):
+    """:func:`cm_burst_ref` per problem of a fleet: A (m, n, k), Y (m, n),
+    beta/col_sq/mask/order (m, k), lam/n_epochs/count (m,). Each problem
+    works on its own copies, as a serial burst would. Returns (beta (m, k),
+    z (m, n), theta (m, n), gap (m,))."""
+    outs = [cm_burst_ref(A[b].clone(), Y[b].clone(), beta[b].clone(),
+                         col_sq[b].clone(), mask[b], order[b], float(lam[b]),
+                         int(n_epochs[b]), int(count[b]),
+                         loss_name=loss_name)
+            for b in range(A.shape[0])]
+    return tuple(torch.stack(t) for t in zip(*outs))

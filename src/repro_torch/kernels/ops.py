@@ -11,21 +11,28 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels.cm.cm import (CM_SMEM_BUDGET_BYTES, cm_burst,
-                                       cm_burst_pen_xt, cm_burst_xt,
-                                       cm_smem_ok)
-from repro_torch.kernels.cm.ref import cm_burst_ref
+                                       cm_burst_batch_xt, cm_burst_pen_xt,
+                                       cm_burst_xt, cm_smem_ok)
+from repro_torch.kernels.cm.ref import cm_burst_batch_ref, cm_burst_ref
 from repro_torch.kernels.fused.fused import chain_suffix_sums
 from repro_torch.kernels.fused.ref import chain_suffix_sums_ref
-from repro_torch.kernels.screen.ref import (screen_fused_ref,
+from repro_torch.kernels.screen.ref import (screen_fused_batch_ref,
+                                            screen_fused_ref,
                                             screen_scores_ref,
+                                            ub_histogram_batch_ref,
                                             ub_histogram_ref)
-from repro_torch.kernels.screen.screen import (screen_fused, screen_scores,
-                                               ub_histogram)
+from repro_torch.kernels.screen.screen import (screen_fused,
+                                               screen_fused_batch,
+                                               screen_scores, ub_histogram,
+                                               ub_histogram_batch)
 
 # kernel name -> the wrapper whose ``launches`` counts it
 KERNELS = {"screen_fused": screen_fused, "ub_histogram": ub_histogram,
            "cm_burst": cm_burst_xt, "cm_burst_pen": cm_burst_pen_xt,
-           "chain_suffix_sums": chain_suffix_sums}
+           "chain_suffix_sums": chain_suffix_sums,
+           "screen_fused_batch": screen_fused_batch,
+           "ub_histogram_batch": ub_histogram_batch,
+           "cm_burst_batch": cm_burst_batch_xt}
 
 
 def on_cuda() -> bool:
@@ -45,7 +52,9 @@ def reset_launch_counts() -> None:
 
 __all__ = ["screen_fused", "screen_scores", "ub_histogram", "cm_burst",
            "cm_burst_xt", "cm_burst_pen_xt", "cm_smem_ok",
-           "CM_SMEM_BUDGET_BYTES", "chain_suffix_sums",
+           "CM_SMEM_BUDGET_BYTES", "chain_suffix_sums", "screen_fused_batch",
+           "ub_histogram_batch", "cm_burst_batch_xt",
            "screen_fused_ref", "screen_scores_ref", "ub_histogram_ref",
-           "cm_burst_ref", "chain_suffix_sums_ref", "on_cuda", "launch_counts",
-           "reset_launch_counts", "KERNELS"]
+           "cm_burst_ref", "chain_suffix_sums_ref", "screen_fused_batch_ref",
+           "ub_histogram_batch_ref", "cm_burst_batch_ref", "on_cuda",
+           "launch_counts", "reset_launch_counts", "KERNELS"]

@@ -49,6 +49,17 @@ def screen_fused_ref(X: Tensor, theta: Tensor, col_norm: Tensor,
     return masked, ub, lb, tops[:, :h_tile].contiguous(), topi, tmax
 
 
+def screen_fused_batch_ref(X: Tensor, Theta: Tensor, col_norm: Tensor,
+                           active: Tensor, r, *, h: int):
+    """:func:`screen_fused_ref` per row of Theta (m, n), stacked; col_norm
+    (p,) shared or (m, p), active (m, p), r (m,). Each row works on its own
+    copy of its theta, as a serial scan would."""
+    outs = [screen_fused_ref(
+        X, Theta[b].clone(), col_norm if col_norm.ndim == 1 else col_norm[b],
+        active[b], r[b], h=h) for b in range(Theta.shape[0])]
+    return tuple(torch.stack(t) for t in zip(*outs))
+
+
 def ub_histogram_ref(ub: Tensor, lb_sorted: Tensor) -> Tensor:
     """hist[m] = #{i : #{l : lb_sorted[l] <= ub_i} = m}, m = 0..h, int32.
 
@@ -59,3 +70,8 @@ def ub_histogram_ref(ub: Tensor, lb_sorted: Tensor) -> Tensor:
     h = lb_sorted.shape[0]
     c = (lb_sorted[None, :] <= ub[:, None]).sum(dim=1)
     return torch.bincount(c, minlength=h + 1).to(torch.int32)
+
+
+def ub_histogram_batch_ref(ub: Tensor, lb_sorted: Tensor) -> Tensor:
+    """:func:`ub_histogram_ref` per row: ub (m, p), lb_sorted (m, h)."""
+    return torch.stack([ub_histogram_ref(u, l) for u, l in zip(ub, lb_sorted)])

@@ -1,4 +1,5 @@
-"""Screening kernels K1 (fused scan) and K2 (violation histogram): wrappers.
+"""Screening kernels K1 (fused scan) and K2 (violation histogram), and
+their fleet forms K1b and K2b: wrappers.
 
 The CUDA sources are ``csrc/screen.cu``; the plain versions are in
 ``ref.py``. A wrapper given CPU tensors returns the plain version; given
@@ -7,7 +8,8 @@ launches in its ``launches`` attribute.
 
 K1 replaces ``repro/kernels/screen/screen.py:271 screen_fused_pallas``
 (and, unmasked, ``:124 screen_scores_pallas``); K2 replaces
-``:512 ub_histogram_pallas``.
+``:512 ub_histogram_pallas``; K1b replaces ``:394
+screen_fused_batch_pallas`` and K2b ``:562 ub_histogram_batch_pallas``.
 """
 from __future__ import annotations
 
@@ -16,8 +18,10 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.screen.ref import (BP, screen_fused_ref,
+from repro_torch.kernels.screen.ref import (BP, screen_fused_batch_ref,
+                                            screen_fused_ref,
                                             screen_scores_ref,
+                                            ub_histogram_batch_ref,
                                             ub_histogram_ref)
 
 Tensor = torch.Tensor
@@ -46,31 +50,41 @@ def _require(t: Tensor, what: str, dtype, shape, device) -> None:
         raise ValueError(f"{what} must be contiguous")
 
 
-def _scan(X, theta, col_norm, active, r, h_tile, masked):
+def _scan(entry, X, Theta, col_norm, active, r, h_tile, masked):
+    """Launch the scan kernel ``entry`` (K1 or K1b) on the m problems of
+    Theta (m, n); returns the (m, ...) outputs."""
     n, p = X.shape
-    dt = X.dtype
+    m = Theta.shape[0]
+    dt, dev = X.dtype, X.device
     if dt not in _FLOATS:
         raise ValueError(f"X has dtype {dt}; the kernel takes float32/64")
-    _require(X, "X", dt, (n, p), X.device)
-    _require(theta, "theta", dt, (n,), X.device)
-    _require(col_norm, "col_norm", dt, (p,), X.device)
+    _require(X, "X", dt, (n, p), dev)
+    _require(Theta, "Theta", dt, (m, n), dev)
+    if col_norm.ndim == 1:
+        _require(col_norm, "col_norm", dt, (p,), dev)
+    else:
+        _require(col_norm, "col_norm", dt, (m, p), dev)
     if active is not None:
-        _require(active, "active", torch.bool, (p,), X.device)
+        _require(active, "active", torch.bool, (m, p), dev)
+    if isinstance(r, Tensor):
+        r = r.to(device=dev, dtype=dt).reshape(m).contiguous()
+    else:               # a host scalar: filled on the card, no copy or sync
+        r = torch.full((m,), float(r), dtype=dt, device=dev)
     p_blocks = -(-p // BP)
-    score = torch.empty(p, dtype=dt, device=X.device)
+    score = torch.empty((m, p), dtype=dt, device=dev)
     ub = torch.empty_like(score)
     lb = torch.empty_like(score)
-    tops = torch.empty((p_blocks, h_tile), dtype=dt, device=X.device)
-    topi = torch.empty((p_blocks, h_tile), dtype=torch.int32, device=X.device)
-    tmax = torch.empty(p_blocks, dtype=dt, device=X.device)
-    lib = _build.library("screen")
-    fn = lib.screen_fused_f64 if dt == torch.float64 else lib.screen_fused_f32
-    rc = fn(_ptr(X), _ptr(theta), _ptr(col_norm),
-            _ptr(active) if active is not None else None, float(r),
-            n, p, h_tile, int(masked), _ptr(score), _ptr(ub), _ptr(lb),
-            _ptr(tops), _ptr(topi), _ptr(tmax), _stream())
-    _build.check(rc, "screen_fused")
-    screen_fused.launches += 1
+    tops = torch.empty((m, p_blocks, h_tile), dtype=dt, device=dev)
+    topi = torch.empty((m, p_blocks, h_tile), dtype=torch.int32, device=dev)
+    tmax = torch.empty((m, p_blocks), dtype=dt, device=dev)
+    fn = getattr(_build.library("screen"),
+                 f"{entry}_{'f64' if dt == torch.float64 else 'f32'}")
+    rc = fn(_ptr(X), _ptr(Theta), _ptr(col_norm),
+            p if col_norm.ndim == 2 else 0,
+            _ptr(active) if active is not None else None, _ptr(r), m, n, p,
+            h_tile, int(masked), _ptr(score), _ptr(ub), _ptr(lb), _ptr(tops),
+            _ptr(topi), _ptr(tmax), _stream())
+    _build.check(rc, entry)
     return score, ub, lb, tops, topi, tmax
 
 
@@ -86,7 +100,28 @@ def screen_fused(X: Tensor, theta: Tensor, col_norm: Tensor, active: Tensor,
     """
     if X.device.type == "cpu":
         return screen_fused_ref(X, theta, col_norm, active, r, h=h)
-    return _scan(X, theta, col_norm, active, r, max(1, min(h, BP)), True)
+    out = _scan("screen_fused", X, theta[None], col_norm, active[None], r,
+                max(1, min(h, BP)), True)
+    screen_fused.launches += 1
+    return tuple(t[0] for t in out)
+
+
+def screen_fused_batch(X: Tensor, Theta: Tensor, col_norm: Tensor,
+                       active: Tensor, r, *, h: int):
+    """Fleet scan (K1b): K1 for the m problems of Theta (m, n) over the
+    shared X, reading X once per chunk of 16 problems.
+
+    col_norm (p,) shared or (m, p), active (m, p) bool, r (m,) radii (a
+    tensor, which may stay on the card). Returns score, ub, lb (m, p),
+    tile winners tops/topi (m, p/BP, min(h, BP)) and tile max ub
+    (m, p/BP): per problem bitwise what K1 returns.
+    """
+    if X.device.type == "cpu":
+        return screen_fused_batch_ref(X, Theta, col_norm, active, r, h=h)
+    out = _scan("screen_fused_batch", X, Theta, col_norm, active, r,
+                max(1, min(h, BP)), True)
+    screen_fused_batch.launches += 1
+    return out
 
 
 def screen_scores(X: Tensor, theta: Tensor, col_norm: Tensor, r):
@@ -94,31 +129,51 @@ def screen_scores(X: Tensor, theta: Tensor, col_norm: Tensor, r):
     and the top-h (its launches count in ``screen_fused.launches``)."""
     if X.device.type == "cpu":
         return screen_scores_ref(X, theta, col_norm, r)
-    return _scan(X, theta, col_norm, None, r, 1, False)[:3]
+    out = _scan("screen_fused", X, theta[None], col_norm, None, r, 1, False)
+    screen_fused.launches += 1
+    return tuple(t[0] for t in out[:3])
+
+
+def _hist(ub: Tensor, lb_sorted: Tensor) -> Tensor:
+    """Launch K2/K2b on ub (m, p) against lb_sorted (m, h)."""
+    m, p = ub.shape
+    h = lb_sorted.shape[1]
+    dt = ub.dtype
+    if dt not in _FLOATS:
+        raise ValueError(f"ub has dtype {dt}; the kernel takes float32/64")
+    _require(ub, "ub", dt, (m, p), ub.device)
+    _require(lb_sorted, "lb_sorted", dt, (m, h), ub.device)
+    if h * ub.element_size() + (h + 1) * 4 > HIST_SMEM_BUDGET:
+        raise ValueError(f"ub_histogram: h={h} candidates exceed the "
+                         f"kernel's shared-memory budget")
+    hist = torch.zeros((m, h + 1), dtype=torch.int32, device=ub.device)
+    lib = _build.library("screen")
+    fn = lib.ub_histogram_f64 if dt == torch.float64 else lib.ub_histogram_f32
+    rc = fn(_ptr(ub), _ptr(lb_sorted), m, p, h, _ptr(hist), _stream())
+    _build.check(rc, "ub_histogram")
+    return hist
 
 
 def ub_histogram(ub: Tensor, lb_sorted: Tensor) -> Tensor:
     """K2: hist[m] = #{i : #{l : lb_sorted[l] <= ub_i} = m}, (h+1,) int32."""
     if ub.device.type == "cpu":
         return ub_histogram_ref(ub, lb_sorted)
-    (p,) = ub.shape
-    h = lb_sorted.shape[0]
-    dt = ub.dtype
-    if dt not in _FLOATS:
-        raise ValueError(f"ub has dtype {dt}; the kernel takes float32/64")
-    _require(ub, "ub", dt, (p,), ub.device)
-    _require(lb_sorted, "lb_sorted", dt, (h,), ub.device)
-    if h * ub.element_size() + (h + 1) * 4 > HIST_SMEM_BUDGET:
-        raise ValueError(f"ub_histogram: h={h} candidates exceed the "
-                         f"kernel's shared-memory budget")
-    hist = torch.zeros(h + 1, dtype=torch.int32, device=ub.device)
-    lib = _build.library("screen")
-    fn = lib.ub_histogram_f64 if dt == torch.float64 else lib.ub_histogram_f32
-    rc = fn(_ptr(ub), _ptr(lb_sorted), p, h, _ptr(hist), _stream())
-    _build.check(rc, "ub_histogram")
+    hist = _hist(ub[None], lb_sorted[None])[0]
     ub_histogram.launches += 1
+    return hist
+
+
+def ub_histogram_batch(ub: Tensor, lb_sorted: Tensor) -> Tensor:
+    """K2b: K2 per row, ub (m, p) against lb_sorted (m, h) -> (m, h+1)
+    int32, exact."""
+    if ub.device.type == "cpu":
+        return ub_histogram_batch_ref(ub, lb_sorted)
+    hist = _hist(ub, lb_sorted)
+    ub_histogram_batch.launches += 1
     return hist
 
 
 screen_fused.launches = 0
 ub_histogram.launches = 0
+screen_fused_batch.launches = 0
+ub_histogram_batch.launches = 0
