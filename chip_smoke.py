@@ -53,10 +53,38 @@ Phases (each one fails the run by raising):
 12. K1b, K2b and K3b against their plain versions at the fleet's shapes
    (B = 16, n = 1000, p = 100,000, its h and k_max), in float64 and
    float32, and each against B launches of its serial kernel (K1, K2,
-   K3), bit for bit.
+   K3), bit for bit; K1b also with per-problem column norms (the 16
+   subsample masks of phase 14), against its twin and 16 launches of K1
+   each with its own norms;
+13. ``[cv-ls]``: ``cv_solve`` with K = 5 folds over the lambda grid
+   CV_GRID (geometric, fractions of lambda_max) on phase 2's X and a
+   response built as the fleets' are (15 true features); the fold fleets
+   (``refit=False``, counted alone) must run K1b + K2b + the Gram sweep
+   K6b and nothing else, the serial refit at the best lambda (counted
+   alone) K1/K2/K3; every (fold, lambda) certified (gap <= eps, weighted
+   KKT <= 1e-3 lambda), the refit certified; at two lambdas the 5-fold
+   weighted fleet equals five weighted fleets of one bit for bit; at one
+   lambda fold 1 (solved to eps = 1e-9) has the support of the serial
+   solve on its 800 weight-1 rows (K1/K2/K3) and beta within 1e-9;
+14. ``[select]``: ``select_solve`` over the CV grid with 16 half
+   subsamples (one weighted fleet, K1b + K2b + K6b), every subsample
+   problem certified, the true features' frequencies and the stable
+   support;
+15. the weighted logistic fleet under ``auto`` raises on the card, naming
+   ``inner_backend="torch"``;
+16. ``[cm-epochs]``: ``ops.cm_epochs`` (K5) as a caller drives it, on
+   the LS solve's final active block in float32;
+17. K5 against its plain version (1 and 40 epochs, the objective
+   non-increasing epoch by epoch), and the Gram sweep K6 against its
+   plain version on the LS Gram solve's final carry in float64 and
+   float32, and K6b on the CV's 5 fold carries at its last lambda against
+   its plain version and bit for bit 5 launches of K6; both sweeps start
+   from beta = 0, as the K3 and K5 checks do.
 
 Launch counters are zeroed just before each solve (and the transform of
-phase 4) and read just after; the kernel launches of phases 8 and 12, of
+phase 4, the CV fleets, the CV refit, the selection and the K5 call) and
+read just after; the
+kernel launches of phases 8, 12 and 17, of the checks of phases 13-14, of
 the comparisons of phase 4, of the serial solves that phases 9-10 compare
 with, of the lambda_max helpers and of one extra solve
 under torch.profiler (the device's busy time and idle share) do not
@@ -98,6 +126,11 @@ FUSED_PATH = (0.7, 0.3, 4)       # first, last lambda / lambda_max, points
 # fleets: first and last lambda / lambda_max (geometric), problems
 FLEET_LS = (0.8, 0.3, 16)
 FLEET_LOGIT = (0.5, 0.2, 8)
+# cross-validation: first and last lambda / lambda_max (geometric), points,
+# folds; the stability selection's subsamples and their row fraction
+CV_GRID = (0.9, 0.004, 24)
+CV_FOLDS = 5
+SELECT_SUBSAMPLES = (16, 0.5)
 
 
 def nvidia_smi_line() -> str:
@@ -588,7 +621,8 @@ def fused_phases():
     on = {"screen_fused": True, "ub_histogram": True, "cm_burst": False,
           "cm_burst_pen": True, "chain_suffix_sums": 1,
           "screen_fused_batch": False, "ub_histogram_batch": False,
-          "cm_burst_batch": False}
+          "cm_burst_batch": False, "cm_epochs": False, "gram_sweep": False,
+          "gram_sweep_batch": False}
     off = {k: False for k in on}
     out, launches, fused = {}, [], []
     for loss_name, frac, logistic in (("least_squares", FUSED_LS_LAM, False),
@@ -767,9 +801,51 @@ def plain_fleet_phase(X, Y, lams, kres):
     print(f"[fleet-plain] B={Y.shape[0]} wall_s={wall:.3f}", flush=True)
 
 
-def check_fleet_kernels(dtype, X, Y, lams, h, res, loss_name, records):
+def check_screen_per_problem_norms(dtype, Xd, Theta, active, r, h, Wn,
+                                   tol):
+    """K1b with (B, p) norms, one row per problem, against its twin and B
+    launches of K1, each with its own norms."""
+    import torch
+    from repro_torch.kernels import ops
+    XX = Xd * Xd
+    cn = torch.stack([torch.sqrt(w @ XX) for w in Wn])
+    del XX
+    b = Theta.shape[0]
+    k1 = ops.screen_fused_batch(Xd, Theta, cn, active, r, h=h)
+    ref = ops.screen_fused_batch_ref(Xd, Theta, cn, active, r, h=h)
+    abs1, err1 = errs(zip((k1[0], k1[1], k1[2], k1[3], k1[5]),
+                          (ref[0], ref[1], ref[2], ref[3], ref[5])))
+    fin = torch.isfinite(ref[3])
+    swapped = k1[4][fin] != ref[4][fin]
+    rows = torch.nonzero(fin)[:, 0][swapped]
+    scale1 = float(ref[3][fin].abs().max())
+    tie = ((ref[0][rows, k1[4][fin][swapped].long()]
+            - ref[0][rows, ref[4][fin][swapped].long()]).abs()
+           <= tol * scale1)
+    ids_ok = bool(tie.all()) and (dtype == "float32" or
+                                  int(swapped.sum()) == 0)
+    same = True
+    for i in range(b):
+        one = ops.screen_fused(Xd, Theta[i].contiguous(), cn[i].contiguous(),
+                               active[i].contiguous(), r[i], h=h)
+        same = same and all(torch.equal(a[i], o) for a, o in zip(k1, one))
+    ms = time_ms(lambda: ops.screen_fused_batch(Xd, Theta, cn, active, r,
+                                                h=h), 10)
+    print(f"[kernel screen_fused_batch {dtype} per-problem norms] B={b} "
+          f"max_abs_err={abs1:.3e} rel_err={err1:.3e} tol={tol:.0e} "
+          f"ids_ok={ids_ok} (ids differing at near-ties: "
+          f"{int(swapped.sum())}) bitwise_B_x_K1_own_norms={same} "
+          f"ms={ms:.4f}", flush=True)
+    if not (err1 <= tol and ids_ok and same):
+        raise RuntimeError(f"screen_fused_batch {dtype} with per-problem "
+                           f"norms disagrees")
+
+
+def check_fleet_kernels(dtype, X, Y, lams, h, res, loss_name, records,
+                        Wn=None):
     """K1b, K2b and K3b against their plain versions and against B
-    launches of K1, K2 and K3, at the fleet's shapes."""
+    launches of K1, K2 and K3, at the fleet's shapes; with ``Wn`` (B, n)
+    sample weights, K1b also with the per-problem norms sqrt(w_b . X^2)."""
     import torch
     from repro_torch.core.active_set import compact_order
     from repro_torch.kernels import ops
@@ -829,6 +905,9 @@ def check_fleet_kernels(dtype, X, Y, lams, h, res, loss_name, records):
           flush=True)
     if not (err1 <= tol and ids_ok and same1):
         raise RuntimeError(f"screen_fused_batch {dtype} disagrees")
+    if Wn is not None:
+        check_screen_per_problem_norms(dtype, Xd, Theta, active, r, h,
+                                       Wn.to(dt), tol)
 
     # K2b on the scan's ub against each problem's h smallest finite lb
     ub = ref[1]
@@ -912,6 +991,401 @@ def check_fleet_kernels(dtype, X, Y, lams, h, res, loss_name, records):
             bound_by=by3, library_ms=None)
 
 
+def weighted_cert(loss_name, X, y, w, beta, lam):
+    """(gap, weighted KKT) of a weighted problem's solution over all p
+    columns: the weighted dual tail on the full design (one matvec for the
+    feasible scaling) and the weighted KKT residual."""
+    import repro_torch as rt
+    from repro_torch.core.inner_backend import _dual_and_gap
+    loss = rt.get_loss(loss_name)
+    _, gap = _dual_and_gap(loss, X, y, beta, X @ beta, None, lam,
+                           sample_w=w)
+    kkt = rt.kkt_residual(loss, X, y, beta, lam, sample_w=w)
+    return float(gap), float(kkt)
+
+
+def true_features(p, seed, k=15):
+    """The true features of ``fleet_responses(X, 1, seed)``: its
+    ``w[rng.choice(...)] = rng.uniform(...)`` draws the values first."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    rng.uniform(-1.0, 1.0, k)
+    return np.sort(rng.choice(p, k, replace=False))
+
+
+def bitwise_rows(a, i, b, j):
+    """Fleet row i of ``a`` equals row j of ``b`` bit for bit."""
+    import torch
+    return (torch.equal(a.beta[i], b.beta[j]) and torch.equal(a.gap[i],
+                                                              b.gap[j])
+            and int(a.n_outer[i]) == int(b.n_outer[j])
+            and int(a.n_active[i]) == int(b.n_active[j])
+            and all(torch.equal(getattr(a, f)[i], getattr(b, f)[j])
+                    for f in ("trace_gap", "trace_dual", "trace_n_active",
+                              "trace_screened", "trace_survivors",
+                              "trace_post_viol")))
+
+
+def cv_phase(X, y, fleet_expect, refit_expect):
+    """Phase 13: the fold fleets of cv_solve on the card (``refit=False``,
+    the path select_solve takes, counted alone), then the serial refit at
+    the best lambda (counted alone), then the checks (uncounted). Returns
+    (CVPathResult, lambdas, launch counts of both, lambda_max)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import repro_torch as rt
+    from repro_torch.core.inner_backend import make_inner_gram
+    from repro_torch.kernels import ops
+
+    ls = rt.get_loss("least_squares")
+    n, p = X.shape
+    lm = float(rt.lambda_max(ls, X, y))
+    hi, lo, m = CV_GRID
+    lams = (np.geomspace(hi, lo, m) * lm).tolist()
+    cfg = rt.SaifConfig(eps=1e-6)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    make_inner_gram.rebuilds = 0
+    t0 = time.perf_counter()
+    cv = rt.cv_solve(X, y, lams, n_folds=CV_FOLDS, config=cfg,
+                     keep_fold_betas=True, refit=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    rebuilds = make_inner_gram.rebuilds
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    refit = rt.saif(X, y, cv.best_lam, cfg)
+    torch.cuda.synchronize()
+    wall_r = time.perf_counter() - t0
+    refit_counts = ops.launch_counts()
+    W = rt.kfold_weights(n, CV_FOLDS).to(X)
+    k_max = cv.fold_results[0].active_idx.shape[1]
+    bad = []
+    for li, (lam, fr) in enumerate(zip(cv.lams, cv.fold_results)):
+        for k in range(CV_FOLDS):
+            gap = float(fr.gap[k])
+            _, kkt = weighted_cert("least_squares", X, y, W[k], fr.beta[k],
+                                   float(lam))
+            ok = gap <= cfg.eps and kkt <= 1e-3 * lam
+            if not ok:
+                bad.append((li, k))
+        print(f"[cv-ls] lam/lam_max={lam / lm:.4f} outer="
+              f"{fr.n_outer.tolist()} n_active={fr.n_active.tolist()} "
+              f"max_gap={float(fr.gap.max()):.3e} eps={cfg.eps:.0e} "
+              f"cv_mean={cv.cv_mean[li]:.6f} cv_se={cv.cv_se[li]:.6f}",
+              flush=True)
+    kkt_r = float(rt.kkt_residual(ls, X, y, refit.beta, cv.best_lam))
+    refit_ok = (float(refit.gap) <= cfg.eps
+                and kkt_r <= 1e-3 * cv.best_lam)
+    lam_1se = rt.one_se_lambda(cv.lams, cv.cv_mean, cv.cv_se)
+    print(f"[cv-ls] K={CV_FOLDS} L={m} n={n} p={p} k_max={k_max} "
+          f"fold_fleets_wall_s={wall:.3f} refit_wall_s={wall_r:.3f} "
+          f"best_lam/lam_max={cv.best_lam / lm:.4f} "
+          f"lam_1se/lam_max={lam_1se / lm:.4f} cv_mean={cv.cv_mean.tolist()}"
+          f" cv_se={cv.cv_se.tolist()} outer_per_fold_lambda="
+          f"{[fr.n_outer.tolist() for fr in cv.fold_results]} "
+          f"gram_full_rebuilds={rebuilds} launches={counts} "
+          f"refit_launches={refit_counts} refit: outer={refit.n_outer} gap="
+          f"{float(refit.gap):.3e} kkt={kkt_r:.3e} "
+          f"support={len(support(refit.beta))} ok={refit_ok}", flush=True)
+    check_launches("cv-ls fleets", counts, fleet_expect)
+    check_launches("cv-ls refit", refit_counts, refit_expect)
+    if bad or not refit_ok:
+        raise RuntimeError(f"cv-ls: (lambda, fold) {bad} not certified or "
+                           f"the refit not certified ({refit_ok})")
+    # at two lambdas the 5-fold weighted fleet against five fleets of one
+    # (uncounted), both at the CV's capacity
+    cfg_k = dataclasses.replace(cfg, k_max=k_max)
+    Y = y.expand(CV_FOLDS, n).contiguous()
+    for li in (2, m - 2):
+        lam = float(cv.lams[li])
+        fl = rt.fleet_solve(X, Y, lam, cfg_k, weights=W)
+        same = [bitwise_rows(fl, k, rt.fleet_solve(
+            X, y[None], lam, cfg_k, weights=W[k:k + 1]), 0)
+            for k in range(CV_FOLDS)]
+        print(f"[cv-ls] lam/lam_max={lam / lm:.4f} weighted fleet of "
+              f"{CV_FOLDS} vs fleets of one: bitwise={same}", flush=True)
+        if not all(same):
+            raise RuntimeError("cv-ls: a weighted fleet row differs from "
+                               "its fleet of one")
+    # fold 1 against the serial solve on its weight-1 rows (n = 800)
+    li = 3
+    lam = float(cv.lams[li])
+    tight = rt.SaifConfig(eps=1e-9, use_seq_ball=False)
+    tr = W[1] > 0
+    one = rt.fleet_solve(X, y[None], lam, tight, weights=W[1:2])
+    ops.reset_launch_counts()
+    sub = rt.saif(X[tr].contiguous(), y[tr].contiguous(), lam, tight)
+    sub_counts = ops.launch_counts()
+    dev = float((one.beta[0] - sub.beta).abs().max())
+    ok = (support(one.beta[0]) == support(sub.beta)
+          == support(cv.fold_results[li].beta[1]) and dev <= 1e-9
+          and float(one.gap[0]) <= tight.eps and float(sub.gap) <= tight.eps)
+    print(f"[cv-ls] fold 1 at lam/lam_max={lam / lm:.4f} eps=1e-9: weighted "
+          f"gap={float(one.gap[0]):.3e}, serial on {int(tr.sum())} rows "
+          f"gap={float(sub.gap):.3e} launches={sub_counts}; support "
+          f"{len(support(sub.beta))} (cv row {len(support(cv.fold_results[li].beta[1]))})"
+          f" max_abs_dev={dev:.3e} ok={ok}", flush=True)
+    check_launches("cv-ls serial subsample", sub_counts,
+                   {"screen_fused": True, "ub_histogram": True,
+                    "cm_burst": True})
+    if not ok:
+        raise RuntimeError("cv-ls: fold 1 differs from its row-subsampled "
+                           "serial solve")
+    profile_solve("cv-ls", lambda: rt.cv_solve(X, y, lams, n_folds=CV_FOLDS,
+                                               config=cfg, refit=False),
+                  wall)
+    return cv, lams, {k: counts[k] + refit_counts[k] for k in counts}, lm
+
+
+def select_phase(X, y, lams, lm, true_idx, fleet_expect):
+    """Phase 14: select_solve (counted), its stability fleet certified row by
+    row (the same fleet once more, uncounted)."""
+    import torch
+    import repro_torch as rt
+    from repro_torch.kernels import ops
+
+    ls = rt.get_loss("least_squares")
+    cfg = rt.SaifConfig(eps=1e-6)
+    b, frac = SELECT_SUBSAMPLES
+    req = rt.Select(lams=tuple(lams), n_folds=CV_FOLDS, n_subsamples=b,
+                    subsample_frac=frac)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = rt.select_solve(X, y, req, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    freq, fl = rt.stability_frequencies(X, y, rep.lam, cfg, b, frac,
+                                        seed=req.seed + 1)
+    W = rt.subsample_weights(X.shape[0], b, frac, seed=req.seed + 1).to(X)
+    bad = []
+    for i in range(b):
+        gap = float(fl.gap[i])
+        _, kkt = weighted_cert("least_squares", X, y, W[i], fl.beta[i],
+                               rep.lam)
+        if not (gap <= cfg.eps and kkt <= 1e-3 * rep.lam):
+            bad.append(i)
+    kkt_r = float(rt.kkt_residual(ls, X, y, rep.beta, rep.lam))
+    gap_r = float(rep.best_result.gap)
+    ok = (not bad and (freq == rep.frequencies).all() and gap_r <= cfg.eps
+          and kkt_r <= 1e-3 * rep.lam)
+    print(f"[select] B={b} frac={frac} lam_1se/lam_max={rep.lam_1se / lm:.4f}"
+          f" lam_min/lam_max={rep.lam_min / lm:.4f} true_feature_freq="
+          f"{rep.frequencies[true_idx].tolist()} stable_support="
+          f"{rep.stable_support.tolist()} (size {len(rep.stable_support)}, "
+          f"true in it {len(set(rep.stable_support) & set(true_idx))}) "
+          f"subsample_outer={fl.n_outer.tolist()} subsample_max_gap="
+          f"{float(fl.gap.max()):.3e} refit gap={gap_r:.3e} kkt={kkt_r:.3e} "
+          f"kkt_limit={1e-3 * rep.lam:.3e} wall_s={wall:.3f} "
+          f"launches={counts} ok={ok}", flush=True)
+    check_launches("select", counts, fleet_expect)
+    if not ok:
+        raise RuntimeError(f"select: subsample problems {bad} not certified,"
+                           f" or the refit or frequencies wrong")
+    return counts, W
+
+
+def weighted_logistic_phase(XL, yL):
+    """Phase 15: a weighted logistic fleet under ``auto`` raises on the
+    card and names the plain backend."""
+    import repro_torch as rt
+    W = rt.kfold_weights(XL.shape[0], 2).to(XL)
+    lam = 0.5 * float(rt.lambda_max(rt.get_loss("logistic"), XL, yL))
+    try:
+        rt.fleet_solve(XL, yL.expand(2, -1).contiguous(), lam,
+                       rt.SaifConfig(loss="logistic"), weights=W)
+    except ValueError as e:
+        msg = str(e)
+        print(f"[fleet-logistic-weighted] auto raises: {msg}", flush=True)
+        if 'inner_backend="torch"' not in msg:
+            raise RuntimeError("weighted logistic fleet: the message does "
+                               "not name inner_backend=\"torch\"")
+        return
+    raise RuntimeError("weighted logistic fleet under auto did not raise")
+
+
+def cm_epochs_block(X, y, lam, res):
+    """The LS solve's final active block for K5 (dead columns zeroed): A
+    (n, k) and its squared column norms, y and the mask, in float32."""
+    import torch
+    mask = res.active_mask
+    A = torch.where(mask[None, :], X[:, res.active_idx], 0.0).float()
+    return A, y.float(), (A * A).sum(0), mask, float(lam)
+
+
+def cm_epochs_phase(X, y, lam, res):
+    """Phase 16: ``ops.cm_epochs`` as a caller drives it (counted): 40
+    epochs from zero on the LS solve's final block; finite float32 output
+    that lowers the objective."""
+    import torch
+    from repro_torch.kernels import ops
+    A, yf, csq, mask, lam = cm_epochs_block(X, y, lam, res)
+    k = A.shape[1]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    beta, r = ops.cm_epochs(A, yf, torch.zeros(k, device=A.device), csq,
+                            mask, lam, n_epochs=40)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    obj0 = 0.5 * float((yf.double() ** 2).sum())
+    obj = cm_objective(A, yf, beta, lam)
+    ok = (beta.dtype == r.dtype == torch.float32
+          and bool(torch.isfinite(beta).all() and torch.isfinite(r).all())
+          and obj < obj0 and bool((beta[~mask] == 0).all()))
+    print(f"[cm-epochs] n={A.shape[0]} k={k} live={int(mask.sum())} "
+          f"n_epochs=40 float32 objective {obj0:.6e} -> {obj:.6e} "
+          f"wall_s={wall:.4f} launches={counts} ok={ok}", flush=True)
+    check_launches("cm-epochs", counts,
+                   {kn: (1 if kn == "cm_epochs" else False) for kn in counts})
+    if not ok:
+        raise RuntimeError("cm-epochs: bad output")
+    return counts
+
+
+def cm_objective(A, y, beta, lam):
+    """0.5 ||y - A beta||^2 + lam ||beta||_1 in float64."""
+    Ad, bd = A.double(), beta.double()
+    r = y.double() - Ad @ bd
+    return float(0.5 * (r * r).sum() + lam * bd.abs().sum())
+
+
+def check_cm_epochs(X, y, lam, res, records):
+    """K5 against its plain version at 1 and 40 epochs on the LS solve's
+    final block, the objective non-increasing epoch by epoch."""
+    import torch
+    from repro_torch.kernels import ops
+    A, yf, csq, mask, lam = cm_epochs_block(X, y, lam, res)
+    n, k = A.shape
+    beta0 = torch.zeros(k, device=A.device)
+    worst, errs_r = 0.0, []
+    for n_ep in (1, 40):
+        b1, r1 = ops.cm_epochs(A, yf, beta0, csq, mask, lam, n_epochs=n_ep)
+        b2, r2 = ops.cm_epochs_ref(A, yf, beta0, csq, mask, lam,
+                                   n_epochs=n_ep)
+        e = float((b1 - b2).abs().max())
+        errs_r.append(e / max(float(b2.abs().max()), 1e-30))
+        worst = max(worst, e)
+    objs = [cm_objective(A, yf, beta0, lam)]
+    b = beta0
+    for _ in range(5):
+        b, _ = ops.cm_epochs(A, yf, b, csq, mask, lam, n_epochs=1)
+        objs.append(cm_objective(A, yf, b, lam))
+    mono = all(c <= p_ * (1 + 1e-6) for p_, c in zip(objs, objs[1:]))
+    ms = time_ms(lambda: ops.cm_epochs(A, yf, beta0, csq, mask, lam,
+                                       n_epochs=40), 3)
+    plain = time_ms(lambda: ops.cm_epochs_ref(A, yf, beta0, csq, mask, lam,
+                                              n_epochs=40), 1)
+    steps = 40 * k
+    bnd, by = bound_ms(4 * (n * k + 2 * n + 3 * k) + k,
+                       steps * 4 * n + 2 * n * k, "float32")
+    print(f"[kernel cm_epochs float32] n={n} k={k} live={int(mask.sum())} "
+          f"epochs=1,40 max_abs_err={worst:.3e} rel_err={max(errs_r):.3e} "
+          f"tol=1e-03 objective_by_epoch={objs} non_increasing={mono} "
+          f"ms={ms:.4f} us_per_step={ms * 1e3 / steps:.4f} "
+          f"plain_ms={plain:.4f} bound_ms={bnd:.6f} ({by})", flush=True)
+    if not (max(errs_r) <= 1e-3 and mono):
+        raise RuntimeError("cm_epochs disagrees with its plain version")
+    records["cm_epochs"].update(max_abs_err=worst, ms=ms, plain_ms=plain,
+                                bound_ms=bnd, bound_by=by, library_ms=None)
+
+
+def check_gram_sweep(dtype, X, y, lam, gram_res, cv, records):
+    """K6 against its plain version on the LS Gram solve's final slots
+    (G and rho of its final active block, 40 epochs from beta = 0, so the
+    steps make the solve's updates rather than sit at its fixed point);
+    K6b on the CV's 5 fold carries at its last lambda (their weighted G
+    and rho, from beta = 0) against its twin and bit for bit 5 launches
+    of K6. ``nonzero`` counts the slots the sweep moved off 0."""
+    import torch
+    import repro_torch as rt
+    from repro_torch.core.active_set import compact_order
+    from repro_torch.kernels import ops
+    dt = getattr(torch, dtype)
+    isz = torch.finfo(dt).bits // 8
+    tol = {"float64": 1e-12, "float32": 1e-3}[dtype]
+    n_ep = 40
+
+    def slots(idx, mask, w=None):
+        k = mask.shape[0]
+        Xa = torch.where(mask[None, :], X[:, idx], 0.0)
+        Xw = Xa if w is None else w[:, None] * Xa
+        order = compact_order(torch.arange(k, device=mask.device), mask)
+        return ((Xa.T @ Xw).to(dt), (Xw.T @ y).to(dt),
+                torch.zeros(k, dtype=dt, device=mask.device), mask, order,
+                int(mask.sum()))
+
+    G, rho, beta, mask, order, count = slots(gram_res.active_idx,
+                                             gram_res.active_mask)
+    k = G.shape[0]
+    lam_t = torch.tensor(lam, dtype=dt, device=G.device)
+    out = ops.gram_sweep(G, rho, beta, mask, lam_t, order, count, n_ep)
+    ref = ops.gram_sweep_ref(G, rho, beta, mask, lam_t, order, count, n_ep)
+    err = float((out - ref).abs().max())
+    rel = err / max(float(ref.abs().max()), 1e-300)
+    ms = time_ms(lambda: ops.gram_sweep(G, rho, beta, mask, lam_t, order,
+                                        count, n_ep), 5)
+    plain = time_ms(lambda: ops.gram_sweep_ref(G, rho, beta, mask, lam_t,
+                                               order, count, n_ep), 1)
+    steps = n_ep * count
+    bnd, by = bound_ms(k * k * isz + 4 * k * isz + 5 * k,
+                       steps * 2 * k + 2 * k * k, dtype)
+    print(f"[kernel gram_sweep {dtype}] k_max={k} live={count} "
+          f"n_epochs={n_ep} from beta=0 nonzero={int((ref != 0).sum())} "
+          f"max_abs_err={err:.3e} rel_err={rel:.3e} "
+          f"tol={tol:.0e} ms={ms:.4f} us_per_step={ms * 1e3 / steps:.4f} "
+          f"plain_ms={plain:.4f} bound_ms={bnd:.6f} ({by})", flush=True)
+    if not rel <= tol:
+        raise RuntimeError(f"gram_sweep {dtype} disagrees")
+    # K6b on the CV's fold carries at its last lambda
+    fr = cv.fold_results[-1]
+    m = fr.beta.shape[0]
+    W = rt.kfold_weights(X.shape[0], m).to(X)
+    per = [slots(fr.active_idx[i], fr.active_mask[i], W[i])
+           for i in range(m)]
+    Gb, rb, bb, mb, ob = (torch.stack([t[j] for t in per]).contiguous()
+                          for j in range(5))
+    cnt = torch.tensor([t[5] for t in per], dtype=torch.int32,
+                       device=G.device)
+    nep = torch.full((m,), n_ep, dtype=torch.int32, device=G.device)
+    lams = torch.full((m,), float(cv.lams[-1]), dtype=dt, device=G.device)
+    outb = ops.gram_sweep_batch(Gb, rb, bb, mb, lams, ob, cnt, nep)
+    refb = ops.gram_sweep_batch_ref(Gb, rb, bb, mb, lams, ob, cnt, nep)
+    errb = float((outb - refb).abs().max())
+    relb = errb / max(float(refb.abs().max()), 1e-300)
+    same = all(torch.equal(outb[i], ops.gram_sweep(
+        Gb[i], rb[i], bb[i], mb[i], lams[i], ob[i], per[i][5], n_ep))
+        for i in range(m))
+    msb = time_ms(lambda: ops.gram_sweep_batch(Gb, rb, bb, mb, lams, ob, cnt,
+                                               nep), 5)
+    plainb = time_ms(lambda: ops.gram_sweep_batch_ref(Gb, rb, bb, mb, lams,
+                                                      ob, cnt, nep), 1)
+    kb = Gb.shape[1]
+    stepsb = n_ep * int(cnt.sum())
+    bndb, byb = bound_ms(m * (kb * kb * isz + 4 * kb * isz + 5 * kb),
+                         stepsb * 2 * kb + m * 2 * kb * kb, dtype)
+    print(f"[kernel gram_sweep_batch {dtype}] B={m} k_max={kb} "
+          f"live={cnt.tolist()} n_epochs={n_ep} from beta=0 nonzero="
+          f"{(refb != 0).sum(1).tolist()} max_abs_err={errb:.3e} "
+          f"rel_err={relb:.3e} tol={tol:.0e} bitwise_B_x_K6={same} "
+          f"ms={msb:.4f} plain_ms={plainb:.4f} bound_ms={bndb:.6f} ({byb})",
+          flush=True)
+    if not (relb <= tol and same):
+        raise RuntimeError(f"gram_sweep_batch {dtype} disagrees")
+    if dtype == "float64":
+        records["gram_sweep"].update(max_abs_err=err, ms=ms, plain_ms=plain,
+                                     bound_ms=bnd, bound_by=by,
+                                     library_ms=None)
+        records["gram_sweep_batch"].update(
+            max_abs_err=errb, ms=msb, plain_ms=plainb, bound_ms=bndb,
+            bound_by=byb, library_ms=None)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--p", type=int, default=100_000,
@@ -955,7 +1429,8 @@ def main() -> int:
 
     plain_lasso = {"cm_burst_pen": False, "chain_suffix_sums": False,
                    "screen_fused_batch": False, "ub_histogram_batch": False,
-                   "cm_burst_batch": False}
+                   "cm_burst_batch": False, "cm_epochs": False,
+                   "gram_sweep_batch": False}
     on = {"screen_fused": True, "ub_histogram": True, **plain_lasso}
     ls = rt.get_loss("least_squares")
     lm = float(rt.lambda_max(ls, X, y))
@@ -966,8 +1441,8 @@ def main() -> int:
         {"auto": {},
          "gram": {"inner_backend": "gram"},
          "plain": {"screen_backend": "torch", "inner_backend": "torch"}},
-        {"auto": {**on, "cm_burst": True},
-         "gram": {**on, "cm_burst": False},
+        {"auto": {**on, "cm_burst": True, "gram_sweep": False},
+         "gram": {**on, "cm_burst": False, "gram_sweep": True},
          "plain": {k: False for k in ops.KERNELS}},
         lambda c: rt.saif(X, y, lam, c),
         lambda r: rt.kkt_residual(ls, X, y, r.beta, lam),
@@ -979,7 +1454,7 @@ def main() -> int:
     cfgL = rt.SaifConfig(eps=1e-6, loss="logistic")
     lg_res, lg_counts = solve_phase(
         "logistic", lamL, cfgL, {"auto": {}},
-        {"auto": {**on, "cm_burst": True}},
+        {"auto": {**on, "cm_burst": True, "gram_sweep": False}},
         lambda c: rt.saif(XL, yL, lamL, c),
         lambda r: rt.kkt_residual(lg, XL, yL, r.beta, lamL),
         profiled=("auto",))
@@ -1012,6 +1487,16 @@ def main() -> int:
             "name": "cm_burst_batch", "route": "cuda",
             "source": "src/repro_torch/csrc/cm_burst.cu",
             "replaces": "src/repro/kernels/cm/cm.py:296"},
+        "cm_epochs": {"name": "cm_epochs", "route": "cuda",
+                      "source": "src/repro_torch/csrc/cm_epochs.cu",
+                      "replaces": "src/repro/kernels/cm/cm.py:106"},
+        "gram_sweep": {"name": "gram_sweep", "route": "cuda",
+                       "source": "src/repro_torch/csrc/gram_sweep.cu",
+                       "replaces": "src/repro/core/cm.py:126"},
+        "gram_sweep_batch": {
+            "name": "gram_sweep_batch", "route": "cuda",
+            "source": "src/repro_torch/csrc/gram_sweep.cu",
+            "replaces": "src/repro/core/cm.py:126"},
     }
 
     k4_launches = transform_phase(X, records)
@@ -1020,11 +1505,17 @@ def main() -> int:
     import numpy as np
     serial_only = {"screen_fused": True, "ub_histogram": True,
                    "cm_burst": True, "screen_fused_batch": False,
-                   "ub_histogram_batch": False, "cm_burst_batch": False}
+                   "ub_histogram_batch": False, "cm_burst_batch": False,
+                   "gram_sweep": False, "gram_sweep_batch": False}
     fleet_only = {"screen_fused": False, "ub_histogram": False,
                   "cm_burst": False, "cm_burst_pen": False,
                   "chain_suffix_sums": False, "screen_fused_batch": True,
-                  "ub_histogram_batch": True, "cm_burst_batch": True}
+                  "ub_histogram_batch": True, "cm_burst_batch": True,
+                  "cm_epochs": False, "gram_sweep": False,
+                  "gram_sweep_batch": False}
+    # weighted least-squares fleets: K1b + K2b + the Gram sweep K6b
+    weighted_only = {**fleet_only, "cm_burst_batch": False,
+                     "gram_sweep_batch": True}
     Yf = fleet_responses(X, FLEET_LS[2], seed=100)
     fracs = np.geomspace(FLEET_LS[0], FLEET_LS[1], FLEET_LS[2]).tolist()
     fl_res, fl_lams, fl_counts, fl_h = fleet_phase(
@@ -1039,8 +1530,20 @@ def main() -> int:
     plain_fleet_phase(X, Yf[pick], [fl_lams[i] for i in pick],
                       fl_res.beta[pick])
 
+    ycv = fleet_responses(X, 1, seed=300)[0]
+    cv, cv_lams, cv_counts, cv_lm = cv_phase(X, ycv, weighted_only,
+                                             serial_only)
+    # select_solve's refit is the serial solve (K1/K2/K3)
+    sel_counts, W_sel = select_phase(
+        X, ycv, cv_lams, cv_lm, true_features(args.p, 300),
+        {**weighted_only, "screen_fused": True, "ub_histogram": True,
+         "cm_burst": True})
+    weighted_logistic_phase(XL, yL)
+    k5_counts = cm_epochs_phase(X, y, lam, ls_res["auto"])
+
     runs = [ls_counts["auto"], ls_counts["gram"], lg_counts["auto"],
-            *fused_counts, fl_counts, flg_counts]
+            *fused_counts, fl_counts, flg_counts, cv_counts, sel_counts,
+            k5_counts]
     for k, rec in records.items():
         rec["launches"] = sum(c[k] for c in runs) + (
             k4_launches if k == "chain_suffix_sums" else 0)
@@ -1054,7 +1557,9 @@ def main() -> int:
         check_kernels(dtype, X, y, lam, h, ls_res["auto"], (XL, yL, lamL),
                       lg_res["auto"], fused, records)
         check_fleet_kernels(dtype, X, Yf, fl_lams, fl_h, fl_res,
-                            "least_squares", records)
+                            "least_squares", records, Wn=W_sel)
+        check_gram_sweep(dtype, X, y, lam, ls_res["gram"], cv, records)
+    check_cm_epochs(X, y, lam, ls_res["auto"], records)
 
     print(json.dumps({"kernels": list(records.values())}))
     print(nvidia_smi_line())

@@ -82,24 +82,29 @@ def fused_design_from_ref(design, device=None) -> FusedDesign:
                        unpen_idx=int(design.unpen_idx))
 
 
-def fleet_prep_from_numpy(X, Y, c0, col_norm, c0_max, c0_median,
+def fleet_prep_from_numpy(X, Y, c0, col_norm, c0_max, c0_median, W=None,
                           device=None) -> FleetPrep:
     """A port :class:`~repro_torch.core.batch.FleetPrep` from the fields of
     the reference's (``X`` (n, p), ``Y`` (B, n), ``c0`` (B, p), the column
-    norms as (p,) or as the reference's (B, p) broadcast of them, and the
-    per-problem ``c0_max`` / ``c0_median``), on ``device`` (None = the
-    card). Weighted or padded preparations are not ported."""
+    norms, the per-problem ``c0_max`` / ``c0_median`` and the sample
+    weights ``W`` (B, n) or None), on ``device`` (None = the card). The
+    reference broadcasts shared norms to (B, p); an unweighted
+    preparation's identical rows become the port's shared (p,) vector, a
+    weighted one keeps its (B, p) per-problem norms. Padded preparations
+    are not ported."""
     dev = resolve_device(device)
     X = as_tensor(np.asarray(X), dev)
     cn = np.asarray(col_norm)
-    if cn.ndim == 2:
+    if W is None and cn.ndim == 2:
         if not (cn == cn[:1]).all():
-            raise ValueError("per-problem column norms (a weighted fleet) "
-                             "are not ported")
+            raise ValueError("per-problem column norms need the weights W "
+                             "they came from")
         cn = cn[0]
     return FleetPrep(X=X, Y=as_tensor(np.atleast_2d(np.asarray(Y)), dev,
                                       X.dtype),
                      c0=as_tensor(np.asarray(c0), dev, X.dtype),
                      col_norm=as_tensor(cn, dev, X.dtype),
                      c0_max=[float(v) for v in np.asarray(c0_max)],
-                     c0_median=[float(v) for v in np.asarray(c0_median)])
+                     c0_median=[float(v) for v in np.asarray(c0_median)],
+                     W=None if W is None else as_tensor(
+                         np.atleast_2d(np.asarray(W)), dev, X.dtype))

@@ -1,7 +1,10 @@
-"""SAIF core in torch: the serial solve, the fleet, the lambda path, fused
-LASSO and their building blocks."""
+"""SAIF core in torch: the serial solve, the fleet (weighted too), the
+lambda path, fused LASSO, K-fold CV and model selection, and their
+building blocks."""
 from repro_torch.core.batch import (FleetPrep, fleet_solve, prepare_fleet,
                                     resolve_batch_inner, saif_batch)
+from repro_torch.core.cv import (CVPathResult, cv_solve, kfold_weights,
+                                 one_se_lambda)
 from repro_torch.core.duality import kkt_residual, lambda_max
 from repro_torch.core.fused import (FusedDesign, FusedPathResult,
                                     build_schedule, build_tree,
@@ -18,6 +21,8 @@ from repro_torch.core.path import (SaifPathResult, lambda_grid, run_path,
                                    saif_path, saif_path_naive)
 from repro_torch.core.saif import (PathState, SaifConfig, SaifResult,
                                    prepare_path, saif, solve_scalar)
+from repro_torch.core.select import (Select, SelectionReport, select_solve,
+                                     stability_frequencies, subsample_weights)
 
 __all__ = ["saif", "SaifConfig", "SaifResult", "PathState", "prepare_path",
            "solve_scalar", "get_loss", "kkt_residual", "lambda_max",
@@ -29,4 +34,7 @@ __all__ = ["saif", "SaifConfig", "SaifResult", "PathState", "prepare_path",
            "transform_design", "transform_design_scan",
            "transform_design_device", "recover_beta", "recover_beta_device",
            "recover_from_transformed", "fleet_solve", "saif_batch",
-           "prepare_fleet", "FleetPrep", "resolve_batch_inner"]
+           "prepare_fleet", "FleetPrep", "resolve_batch_inner", "cv_solve",
+           "kfold_weights", "one_se_lambda", "CVPathResult", "Select",
+           "SelectionReport", "select_solve", "subsample_weights",
+           "stability_frequencies"]

@@ -14,8 +14,9 @@ screening scan, and keeps everything else per problem:
     problem whose ADD phase runs; on a card it is kernel K1b, which reads X
     once per chunk of 16 problems, and K2b for the violation counts;
   * **shared bursts** — on a card one K3b launch runs the CM bursts of
-    every live problem, one CTA each; the plain and Gram backends run each
-    problem's serial burst.
+    every live problem, one CTA each, and one K6b launch the Gram sweeps
+    of a Gram fleet; the plain backend (and the Gram one on the CPU) runs
+    each problem's serial burst.
 
 The contract (the reference's DESIGN.md §8): row b of a fleet equals the
 port's serial ``saif(X, Y[b], lams[b], config)`` bit for bit — beta, gap,
@@ -28,9 +29,17 @@ problems; each problem keeps its own h_cap, h~ and post-check width, and a
 stable top-h is a prefix of a longer one, so its decisions are its serial
 ones. Capacity invariance (dead slots add exact zeros) carries the rest.
 
-Not ported yet: ``parity="fast"`` (the relaxed lockstep engine), sample
-``weights`` (the CV fleets) — both ROADMAP A5 — and bucket padding
-(``pad_mask``, ``pad_fleet_prep``, ROADMAP A6); each raises.
+Sample ``weights`` (B, n) make each problem the weighted LASSO on its own
+rows (binary weights = row subsampling, the K-fold CV trick of
+``core/cv.py``): each problem has its own c0 and column norms
+sqrt(w_b . X^2) (a (B, p) matrix, one matvec per problem), its own
+weighted inner backend and dual tail, and the Thm-2 sequential ball is
+off (it assumes the unweighted null dual). The weighted contract: row b of
+a weighted fleet equals the fleet of one of problem b, bit for bit.
+
+Not ported yet: ``parity="fast"`` (the relaxed lockstep engine, ROADMAP
+A5b) and bucket padding (``pad_mask``, ``pad_fleet_prep``, ROADMAP A6);
+each raises.
 """
 from __future__ import annotations
 
@@ -40,7 +49,8 @@ from typing import List, NamedTuple, Optional
 import torch
 
 from repro_torch.core import active_set as aset_lib
-from repro_torch.core.inner_backend import (cold_inner_carry_batch,
+from repro_torch.core.inner_backend import (GRAM_CROSSOVER,
+                                            cold_inner_carry_batch,
                                             make_batch_inner,
                                             resolve_inner_backend)
 from repro_torch.core.losses import get_loss
@@ -66,12 +76,13 @@ class FleetPrep(NamedTuple):
     ``c0_max`` is each problem's lambda_max."""
     X: Tensor               # (n, p) shared design
     Y: Tensor               # (B, n)
-    c0: Tensor              # (B, p) per-problem |X^T f'(0)|
-    col_norm: Tensor        # (p,) column norms, shared by the fleet
+    c0: Tensor              # (B, p) per-problem |X^T (w *) f'(0)|
+    col_norm: Tensor        # (p,) shared column norms, or (B, p) weighted
     c0_max: list            # B host floats (= per-problem lambda_max)
     c0_median: list
     n_true: int = 0         # 0 = unpadded (bucket padding: ROADMAP A6)
     p_true: int = 0
+    W: Optional[Tensor] = None  # (B, n) sample weights, None = unweighted
 
 
 def prepare_fleet(X, Y, config: SaifConfig = SaifConfig(), weights=None,
@@ -80,24 +91,39 @@ def prepare_fleet(X, Y, config: SaifConfig = SaifConfig(), weights=None,
     read of the c0 statistics the h formula needs. Each problem's c0 is
     the serial ``null_gradient`` matvec on its own response, so lambda_max,
     delta0, the cold start and the Thm-2 ball are bitwise the serial
-    ones."""
-    if weights is not None:
-        raise _not_ported("sample weights", "A5")
+    ones. With ``weights`` (B, n) each problem's null gradient is weighted
+    and its column norms are sqrt(w_b . X^2), each from its own matvec (a
+    (B, n) x (n, p) product may pick another kernel for another B, which
+    would break the fleet-of-one contract)."""
     if config.parity == "fast":
-        raise _not_ported("parity='fast'", "A5")
+        raise _not_ported("parity='fast'", "A5b")
     dev = resolve_device(device)
     loss = get_loss(config.loss)
     X = as_tensor(X, dev)
     Y = as_tensor(Y, dev, X.dtype)
     if Y.ndim == 1:
         Y = Y[None]
-    c0 = [null_gradient(loss, X, y.clone())[1] for y in Y]
+    W = None
+    if weights is None:
+        c0 = [null_gradient(loss, X, y.clone())[1] for y in Y]
+        col_norm = torch.linalg.vector_norm(X, dim=0)
+    else:
+        W = as_tensor(weights, dev, X.dtype)
+        if W.ndim == 1:
+            W = W[None]
+        if W.shape != Y.shape:
+            raise ValueError(f"weights must be (B, n) = {tuple(Y.shape)}, "
+                             f"got {tuple(W.shape)}")
+        c0 = [torch.abs(X.T @ (w * loss.grad(torch.zeros_like(y), y)))
+              for y, w in zip(Y, W)]
+        XX = X * X
+        col_norm = torch.stack([torch.sqrt(w.clone() @ XX) for w in W])
+        del XX
     stats = torch.stack([torch.stack((torch.max(c), _median(c)))
                          for c in c0]).tolist()
-    return FleetPrep(X=X, Y=Y, c0=torch.stack(c0),
-                     col_norm=torch.linalg.vector_norm(X, dim=0),
+    return FleetPrep(X=X, Y=Y, c0=torch.stack(c0), col_norm=col_norm,
                      c0_max=[s[0] for s in stats],
-                     c0_median=[s[1] for s in stats])
+                     c0_median=[s[1] for s in stats], W=W)
 
 
 def pad_fleet_prep(prep: FleetPrep, n_bucket: int, p_bucket: int):
@@ -140,41 +166,78 @@ def _delta0s(prep: FleetPrep, lams, config: SaifConfig):
 
 
 def resolve_batch_inner(config: SaifConfig, n: int, k_max: int, b: int,
-                        device, itemsize: int = 8) -> str:
+                        device, itemsize: int = 8,
+                        weighted: bool = False) -> str:
     """Fleet inner policy: the serial one. On a card ``auto`` runs K3b
     while one problem's burst fits K3's shared memory (``cm_smem_ok(n,
     k_max)``): each problem has its own CTA and its own shared memory, so
     the fleet size ``b`` adds nothing to the gate. Past it, and on the
-    CPU, the serial routing applies."""
+    CPU, the serial routing applies.
+
+    A ``weighted`` fleet keeps the reference's policy: the kernel burst
+    refuses sample weights, so ``auto`` on a card takes the Gram engine
+    (K6b) for least squares while GRAM_CROSSOVER * n >= k_max and raises
+    otherwise (logistic: the reference's ``auto`` on its accelerator
+    picks the kernel, which refuses weights), naming
+    ``inner_backend="torch"``; on the CPU ``auto`` keeps torch/gram."""
     del b                                   # no fleet factor on the card
-    return resolve_inner_backend(config.inner_backend, config.loss, n,
-                                 k_max, device, itemsize)
+    ls = config.loss == "least_squares"
+    name = config.inner_backend
+    if (weighted and name == "auto"
+            and torch.device(device).type == "cuda"):
+        if not (ls and GRAM_CROSSOVER * n >= k_max):
+            raise ValueError(
+                f"a weighted {config.loss} fleet (n={n}, k_max={k_max}) "
+                f"has no kernel inner backend on the card: the CM burst "
+                f"kernel does not take sample weights"
+                + ("" if not ls else " and the Gram engine is past its "
+                   "n/k_max crossover")
+                + "; pass inner_backend=\"torch\" (a host loop on the "
+                  "card)")
+        name = "gram"
+    name = resolve_inner_backend(name, config.loss, n, k_max, device,
+                                 itemsize)
+    if weighted and name == "cuda":
+        raise ValueError("the batched cuda inner backend does not take "
+                         "sample weights; use 'torch' or 'gram' for CV "
+                         "fleets")
+    return name
 
 
 def _solve_fleet(prep: FleetPrep, lams, config: SaifConfig, *, hs, h, k_max,
                  init_idx, init_beta, init_mask, inner: str, screen: str,
-                 use_seq: bool, rule) -> List[SaifResult]:
+                 use_seq: bool, rule, carries=None) -> List[SaifResult]:
     """One pass of the fleet at capacity ``k_max`` (the reference's
-    ``_saif_batch_jit``): per-problem states advanced by one host loop.
+    ``_saif_batch_jit``): per-problem states advanced by one host loop,
+    from the (B, k_max) slot buffers ``init_*`` and, for a warm entry, the
+    problems' inbound inner ``carries`` (None = cold; a Gram carry whose
+    live slots still back the same features is kept, else rebuilt once).
     Returns one serial-form result per problem."""
     loss = get_loss(config.loss)
     X, col_norm = prep.X, prep.col_norm
     p, dt = X.shape[1], X.dtype
+    b = prep.Y.shape[0]
     ys = [y.clone() for y in prep.Y]        # each problem's own tensor
-    binner = make_batch_inner(inner, loss, X, ys, col_norm, hs)
+    ws = [None] * b if prep.W is None else [w.clone() for w in prep.W]
+    cns = ([col_norm] * b if col_norm.ndim == 1
+           else [cn.clone() for cn in col_norm])
+    binner = make_batch_inner(inner, loss, X, ys, col_norm, hs,
+                              None if prep.W is None else ws)
     asets = aset_lib.init_active_set_batch(p, k_max, init_idx, dt, init_beta,
                                            init_mask)
-    carries = binner.init(
-        asets, cold_inner_carry_batch(len(ys), k_max, dt, X.device, inner),
-        aset_lib.gather_columns_batch(X, asets))
+    if carries is None:
+        carries = cold_inner_carry_batch(b, k_max, dt, X.device, inner)
+    carries = binner.init(asets, carries,
+                          aset_lib.gather_columns_batch(X, asets))
     delta0 = _delta0s(prep, lams, config)
     probs = [_Problem(y, lam, config.eps, d0,
                       max(int(math.ceil(config.zeta * h_b)), 1), h_b, h_b,
                       c0, aset, carry,
-                      binner.make_one(y, h_b) if binner.make_one else None)
-             for y, lam, d0, h_b, c0, aset, carry in zip(
-                 ys, lams, delta0, hs, prep.c0, asets, carries)]
-    _advance(probs, X, col_norm, loss=loss, h=h,
+                      binner.make_one(y, h_b, w) if binner.make_one else None,
+                      cn=cn, w=w)
+             for y, w, cn, lam, d0, h_b, c0, aset, carry in zip(
+                 ys, ws, cns, lams, delta0, hs, prep.c0, asets, carries)]
+    _advance(probs, X, loss=loss, h=h,
              inner_epochs=config.inner_epochs,
              polish_factor=config.polish_factor, max_outer=config.max_outer,
              use_seq_ball=use_seq,
@@ -208,14 +271,17 @@ def fleet_solve(X, Y, lams, config: SaifConfig = SaifConfig(), device=None,
     """Solve B LASSO problems over one shared design together.
 
     X (n, p) shared design; Y (B, n) responses (an (n,) vector is a fleet
-    of one); ``lams`` a scalar or B per-problem lambdas; ``prep`` a
-    :class:`FleetPrep` made before (X and Y are then ignored).
+    of one); ``lams`` a scalar or B per-problem lambdas; ``weights``
+    optional (B, n) per-problem sample weights (binary row masks: the
+    K-fold CV trick; the Thm-2 sequential ball is then off); ``prep`` a
+    :class:`FleetPrep` made before (X, Y and weights are then ignored).
     ``device=None`` runs on the card; pass ``device="cpu"`` for the plain
     path on the CPU.
 
     Returns a :class:`~repro_torch.core.saif.SaifResult` whose every field
     has a leading problem axis; row b is bitwise the serial
-    ``saif(X, Y[b], lams[b], config)``. When any problem's ADD overflows
+    ``saif(X, Y[b], lams[b], config)`` (weighted: bitwise the fleet of one
+    of problem b). When any problem's ADD overflows
     the shared capacity, the whole fleet starts over cold at twice the
     capacity from the same initial supports, as the reference does.
     """
@@ -224,12 +290,10 @@ def fleet_solve(X, Y, lams, config: SaifConfig = SaifConfig(), device=None,
             "fleet_solve solves plain-LASSO fleets; the fused unpenalized "
             "slot is serial-only, as in the reference")
     if config.parity == "fast":
-        raise _not_ported("parity='fast'", "A5")
-    if weights is not None:
-        raise _not_ported("sample weights", "A5")
+        raise _not_ported("parity='fast'", "A5b")
     dev = resolve_device(device)
     if prep is None:
-        prep = prepare_fleet(X, Y, config, device=dev)
+        prep = prepare_fleet(X, Y, config, weights=weights, device=dev)
     if prep.n_true or prep.p_true:
         raise _not_ported("a padded preparation", "A6")
     n, p = prep.X.shape
@@ -237,7 +301,7 @@ def fleet_solve(X, Y, lams, config: SaifConfig = SaifConfig(), device=None,
     lam_list = torch.as_tensor(lams, dtype=torch.float64).reshape(-1)
     lam_list = lam_list.expand(b).tolist()
     rule = resolve_screen_rule(config.screen_rule)
-    use_seq = config.use_seq_ball and rule.use_seq_ball
+    use_seq = config.use_seq_ball and rule.use_seq_ball and prep.W is None
     screen = resolve_batch_screen(config.screen_backend, prep.X.device, b=b,
                                   p=p)
     hs, h = fleet_batch_sizes(prep, lam_list, config)
@@ -250,7 +314,8 @@ def fleet_solve(X, Y, lams, config: SaifConfig = SaifConfig(), device=None,
         pad = k_max - init[0].shape[1]
         init = tuple(torch.nn.functional.pad(t, (0, pad)) for t in init)
         inner = resolve_batch_inner(config, n, k_max, b, prep.X.device,
-                                    prep.X.element_size())
+                                    prep.X.element_size(),
+                                    weighted=prep.W is not None)
         results = _solve_fleet(prep, lam_list, config, hs=hs, h=h,
                                k_max=k_max, init_idx=init[0],
                                init_beta=init[1], init_mask=init[2],
@@ -262,7 +327,22 @@ def fleet_solve(X, Y, lams, config: SaifConfig = SaifConfig(), device=None,
 
 
 def saif_batch(X, Y, lams, config: SaifConfig = SaifConfig(),
-               device=None) -> SaifResult:
+               weights=None, device=None) -> SaifResult:
     """Thin frontend of :func:`fleet_solve` (the reference's legacy name;
     the port has no Session yet)."""
-    return fleet_solve(X, Y, lams, config, device=device)
+    return fleet_solve(X, Y, lams, config, device=device, weights=weights)
+
+
+def fleet_warm_state(results: List[SaifResult]):
+    """The slot-preserving warm state of a fleet pass, per problem (the
+    reference's batched ``_warm_state``, ``cv.py:147-154``): each
+    problem's slot map masked down to its nonzero coefficients, and its
+    final inner carry, which then stays valid verbatim. Returns
+    (init_idx, init_beta, init_mask) (B, k_max) and the B carries."""
+    idx = torch.stack([r.active_idx for r in results])
+    mask = torch.stack([r.active_mask for r in results])
+    vals = torch.where(mask, torch.gather(
+        torch.stack([r.beta for r in results]), 1, idx), 0.0)
+    live = mask & (vals != 0)
+    return ((idx, torch.where(live, vals, 0.0), live),
+            [r.inner for r in results])

@@ -4,18 +4,23 @@ The coordinate step of every sweep is the reference's
 prox-Newton-majorized step with per-coordinate Lipschitz L_j = alpha ||x_j||^2
     beta_j <- S(beta_j - x_j^T f'(z) / L_j,  lam / L_j)
 (for least squares the exact minimizer), with the model vector z = Xa beta
-maintained by rank-1 updates. :func:`gram_epochs` is the covariance-update
-form for least squares: it maintains qr = G beta - rho on the active-block
-Gram matrix, so every step is O(k_max) instead of O(n).
+maintained by rank-1 updates. The covariance-update form for least squares
+(qr = G beta - rho on the active-block Gram matrix, O(k_max) per step) is
+kernel K6 in ``kernels/gram``, with its plain loop beside it.
 
-These loops are the plain versions the CUDA burst kernel is held against,
-and they run on whichever device holds the tensors. A cyclic sweep is a
-chain of dependent scalar steps, so each step here reads its one scalar
-(the correlation or the Gram residual) to the host, does the
-soft-threshold in Python floats (IEEE double, the arithmetic of a float64
-tensor op), and applies the rank-1 update as one tensor op. On a card that
-is one synchronisation per coordinate step, which is why the solver
-reaches for the kernel there.
+The residual-form loops are the plain versions the CUDA burst kernel is
+held against, and they run on whichever device holds the tensors. A
+cyclic sweep is a chain of dependent scalar steps, so each step here reads
+its one scalar (the correlation) to the host, does the soft-threshold in
+Python floats (IEEE double, the arithmetic of a float64 tensor op), and
+applies the rank-1 update as one tensor op. On a card that is one
+synchronisation per coordinate step, which is why the solver reaches for
+the kernel there.
+
+``sample_w`` (n,) weights the loss per sample, sum_i w_i f(z_i, y_i) (the
+K-fold CV row-mask trick): the gradient picks up the weight while z and
+the design stay unweighted, so X is shared across a weighted fleet; the
+squared column norms become sum_i w_i x_ij^2.
 """
 from __future__ import annotations
 
@@ -41,13 +46,16 @@ def _soft_threshold_f(u: float, t: float) -> float:
 
 def _coordinate_step(loss: Loss, Xa: Tensor, y: Tensor, live: bool,
                      lam_j: float, lj: float, j: int, beta: List[float],
-                     z: Tensor) -> None:
+                     z: Tensor, sample_w: Tensor | None = None) -> None:
     """One prox coordinate update of slot ``j``, in place: ``beta`` is a
     host list of coefficients, ``z`` the model vector on the device.
     ``lam_j`` is slot j's l1 weight times lambda (0 = unpenalized, an
-    unthresholded step)."""
+    unthresholded step); ``sample_w`` the optional per-sample weights."""
     xj = Xa[:, j]
-    g = float(torch.dot(xj, loss.grad(z, y)))
+    g_vec = loss.grad(z, y)
+    if sample_w is not None:
+        g_vec = sample_w * g_vec
+    g = float(torch.dot(xj, g_vec))
     bj = beta[j]
     b_new = _soft_threshold_f(bj - g / lj, lam_j / lj) if live else 0.0
     if b_new != bj:
@@ -65,12 +73,12 @@ def _slot_lams(lam, pen: Tensor | None, k: int) -> List[float]:
 
 def cm_sweeps(loss: Loss, Xa: Tensor, y: Tensor, beta: Tensor, z: Tensor,
               mask: Tensor, lam, col_sq: Tensor, order: Tensor, count: int,
-              n_epochs: int, pen: Tensor | None = None
-              ) -> Tuple[Tensor, Tensor]:
+              n_epochs: int, pen: Tensor | None = None,
+              sample_w: Tensor | None = None) -> Tuple[Tensor, Tensor]:
     """``n_epochs`` compact sweeps over the ``count`` live slots listed
     first in ``order``, with the per-slot squared norms ``col_sq`` given
-    and the optional per-slot l1 weights ``pen``. Shared by
-    :func:`cm_epochs_compact` and the plain CM burst."""
+    (weighted ones under ``sample_w``) and the optional per-slot l1 weights
+    ``pen``. Shared by :func:`cm_epochs_compact` and the plain CM burst."""
     sched = order[:int(count)].tolist()
     live = mask.tolist()
     lj = torch.clamp(loss.smoothness * col_sq, min=1e-30).tolist()
@@ -79,45 +87,24 @@ def cm_sweeps(loss: Loss, Xa: Tensor, y: Tensor, beta: Tensor, z: Tensor,
     z = z.clone()
     for _ in range(int(n_epochs)):
         for j in sched:
-            _coordinate_step(loss, Xa, y, live[j], lams[j], lj[j], j, b, z)
+            _coordinate_step(loss, Xa, y, live[j], lams[j], lj[j], j, b, z,
+                             sample_w)
     return torch.tensor(b, dtype=beta.dtype, device=beta.device), z
 
 
 def cm_epochs_compact(loss: Loss, Xa: Tensor, y: Tensor, beta: Tensor,
                       z: Tensor, mask: Tensor, lam, order: Tensor, count,
-                      n_epochs, pen: Tensor | None = None
+                      n_epochs, pen: Tensor | None = None,
+                      sample_w: Tensor | None = None
                       ) -> Tuple[Tensor, Tensor]:
-    """``n_epochs`` compact sweeps (the reference's jnp inner burst)."""
-    col_sq = torch.sum(Xa * Xa, dim=0)
+    """``n_epochs`` compact sweeps (the reference's jnp inner burst);
+    ``sample_w`` weights the loss per sample."""
+    if sample_w is None:
+        col_sq = torch.sum(Xa * Xa, dim=0)
+    else:
+        col_sq = torch.sum(sample_w[:, None] * Xa * Xa, dim=0)
     return cm_sweeps(loss, Xa, y, beta, z, mask, lam, col_sq, order, count,
-                     n_epochs, pen)
-
-
-def gram_epochs(G: Tensor, rho: Tensor, beta: Tensor, mask: Tensor, lam,
-                order: Tensor, count, n_epochs,
-                smoothness: float = 1.0,
-                pen: Tensor | None = None) -> Tensor:
-    """Covariance-update CM sweeps (least squares): every step reads
-    qr_j = (G beta - rho)_j and updates qr by one Gram-column axpy.
-    ``G`` must hold x_s^T x_t for every pair of live slots; ``pen`` is the
-    optional per-slot l1 weight (0 = unpenalized). Returns the updated beta
-    (the caller rebuilds z once per burst)."""
-    inv_l = 1.0 / torch.clamp(smoothness * torch.diagonal(G), min=1e-30)
-    thr = (lam * inv_l if pen is None else lam * pen * inv_l).tolist()
-    inv_l = inv_l.tolist()
-    qr = G @ beta - rho
-    sched = order[:int(count)].tolist()
-    live = mask.tolist()
-    b = beta.tolist()
-    for _ in range(int(n_epochs)):
-        for j in sched:
-            bj = b[j]
-            b_new = (_soft_threshold_f(bj - float(qr[j]) * inv_l[j], thr[j])
-                     if live[j] else 0.0)
-            if b_new != bj:
-                qr.add_(G[:, j], alpha=b_new - bj)
-            b[j] = b_new
-    return torch.tensor(b, dtype=beta.dtype, device=beta.device)
+                     n_epochs, pen, sample_w)
 
 
 def solve_lasso_cm(loss: Loss, X: Tensor, y: Tensor, lam: float,

@@ -134,13 +134,17 @@ def intersect_balls(b1: Ball, b2: Ball) -> Ball:
 
 def kkt_residual(loss: Loss, X: Tensor, y: Tensor, beta: Tensor, lam,
                  pen: Tensor | None = None,
+                 sample_w: Tensor | None = None,
                  active_tol: float = 0.0) -> Tensor:
     """Max KKT violation of a candidate LASSO solution over all p
     coordinates (0 at the exact optimum): with g = X^T f'(X beta),
     |g_i| <= lam off the support, g_i = -lam sign(beta_i) on it, and
     g_i = 0 on an unpenalized coordinate (``pen`` weights lam per column;
-    0 = unpenalized)."""
+    0 = unpenalized). ``sample_w`` (n,) weights the gradient per sample
+    (a weighted fleet's problem)."""
     g = loss.grad(X @ beta, y)
+    if sample_w is not None:
+        g = g * sample_w
     c = X.T @ g
     lam_i = lam * pen if pen is not None else lam
     active = torch.abs(beta) > active_tol

@@ -12,8 +12,9 @@ the feasible dual point theta and the sub-problem duality gap — one
   * ``gram``  — the covariance-update engine (least squares only): the Gram
                 matrix G = Xa^T Xa and rho = Xa^T y of the active block ride
                 in an :class:`InnerCarry` through the outer loop, so each
-                coordinate step is an O(k_max) axpy; ADD/DEL refresh at most
-                ``h`` columns per outer step;
+                coordinate step is an O(k_max) axpy (kernel K6 on the
+                card); ADD/DEL refresh at most ``h`` columns per outer
+                step;
   * ``cuda``  — kernel K3 (``kernels/cm``): the whole burst, the dual point
                 and the gap in one launch (the reference's ``pallas``).
 
@@ -23,6 +24,14 @@ it, :func:`~repro_torch.core.active_set.pen_weights`) and, in the dual tail,
 as its column: the dual point is projected onto x_b^T theta = 0 and the l1
 term skips b. The plain backend Newton-polishes b for a general loss
 before the tail; K3's ``_pen`` entries do the same in the kernel.
+
+Sample weights (``sample_w`` (n,), the K-fold CV row-mask trick) reach the
+``torch`` and ``gram`` backends: the plain sweeps weight the gradient, the
+Gram carry absorbs them (G = Xa^T diag(w) Xa, rho = Xa^T diag(w) y, so the
+sweep itself is unweighted) and the dual tail weights the gradient, the
+primal value and the conjugate sum. They do not compose with the
+unpenalized slot, and the fleet kernel backend refuses them, as the
+reference's does.
 
 The Gram carry keeps the reference's invariants: ``gidx[s]`` names the
 feature backing row/column s of G (-1 = nothing valid); G[s, t] = x_s^T x_t
@@ -37,7 +46,7 @@ import torch
 
 from repro_torch.core import active_set as aset_lib
 from repro_torch.core.active_set import ActiveSet
-from repro_torch.core.cm import cm_epochs_compact, gram_epochs
+from repro_torch.core.cm import cm_epochs_compact
 from repro_torch.core.duality import duality_gap, feasible_dual, polish_unpen
 from repro_torch.core.losses import Loss
 
@@ -80,15 +89,41 @@ def cold_inner_carry(k_max: int, dtype, device,
 
 
 def _dual_and_gap(loss: Loss, Xa, y, beta, z, mask, lam, pen=None,
-                  x_unpen=None):
+                  x_unpen=None, sample_w=None):
     """Post-burst tail of the torch and gram backends: the feasible dual
     point and the sub-problem duality gap (``pen``/``x_unpen``: the
-    unpenalized slot's weights and column)."""
-    hat = -loss.grad(z, y) / lam
+    unpenalized slot's weights and column).
+
+    ``sample_w`` (n,) weights the loss per sample: the gradient, primal
+    value and conjugate sum pick up the weight. With binary weights the
+    unscaled dual candidate lives on the weight-1 rows, so the LS tau*
+    scaling and the constraint correlations against the shared Xa equal
+    their row-subsampled counterparts exactly; the general-loss dom-f*
+    clamp can move an exact 0 off 0, so theta is re-zeroed on the
+    weight-0 rows after it."""
+    if sample_w is None:
+        hat = -loss.grad(z, y) / lam
+        theta = feasible_dual(loss, Xa, y, hat, lam, mask, pen=pen,
+                              x_unpen=x_unpen)
+        gap = duality_gap(loss, Xa, y, beta, theta, lam, mask, pen=pen)
+        return theta, gap
+    hat = -(sample_w * loss.grad(z, y)) / lam
     theta = feasible_dual(loss, Xa, y, hat, lam, mask, pen=pen,
                           x_unpen=x_unpen)
-    gap = duality_gap(loss, Xa, y, beta, theta, lam, mask, pen=pen)
-    return theta, gap
+    if loss.name != "least_squares":
+        theta = torch.where(sample_w > 0, theta, 0.0)
+    beta_m = torch.where(mask, beta, 0.0) if mask is not None else beta
+    l1 = torch.abs(beta_m) if pen is None else pen * torch.abs(beta_m)
+    p_val = (torch.sum(sample_w * loss.value(Xa @ beta_m, y))
+             + lam * torch.sum(l1))
+    d_val = -torch.sum(sample_w * loss.conj(-lam * theta, y))
+    return theta, p_val - d_val
+
+
+def _no_weights_with_unpen(unpen_idx: int, sample_w) -> None:
+    if unpen_idx >= 0 and sample_w is not None:
+        raise ValueError("sample weights do not compose with the fused "
+                         "unpenalized slot")
 
 
 def _pen(aset: ActiveSet, unpen_idx: int, dtype):
@@ -105,15 +140,18 @@ def _no_refresh(carry, aset, Xa):
 
 
 def make_inner_torch(loss: Loss, X: Tensor, y: Tensor,
-                     unpen_idx: int = -1) -> InnerBackend:
-    """Plain backend: residual-update epochs, O(n) per coordinate step."""
+                     unpen_idx: int = -1,
+                     sample_w: Tensor | None = None) -> InnerBackend:
+    """Plain backend: residual-update epochs, O(n) per coordinate step;
+    ``sample_w`` weights the loss per sample."""
+    _no_weights_with_unpen(unpen_idx, sample_w)
     x_unpen = X[:, unpen_idx] if unpen_idx >= 0 else None
 
     def run(carry, aset, Xa, lam, n_ep):
         pen = _pen(aset, unpen_idx, X.dtype)
         beta, z = cm_epochs_compact(loss, Xa, y, aset.beta, Xa @ aset.beta,
                                     aset.mask, lam, aset.order, aset.count,
-                                    n_ep, pen)
+                                    n_ep, pen, sample_w)
         if unpen_idx >= 0 and loss.name != "least_squares":
             # general loss: polish b to stationarity so the dual point meets
             # its equality constraint through the gradient itself
@@ -124,7 +162,7 @@ def make_inner_torch(loss: Loss, X: Tensor, y: Tensor,
                 beta = beta.clone()
                 beta[s] = b_new
         theta, gap = _dual_and_gap(loss, Xa, y, beta, z, aset.mask, lam,
-                                   pen, x_unpen)
+                                   pen, x_unpen, sample_w)
         return InnerOut(beta=beta, z=z, theta=theta, gap=gap)
 
     return InnerBackend(name="torch", init=_no_init, refresh=_no_refresh,
@@ -132,17 +170,28 @@ def make_inner_torch(loss: Loss, X: Tensor, y: Tensor,
 
 
 def make_inner_gram(loss: Loss, X: Tensor, y: Tensor, h: int,
-                    unpen_idx: int = -1) -> InnerBackend:
+                    unpen_idx: int = -1,
+                    sample_w: Tensor | None = None) -> InnerBackend:
     """Covariance-update backend: O(k_max) coordinate steps (LS only). The
     unpenalized slot needs no Gram handling of its own: it is always
-    resident, so its row and column of G stay valid."""
+    resident, so its row and column of G stay valid. ``sample_w`` folds
+    into the carry (G = Xa^T diag(w) Xa, rho = Xa^T diag(w) y): only the
+    carry builds and the dual tail see it. The sweep is
+    :func:`~repro_torch.kernels.gram.gram.gram_sweep`: its plain loop on
+    the CPU, kernel K6 on the card."""
+    from repro_torch.kernels.gram.gram import gram_sweep
+
     if loss.name != "least_squares":
         raise ValueError("the gram inner backend needs a linear gradient "
                          f"(least squares); got loss {loss.name!r}")
+    _no_weights_with_unpen(unpen_idx, sample_w)
     x_unpen = X[:, unpen_idx] if unpen_idx >= 0 else None
 
+    def _wgt(cols):
+        return cols if sample_w is None else sample_w[:, None] * cols
+
     def _rebuild(aset, Xa):
-        return InnerCarry(G=Xa.T @ Xa, rho=Xa.T @ y,
+        return InnerCarry(G=Xa.T @ _wgt(Xa), rho=_wgt(Xa).T @ y,
                           gidx=torch.where(aset.mask, aset.idx, -1))
 
     def init(aset, carry, Xa):
@@ -150,6 +199,7 @@ def make_inner_gram(loss: Loss, X: Tensor, y: Tensor, h: int,
         gidx = torch.where(aset.mask, carry.gidx, -1)
         dirty = aset.mask & (gidx != aset.idx)
         if bool(dirty.any()):
+            make_inner_gram.rebuilds += 1
             return _rebuild(aset, Xa)
         return carry._replace(gidx=gidx)
 
@@ -161,7 +211,7 @@ def make_inner_gram(loss: Loss, X: Tensor, y: Tensor, h: int,
         if slots.numel() == 0:
             return carry._replace(gidx=gidx)
         ids = aset.idx[slots]
-        cols = X[:, ids]
+        cols = _wgt(X[:, ids])
         G = carry.G.clone()
         G[:, slots] = Xa.T @ cols
         G[slots, :] = cols.T @ Xa
@@ -173,15 +223,29 @@ def make_inner_gram(loss: Loss, X: Tensor, y: Tensor, h: int,
 
     def run(carry, aset, Xa, lam, n_ep):
         pen = _pen(aset, unpen_idx, X.dtype)
-        beta = gram_epochs(carry.G, carry.rho, aset.beta, aset.mask, lam,
-                           aset.order, aset.count, n_ep,
-                           smoothness=loss.smoothness, pen=pen)
-        z = Xa @ beta                # the only O(n k) term: once per burst
-        theta, gap = _dual_and_gap(loss, Xa, y, beta, z, aset.mask, lam,
-                                   pen, x_unpen)
-        return InnerOut(beta=beta, z=z, theta=theta, gap=gap)
+        beta = gram_sweep(carry.G, carry.rho, aset.beta, aset.mask, lam,
+                          aset.order, aset.count, n_ep,
+                          smoothness=loss.smoothness, pen=pen)
+        return _gram_tail(loss, Xa, y, aset.mask, lam, beta, pen, x_unpen,
+                          sample_w)
 
     return InnerBackend(name="gram", init=init, refresh=refresh, run=run)
+
+
+# full O(n k^2) carry builds so far (a warm handoff that keeps its slots
+# needs none); a plain counter for the CV smoke's report
+make_inner_gram.rebuilds = 0
+
+
+def _gram_tail(loss, Xa, y, mask, lam, beta, pen=None, x_unpen=None,
+               sample_w=None) -> InnerOut:
+    """The Gram backend's post-sweep tail: z once per burst (its only
+    O(n k) term), the dual point and the gap. A fleet whose sweeps ran in
+    one K6b launch calls it per problem, as the serial burst does."""
+    z = Xa @ beta
+    theta, gap = _dual_and_gap(loss, Xa, y, beta, z, mask, lam, pen,
+                               x_unpen, sample_w)
+    return InnerOut(beta=beta, z=z, theta=theta, gap=gap)
 
 
 def make_inner_cuda(loss: Loss, X: Tensor, y: Tensor, col_norm: Tensor,
@@ -217,6 +281,7 @@ def make_inner_cuda(loss: Loss, X: Tensor, y: Tensor, col_norm: Tensor,
 def make_inner(name: str, loss: Loss, X: Tensor, y: Tensor,
                col_norm: Tensor, h: int, unpen_idx: int = -1
                ) -> InnerBackend:
+    """Serial inner backend by resolved name (unweighted)."""
     if name == "gram":
         return make_inner_gram(loss, X, y, h, unpen_idx)
     if name == "cuda":
@@ -227,21 +292,27 @@ def make_inner(name: str, loss: Loss, X: Tensor, y: Tensor,
 # --------------------------------------------------------------------------
 # fleet backends (core/batch.py): B problems over one shared design
 # --------------------------------------------------------------------------
-# ``torch`` and ``gram`` are map-fused: each problem runs the SERIAL backend
-# built for its own response (and its own h), so its burst, dual point and
-# gap are the literal serial computation. ``cuda`` is the problem-gridded
-# kernel K3b: one launch runs the bursts of every live problem, one CTA
-# each, with K3's body, so a fleet burst is bitwise a serial burst.
+# ``torch`` is map-fused: each problem runs the SERIAL backend built for its
+# own response, h and sample weights, so its burst, dual point and gap are
+# the literal serial computation. ``gram`` keeps the per-problem carries and
+# tails but runs the sweeps of every live problem in one K6b call, and
+# ``cuda`` is the problem-gridded kernel K3b; both kernels run their serial
+# kernel's body per CTA (their plain versions the serial loop per problem),
+# so a fleet burst is bitwise a serial burst.
 
 
 class BatchInnerBackend(NamedTuple):
-    """The fleet inner interface the engine consumes; one of two paths:
+    """The fleet inner interface the engine consumes:
 
-      * ``make_one(y_b, h_b) -> InnerBackend`` — map-fused (torch, gram):
-        each live problem runs the serial backend built here;
-      * ``fleet_step(problems, n_eps) -> [InnerOut]`` — the gridded kernel
-        (cuda): one launch for the bursts of the live ``problems`` (the
-        engine's per-problem states), each with its epoch count.
+      * ``make_one(y_b, h_b, w_b) -> InnerBackend`` — the serial backend
+        of one problem (torch, gram); with no ``fleet_step`` each live
+        problem runs its burst (map-fused), gram keeps it for the carry
+        refresh;
+      * ``fleet_step(problems, n_eps) -> ([InnerOut], [Xa])`` — one launch
+        for the bursts of the live ``problems`` (the engine's per-problem
+        states), each with its epoch count; returns each problem's burst
+        and its gathered (n, k_max) block, and refreshes the problems'
+        carries in place (cuda: K3b; gram: K6b).
 
     ``init`` reconciles the fleet's inbound carries with its initial
     active sets, per problem, outside the loop."""
@@ -258,41 +329,80 @@ def cold_inner_carry_batch(b: int, k_max: int, dtype, device,
             for _ in range(b)]
 
 
-def _fleet_init(make_one, Y, hs):
+def _fleet_init(make_one, Y, hs, weights):
     """Per-problem init of the serial backends (the only place a Gram
     carry is built in full)."""
+    ws = [None] * len(Y) if weights is None else weights
+
     def init(asets, carries, Xas):
-        return [make_one(y, h).init(a, c, Xa)
-                for y, h, a, c, Xa in zip(Y, hs, asets, carries, Xas)]
+        return [make_one(y, h, w).init(a, c, Xa)
+                for y, h, w, a, c, Xa in zip(Y, hs, ws, asets, carries, Xas)]
     return init
 
 
-def make_batch_inner_torch(loss: Loss, X: Tensor, Y, hs) -> BatchInnerBackend:
+def make_batch_inner_torch(loss: Loss, X: Tensor, Y, hs,
+                           weights=None) -> BatchInnerBackend:
     """Fleet plain backend: the serial residual-update backend per problem
-    (``Y``: the per-problem responses, ``hs``: their batch sizes)."""
-    def make_one(y, h):
-        return make_inner_torch(loss, X, y)
-    return BatchInnerBackend(name="torch", init=_fleet_init(make_one, Y, hs),
+    (``Y``: the per-problem responses, ``hs``: their batch sizes,
+    ``weights``: their sample weights or None)."""
+    def make_one(y, h, w=None):
+        return make_inner_torch(loss, X, y, sample_w=w)
+    return BatchInnerBackend(name="torch",
+                             init=_fleet_init(make_one, Y, hs, weights),
                              make_one=make_one)
 
 
-def make_batch_inner_gram(loss: Loss, X: Tensor, Y, hs) -> BatchInnerBackend:
-    """Fleet covariance-update backend: the serial Gram backend per problem,
-    each with its own (k_max, k_max) carry and its own refresh bound h."""
-    def make_one(y, h):
-        return make_inner_gram(loss, X, y, h)
-    return BatchInnerBackend(name="gram", init=_fleet_init(make_one, Y, hs),
-                             make_one=make_one)
+def make_batch_inner_gram(loss: Loss, X: Tensor, Y, hs,
+                          weights=None) -> BatchInnerBackend:
+    """Fleet covariance-update backend: the serial Gram backend per problem
+    (``make_one``: its carry init and refresh), each with its own
+    (k_max, k_max) carry (weighted by its own sample weights) and its own
+    refresh bound h. One K6b call per outer step runs the sweeps of every
+    live problem (on CPU tensors its plain version, the serial sweep per
+    problem); the tails stay per problem, as in the serial burst."""
+    from repro_torch.kernels.gram.gram import gram_sweep_batch
+
+    def make_one(y, h, w=None):
+        return make_inner_gram(loss, X, y, h, sample_w=w)
+
+    def fleet_step(probs, n_eps):
+        Xas = aset_lib.gather_columns_batch(X, [q.aset for q in probs])
+        for q, Xa in zip(probs, Xas):
+            q.carry = q.inner.refresh(q.carry, q.aset, Xa)
+        asets = [q.aset for q in probs]
+        meta = torch.tensor([n_eps, [a.count for a in asets]],
+                            dtype=torch.int32).to(X.device)
+        beta = gram_sweep_batch(
+            torch.stack([q.carry.G for q in probs]),
+            torch.stack([q.carry.rho for q in probs]),
+            torch.stack([a.beta for a in asets]),
+            torch.stack([a.mask for a in asets]),
+            torch.stack([q.lam for q in probs]),
+            torch.stack([a.order for a in asets]), meta[1], meta[0],
+            smoothness=loss.smoothness)
+        # each problem's own contiguous tensors, for its serial tail
+        return [_gram_tail(loss, Xa, q.y, q.aset.mask, q.lam,
+                           beta[j].clone(), sample_w=q.w)
+                for j, (q, Xa) in enumerate(zip(probs, Xas))], Xas
+
+    return BatchInnerBackend(name="gram",
+                             init=_fleet_init(make_one, Y, hs, weights),
+                             make_one=make_one, fleet_step=fleet_step)
 
 
-def make_batch_inner_cuda(loss: Loss, X: Tensor,
-                          col_norm: Tensor) -> BatchInnerBackend:
+def make_batch_inner_cuda(loss: Loss, X: Tensor, col_norm: Tensor,
+                          weights=None) -> BatchInnerBackend:
     """Fleet kernel backend: one K3b launch per outer step for the bursts of
     every live problem. The blocks are gathered transposed straight from X
     in one gather; lambda, the epoch counts and the live-slot counts reach
-    the kernel as per-problem device arrays."""
+    the kernel as per-problem device arrays. Like the reference's pallas
+    fleet backend it takes no sample weights."""
     from repro_torch.kernels.cm.cm import cm_burst_batch_xt
 
+    if weights is not None:
+        raise ValueError("the batched cuda inner backend does not take "
+                         "sample weights; use 'torch' or 'gram' for CV "
+                         "fleets")
     XT = X.T
 
     def fleet_step(probs, n_eps):
@@ -310,9 +420,10 @@ def make_batch_inner_cuda(loss: Loss, X: Tensor,
             torch.stack([q.lam for q in probs]), meta[0], meta[1],
             loss_name=loss.name)
         # each problem's own contiguous tensors, for its serial reductions
-        return [InnerOut(beta=beta[j].clone(), z=z[j],
-                         theta=theta[j].clone(), gap=gap[j])
-                for j in range(len(probs))]
+        return ([InnerOut(beta=beta[j].clone(), z=z[j],
+                          theta=theta[j].clone(), gap=gap[j])
+                 for j in range(len(probs))],
+                aset_lib.gather_columns_batch(X, asets))
 
     return BatchInnerBackend(name="cuda",
                              init=lambda asets, carries, Xas: carries,
@@ -320,13 +431,14 @@ def make_batch_inner_cuda(loss: Loss, X: Tensor,
 
 
 def make_batch_inner(name: str, loss: Loss, X: Tensor, Y, col_norm: Tensor,
-                     hs) -> BatchInnerBackend:
-    """Fleet inner backend by resolved name."""
+                     hs, weights=None) -> BatchInnerBackend:
+    """Fleet inner backend by resolved name; ``weights`` the problems'
+    sample weights (B rows) or None."""
     if name == "gram":
-        return make_batch_inner_gram(loss, X, Y, hs)
+        return make_batch_inner_gram(loss, X, Y, hs, weights)
     if name == "cuda":
-        return make_batch_inner_cuda(loss, X, col_norm)
-    return make_batch_inner_torch(loss, X, Y, hs)
+        return make_batch_inner_cuda(loss, X, col_norm, weights)
+    return make_batch_inner_torch(loss, X, Y, hs, weights)
 
 
 # n/k_max crossover of the auto policy, the reference's: the gram step is an
@@ -342,30 +454,35 @@ def resolve_inner_backend(name: str, loss_name: str, n: int, k_max: int,
     """Inner-backend policy: an explicit name wins. ``auto`` on a CUDA
     device runs the K3 kernel while the burst fits its shared memory
     (``cm_smem_ok``; ``unpen``: with the unpenalized slot's weights), for
-    least squares too, since the port's Gram sweep is a host loop with one
-    device read per coordinate step; past that gate least squares takes
-    the Gram engine while GRAM_CROSSOVER * n >= k_max. On the CPU ``auto``
+    least squares too; past that gate least squares takes the Gram engine
+    (kernel K6) while GRAM_CROSSOVER * n >= k_max. On the CPU ``auto``
     keeps the reference's choice: the Gram engine for least squares under
     the same crossover, else the plain path. A burst that neither fits K3
     nor (least squares) the crossover raises on a CUDA device, under
     ``auto`` as under ``cuda``: the plain path there is a host loop that
-    the caller must ask for by name."""
+    the caller must ask for by name. On the card the Gram engine also
+    needs K6's shared memory (``gram_smem_ok``), else it raises."""
     from repro_torch.kernels.cm.cm import cm_smem_ok
+    from repro_torch.kernels.gram.gram import gram_smem_ok
 
     ls = loss_name == "least_squares"
+    on_card = torch.device(device).type == "cuda"
     if name == "auto":
-        if torch.device(device).type != "cuda":
+        if not on_card:
             return "gram" if ls and GRAM_CROSSOVER * n >= k_max else "torch"
-        if (ls and not cm_smem_ok(n, k_max, itemsize, unpen)
-                and GRAM_CROSSOVER * n >= k_max):
-            return "gram"
-        name = "cuda"
+        name = ("gram" if ls and not cm_smem_ok(n, k_max, itemsize, unpen)
+                and GRAM_CROSSOVER * n >= k_max else "cuda")
     if name not in ("torch", "gram", "cuda"):
         raise ValueError(f"unknown inner backend {name!r}")
     if name == "gram" and not ls:
         raise ValueError("inner_backend='gram' requires loss='least_squares'"
                          " (covariance updates need a linear gradient); use"
                          " 'torch' or 'cuda'")
+    if name == "gram" and on_card and not gram_smem_ok(k_max, itemsize):
+        raise ValueError(
+            f"Gram inner backend: capacity {k_max} exceeds the Gram-sweep "
+            f"kernel's shared-memory budget; shrink k_max, or pass "
+            f"inner_backend='torch' (a host loop on the card)")
     if name == "cuda" and not cm_smem_ok(n, k_max, itemsize, unpen):
         raise ValueError(
             f"CUDA inner backend: a {n}x{k_max} active block exceeds the "

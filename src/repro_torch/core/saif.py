@@ -134,12 +134,13 @@ class _Problem:
     """One problem's state in the outer loop. The engine
     (:func:`_advance`) steps every live problem of a fleet; a serial solve
     is a fleet of one. ``inner`` is the problem's own (serial) inner
-    backend on the map-fused path, None where a fleet step owns the
-    bursts."""
+    backend, which a fleet step may use for its carry; ``cn`` its (p,)
+    column norms (a weighted problem's own); ``w`` its sample weights
+    (None = unweighted)."""
 
     def __init__(self, y, lam, eps, delta0, h_tilde, h_cap, h_post, c0,
-                 aset, carry, inner=None):
-        self.y, self.eps, self.c0 = y, float(eps), c0
+                 aset, carry, inner=None, *, cn, w=None):
+        self.y, self.eps, self.c0, self.cn, self.w = y, float(eps), c0, cn, w
         self.lam = torch.tensor(lam, dtype=y.dtype, device=y.device)
         self.delta = float(delta0)
         self.h_tilde, self.h_cap, self.h_post = h_tilde, h_cap, h_post
@@ -176,10 +177,11 @@ class _Problem:
 
 
 def newton_polish(loss, carry: InnerCarry, aset, Xa, y, lam, beta, theta,
-                  gap):
+                  gap, sample_w=None):
     """The hybrid rule's working-set Newton polish: one masked solve of
     G b = rho - lam*sign on the CM iterate's support, kept only if its
-    certified gap beats the CM iterate's."""
+    certified gap beats the CM iterate's (a weighted problem's carry and
+    gap are weighted)."""
     dt = Xa.dtype
     m = aset.mask & (beta != 0.0)
     mf = m.to(dt)
@@ -187,7 +189,8 @@ def newton_polish(loss, carry: InnerCarry, aset, Xa, y, lam, beta, theta,
     rhs = (carry.rho - lam * torch.sign(beta)) * mf
     # solve_ex: a singular system yields junk, which the gap rejects
     b_n = torch.where(m, torch.linalg.solve_ex(Gm, rhs)[0], 0.0)
-    th_n, gap_n = _dual_and_gap(loss, Xa, y, b_n, Xa @ b_n, m, lam)
+    th_n, gap_n = _dual_and_gap(loss, Xa, y, b_n, Xa @ b_n, m, lam,
+                                sample_w=sample_w)
     if bool(gap_n < gap):                          # NaN/junk reads False
         return b_n, th_n, gap_n
     return beta, theta, gap
@@ -254,7 +257,7 @@ def post_check_keep(chk, ranks, h_post: int, col_norm, r_del, p: int,
     return keep
 
 
-def _advance(probs, X, col_norm, *, loss, h, inner_epochs, polish_factor,
+def _advance(probs, X, *, loss, h, inner_epochs, polish_factor,
              max_outer, use_seq_ball, screen, fleet_step, screen_rule,
              newton, unpen_idx=-1) -> None:
     """The outer loop of Algorithm 1/2 (the reference's ``_saif_jit`` and,
@@ -265,7 +268,9 @@ def _advance(probs, X, col_norm, *, loss, h, inner_epochs, polish_factor,
     tensors, in the serial order; only exact work is shared: the screen
     (``screen``, a :data:`BatchScreenFn` over the problems whose ADD
     phase runs), the bursts when ``fleet_step`` owns them, and the host
-    reads, which fetch the problems' values together. A problem ends at
+    reads, which fetch the problems' values together. Each problem reads
+    its own column norms and sample weights (``_Problem.cn``/``.w``): a
+    weighted fleet's problems have their own. A problem ends at
     its first ADD that runs out of slots: the reference runs it on to
     ``max_outer`` and then discards it (the caller regrows the capacity
     and starts over from the same initial support), so stopping there
@@ -285,24 +290,21 @@ def _advance(probs, X, col_norm, *, loss, h, inner_epochs, polish_factor,
         # --- K epochs of CM on each sub-problem (K * polish_factor once
         #     recruiting is done), dual point and gap (Eq. 11)
         if fleet_step is None:
-            Xas = []
+            outs, Xas = [], []
             for q, n_ep in zip(live, n_eps):
                 Xa = aset_lib.gather_columns(X, q.aset)
                 q.carry = q.inner.refresh(q.carry, q.aset, Xa)
-                out = q.inner.run(q.carry, q.aset, Xa, q.lam, n_ep)
-                beta, q.theta, q.gap = out.beta, out.theta, out.gap
-                if newton and not q.is_add:
-                    beta, q.theta, q.gap = newton_polish(
-                        loss, q.carry, q.aset, Xa, q.y, q.lam, beta,
-                        q.theta, q.gap)
-                q.aset = q.aset._replace(beta=beta)
+                outs.append(q.inner.run(q.carry, q.aset, Xa, q.lam, n_ep))
                 Xas.append(Xa)
         else:
-            outs = fleet_step(live, n_eps)
-            for q, out in zip(live, outs):
-                q.theta, q.gap = out.theta, out.gap
-                q.aset = q.aset._replace(beta=out.beta)
-            Xas = aset_lib.gather_columns_batch(X, [q.aset for q in live])
+            outs, Xas = fleet_step(live, n_eps)
+        for q, out, Xa in zip(live, outs, Xas):
+            beta, q.theta, q.gap = out.beta, out.theta, out.gap
+            if newton and not q.is_add:
+                beta, q.theta, q.gap = newton_polish(
+                    loss, q.carry, q.aset, Xa, q.y, q.lam, beta, q.theta,
+                    q.gap, q.w)
+            q.aset = q.aset._replace(beta=beta)
         for q in live:
             q.theta_c, q.r_eff, q.r_del = certify(
                 loss, q.y, q.g0, q.theta, q.gap, q.lam, q.delta, q.aset,
@@ -319,7 +321,7 @@ def _advance(probs, X, col_norm, *, loss, h, inner_epochs, polish_factor,
             if not q.stop_now:
                 deleting.append(q)
                 drops.append(del_mask(q.aset, Xa, q.theta_c, q.r_del,
-                                      col_norm, unpen_idx))
+                                      q.cn, unpen_idx))
         for q, aset in zip(deleting, aset_lib.delete_features_batch(
                 [q.aset for q in deleting], drops)):
             q.aset = aset
@@ -364,15 +366,14 @@ def _advance(probs, X, col_norm, *, loss, h, inner_epochs, polish_factor,
                     add_q.append(q)
                     cands.append(chk.cand_idx)
                     keeps.append(post_check_keep(chk, ranks, q.h_post,
-                                                 col_norm, q.r_del, p,
+                                                 q.cn, q.r_del, p,
                                                  bool(ff)))
                     q.stop_final = False
             for q, aset in zip(add_q, aset_lib.add_features_batch(
                     [q.aset for q in add_q], cands, keeps)):
                 q.aset = aset
 
-        duals = aset_lib.host_read([loss.dual_objective(q.y, q.theta, q.lam)
-                                    for q in live])
+        duals = aset_lib.host_read([_dual_value(loss, q) for q in live])
         for q, dual in zip(live, duals):
             tr = q.traces
             tr["n_active"].append(float(q.aset.count))
@@ -383,6 +384,14 @@ def _advance(probs, X, col_norm, *, loss, h, inner_epochs, polish_factor,
             tr["post_viol"].append(q.post_viol)
             q.stop = q.stop_final or q.aset.overflowed
             q.t += 1
+
+
+def _dual_value(loss, q: _Problem) -> Tensor:
+    """D(theta) of the problem's dual point, weighted by its sample
+    weights when it has them."""
+    if q.w is None:
+        return loss.dual_objective(q.y, q.theta, q.lam)
+    return -torch.sum(q.w * loss.conj(-q.lam * q.theta, q.y))
 
 
 def _screen(screen, probs, picked, radius: str):
@@ -433,8 +442,8 @@ def _solve(X, y, col_norm, c0, lam, eps, delta0, init_idx, init_beta,
                                     live_mask=init_mask)
     carry = inner.init(aset, carry_in, aset_lib.gather_columns(X, aset))
     prob = _Problem(y, lam, eps, delta0, h_tilde, h_cap, h, c0, aset, carry,
-                    inner)
-    _advance([prob], X, col_norm, loss=loss, h=h, inner_epochs=inner_epochs,
+                    inner, cn=col_norm)
+    _advance([prob], X, loss=loss, h=h, inner_epochs=inner_epochs,
              polish_factor=polish_factor, max_outer=max_outer,
              use_seq_ball=use_seq_ball,
              screen=one_problem_screen(make_screen(X, col_norm, h)),

@@ -139,6 +139,9 @@ def make_screen_cuda(X: Tensor, col_norm: Tensor, h: int) -> ScreenFn:
 # designs. A problem's top-h needs only the fleet's h candidates (the
 # maximum over the fleet): a stable top-h is a prefix of a stable top-h'
 # for h <= h', so each problem's own h_cap-prefix is its serial top-h.
+# ``col_norm`` is the shared (p,) vector or, for a weighted fleet, a (B, p)
+# matrix whose row b is problem b's own norms; a problem's scores, bounds
+# and candidates read its own row.
 
 
 def fleet_col_norms(col_norm: Tensor, b: int) -> Tensor:
@@ -193,13 +196,14 @@ def _candidate_out_batch(masked: Tensor, ub: Tensor, col_norm: Tensor,
 def make_batch_screen_torch(X: Tensor, col_norm: Tensor,
                             h: int) -> BatchScreenFn:
     """Default fleet screen: the serial plain screen per problem whose
-    ``do`` is set (the reference's ``jnp``)."""
-    serial = make_screen_torch(X, col_norm, h)
+    ``do`` is set (the reference's ``jnp``), each on its own norms."""
     skip = _skip_screen_out(h, X.dtype, X.device)
 
     def screen(thetas, rs, in_actives, do):
-        return [serial(th, r, act) if d else skip
-                for th, r, act, d in zip(thetas, rs, in_actives, do)]
+        cns = fleet_col_norms(col_norm, len(do))
+        return [make_screen_torch(X, cn, h)(th, r, act) if d else skip
+                for cn, th, r, act, d in zip(cns, thetas, rs, in_actives,
+                                             do)]
     return screen
 
 
@@ -215,9 +219,9 @@ def make_batch_screen_matmul(X: Tensor, col_norm: Tensor,
         r = torch.stack([rs[i] for i in sel])
         masked = torch.where(torch.stack([in_actives[i] for i in sel]),
                              -torch.inf, torch.abs(Theta @ X))
-        ub = masked + fleet_col_norms(col_norm, len(sel)) * r[:, None]
-        return _rows(_candidate_out_batch(masked, ub, col_norm, r, h), do,
-                     skip)
+        cn = fleet_col_norms(col_norm, len(do))[sel]
+        ub = masked + cn * r[:, None]
+        return _rows(_candidate_out_batch(masked, ub, cn, r, h), do, skip)
     return screen
 
 
@@ -243,7 +247,8 @@ def make_batch_screen_distinct(Xs: Tensor, col_norm: Tensor,
 def make_batch_screen_cuda(X: Tensor, col_norm: Tensor,
                            h: int) -> BatchScreenFn:
     """Kernel fleet screen: K1b scans the shared X once for every problem
-    whose ``do`` is set, each problem's (p/BP) h tile winners merge into
+    whose ``do`` is set (with the shared norms, or each problem's own row
+    of a (B, p) matrix), each problem's (p/BP) h tile winners merge into
     its top-h, and K2b histograms each problem's ub against its
     candidates' bounds (the reference's ``pallas``)."""
     from repro_torch.kernels.screen.screen import (screen_fused_batch,
@@ -256,8 +261,9 @@ def make_batch_screen_cuda(X: Tensor, col_norm: Tensor,
         sel = [i for i, d in enumerate(do) if d]
         m = len(sel)
         r = torch.stack([rs[i] for i in sel])
+        cn = col_norm if col_norm.ndim == 1 else col_norm[sel]
         _, ub, _, tops, topi, tmax = screen_fused_batch(
-            X, torch.stack([thetas[i] for i in sel]), col_norm,
+            X, torch.stack([thetas[i] for i in sel]), cn,
             torch.stack([in_actives[i] for i in sel]), r, h=h)
         # merge each problem's tile winners: O((p/BP) h) candidates
         vals, pos = torch.sort(tops.reshape(m, -1), dim=1, descending=True,
@@ -266,8 +272,9 @@ def make_batch_screen_cuda(X: Tensor, col_norm: Tensor,
         cand_idx = torch.gather(topi.reshape(m, -1), 1, pos[:, :h]).long()
         # a saturated tile can name a padding lane (id >= p) with score
         # -inf; such a candidate is never kept, its gathers are clamped
-        cand_lb = torch.abs(cand_score - col_norm[
-            torch.clamp(cand_idx, max=p - 1)] * r[:, None])
+        cand_lb = torch.abs(cand_score - torch.gather(
+            fleet_col_norms(cn, m), 1, torch.clamp(cand_idx, max=p - 1))
+            * r[:, None])
         lb_sorted = torch.sort(cand_lb, dim=1).values
         hist = ub_histogram_batch(ub, lb_sorted)
         out = ScreenOut(max_ub=torch.amax(tmax, dim=1), cand_score=cand_score,

@@ -22,14 +22,15 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("screen", "cm_burst", "chain_suffix")
+SOURCES = ("screen", "cm_burst", "chain_suffix", "cm_epochs", "gram_sweep")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # argument types of every exported function, by name with "{dt}" standing
-# for "f32" or "f64"; None is the float scalar of that type
+# for "f32" or "f64" (a name without it is float32 only); None is the float
+# scalar of that type
 _CM = [_P, _P, _P, _P, _P, _P, None, _I, _I, _I, _I, _P, _P, _P, _P]
 _CM_PEN = _CM[:6] + [_P] + _CM[6:]
 _CM_BATCH = [_P] * 9 + [_I, _I, _I, _P, _P, _P, _P]
@@ -48,6 +49,12 @@ _SIGNATURES = {
         "cm_burst_logit_{dt}_pen": _CM_PEN,
         "cm_burst_batch_ls_{dt}": _CM_BATCH,
         "cm_burst_batch_logit_{dt}": _CM_BATCH,
+    },
+    "cm_epochs": {      # float32 only, the TPU kernel's type
+        "cm_epochs_f32": [_P, _P, _P, _P, _P, None, _I, _I, _I, _P, _P],
+    },
+    "gram_sweep": {
+        "gram_sweep_{dt}": [_P] * 7 + [_I, _I, _P, _P, None, _I, _I, _P],
     },
     "chain_suffix": {
         "chain_suffix_sums_{dt}": [_P, _P, _I, _I, _P],
@@ -110,7 +117,8 @@ def library(name: str) -> ctypes.CDLL:
     build((name,))
     lib = ctypes.CDLL(str(_lib_path(name)))
     for pattern, args in _SIGNATURES[name].items():
-        for dt, ftype in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
+        types = (("f32", ctypes.c_float), ("f64", ctypes.c_double))
+        for dt, ftype in types if "{dt}" in pattern else types[:1]:
             fn = getattr(lib, pattern.format(dt=dt))
             fn.argtypes = [ftype if a is None else a for a in args]
             fn.restype = ctypes.c_int

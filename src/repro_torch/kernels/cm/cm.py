@@ -11,14 +11,18 @@ unpenalized slot, the reference's ``has_unpen=True`` branch at
 ``cm.py:184-206``) it launches the ``_pen`` entries and counts in
 ``cm_burst_pen_xt.launches``. K3b (:func:`cm_burst_batch_xt`) replaces
 ``cm.py:296 cm_burst_batch_pallas``: K3 for a fleet, one CTA per problem,
-counted in ``cm_burst_batch_xt.launches``.
+counted in ``cm_burst_batch_xt.launches``. K5 (:func:`cm_epochs`, source
+``csrc/cm_epochs.cu``) replaces ``cm.py:106 cm_epochs_pallas``, the
+least-squares residual-form epochs that ``ops.cm_epochs`` exposes, counted
+in ``cm_epochs.launches``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.cm.ref import cm_burst_batch_ref, cm_burst_ref
+from repro_torch.kernels.cm.ref import (cm_burst_batch_ref, cm_burst_ref,
+                                        cm_epochs_ref)
 from repro_torch.kernels.screen.screen import (_FLOATS, _ptr, _require,
                                                _stream)
 
@@ -192,6 +196,53 @@ def cm_burst(A: Tensor, y: Tensor, beta: Tensor, col_sq: Tensor,
                            n_epochs, count, loss_name=loss_name)
 
 
+def cm_epochs_smem_bytes(n: int, k: int) -> int:
+    """Shared memory of K5 (float32): r (n), beta and col_sq (k each), the
+    reduction slots and the mask."""
+    return (n + 2 * k + 2 * _NW) * 4 + k
+
+
+def cm_epochs_smem_ok(n: int, k: int) -> bool:
+    """Does an (n, k) K5 sweep fit one CTA's shared memory? Takes the place
+    of the reference's ``n * k * 4 <= CM_VMEM_BUDGET_BYTES`` assert."""
+    return cm_epochs_smem_bytes(n, k) <= CM_SMEM_BUDGET_BYTES
+
+
+def cm_epochs(A: Tensor, y: Tensor, beta: Tensor, col_sq: Tensor,
+              mask: Tensor, lam, *, n_epochs: int = 1):
+    """K5: ``n_epochs`` cyclic least-squares sweeps over every slot of the
+    (n, k) block ``A``, residual form, with ``cm_epochs_pallas``'s
+    contract: the inputs are cast to float32, ``n_epochs`` is an int, and
+    the result (beta (k,), r (n,)) is float32. A block past the
+    shared-memory gate raises, as the reference asserts its VMEM budget."""
+    n, k = A.shape
+    if not cm_epochs_smem_ok(n, k):
+        raise ValueError(f"cm_epochs: active block {n}x{k} exceeds the "
+                         f"kernel's shared-memory budget; shrink k_max")
+    n_epochs = int(n_epochs)
+    if A.device.type == "cpu":
+        return cm_epochs_ref(A, y, beta, col_sq, mask, lam, n_epochs)
+    f32, dev = torch.float32, A.device
+    AT = A.to(f32).T.contiguous()
+    yf = y.to(f32).contiguous()
+    cs = col_sq.to(f32).contiguous()
+    m8 = mask.to(torch.bool).contiguous()
+    beta_out = beta.to(f32).clone().contiguous()
+    _require(yf, "y", f32, (n,), dev)
+    _require(cs, "col_sq", f32, (k,), dev)
+    _require(m8, "mask", torch.bool, (k,), dev)
+    _require(beta_out, "beta", f32, (k,), dev)
+    r = torch.empty(n, dtype=f32, device=dev)
+    lib = _build.library("cm_epochs")
+    rc = lib.cm_epochs_f32(_ptr(AT), _ptr(yf), _ptr(beta_out), _ptr(cs),
+                           _ptr(m8), float(lam), n_epochs, n, k, _ptr(r),
+                           _stream())
+    _build.check(rc, "cm_epochs")
+    cm_epochs.launches += 1
+    return beta_out, r
+
+
 cm_burst_xt.launches = 0
 cm_burst_pen_xt.launches = 0
 cm_burst_batch_xt.launches = 0
+cm_epochs.launches = 0

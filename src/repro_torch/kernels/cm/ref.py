@@ -9,6 +9,10 @@ ab = A (mask (1 - pen)), for a general loss a Newton polish of b along it
 before the dual point, the projection of the dual point onto ab's
 orthogonal complement, the scaling over the penalized columns only and the
 pen-weighted l1 term in the primal.
+
+:func:`cm_epochs_ref` is the plain version of K5 ``cm_epochs``, the
+reference's ``kernels/cm/ref.py::cm_epochs_ref`` in torch: residual-form
+least-squares sweeps over every slot, in float32.
 """
 from __future__ import annotations
 
@@ -75,3 +79,30 @@ def cm_burst_batch_ref(A: Tensor, Y: Tensor, beta: Tensor, col_sq: Tensor,
                          loss_name=loss_name)
             for b in range(A.shape[0])]
     return tuple(torch.stack(t) for t in zip(*outs))
+
+
+def cm_epochs_ref(A: Tensor, y: Tensor, beta: Tensor, col_sq: Tensor,
+                  mask: Tensor, lam, n_epochs: int = 1):
+    """Cyclic least-squares CM sweeps over every slot of the (n, k) block
+    ``A``, in residual form, in float32 (the kernel's type): r = y - A beta
+    once, then per step g = a_j . r, c = max(col_sq_j, 1e-30),
+    beta_j <- S(beta_j + g / c, lam / c) (0 where ``mask`` is false) and
+    r += (beta_j_old - beta_j) a_j. Every step stays on the tensors' device
+    (no host read). Returns (beta (k,), r (n,)) in float32."""
+    f32 = torch.float32
+    A, y, col_sq = A.to(f32), y.to(f32), col_sq.to(f32)
+    beta = beta.to(f32).clone()
+    lam = torch.as_tensor(lam, dtype=f32, device=A.device)
+    r = y - A @ beta
+    live = mask.to(torch.bool)
+    for _ in range(int(n_epochs)):
+        for j in range(beta.shape[0]):
+            aj = A[:, j]
+            csq = torch.clamp(col_sq[j], min=1e-30)
+            u = beta[j] + torch.dot(aj, r) / csq
+            b_new = torch.sign(u) * torch.clamp(torch.abs(u) - lam / csq,
+                                                min=0.0)
+            b_new = torch.where(live[j], b_new, 0.0)
+            r = r + (beta[j] - b_new) * aj
+            beta[j] = b_new
+    return beta, r

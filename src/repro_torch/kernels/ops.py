@@ -12,10 +12,15 @@ import torch
 
 from repro_torch.kernels.cm.cm import (CM_SMEM_BUDGET_BYTES, cm_burst,
                                        cm_burst_batch_xt, cm_burst_pen_xt,
-                                       cm_burst_xt, cm_smem_ok)
-from repro_torch.kernels.cm.ref import cm_burst_batch_ref, cm_burst_ref
+                                       cm_burst_xt, cm_epochs,
+                                       cm_epochs_smem_ok, cm_smem_ok)
+from repro_torch.kernels.cm.ref import (cm_burst_batch_ref, cm_burst_ref,
+                                        cm_epochs_ref)
 from repro_torch.kernels.fused.fused import chain_suffix_sums
 from repro_torch.kernels.fused.ref import chain_suffix_sums_ref
+from repro_torch.kernels.gram.gram import (gram_smem_ok, gram_sweep,
+                                           gram_sweep_batch)
+from repro_torch.kernels.gram.ref import gram_sweep_batch_ref, gram_sweep_ref
 from repro_torch.kernels.screen.ref import (screen_fused_batch_ref,
                                             screen_fused_ref,
                                             screen_scores_ref,
@@ -32,7 +37,8 @@ KERNELS = {"screen_fused": screen_fused, "ub_histogram": ub_histogram,
            "chain_suffix_sums": chain_suffix_sums,
            "screen_fused_batch": screen_fused_batch,
            "ub_histogram_batch": ub_histogram_batch,
-           "cm_burst_batch": cm_burst_batch_xt}
+           "cm_burst_batch": cm_burst_batch_xt, "cm_epochs": cm_epochs,
+           "gram_sweep": gram_sweep, "gram_sweep_batch": gram_sweep_batch}
 
 
 def on_cuda() -> bool:
@@ -56,5 +62,8 @@ __all__ = ["screen_fused", "screen_scores", "ub_histogram", "cm_burst",
            "ub_histogram_batch", "cm_burst_batch_xt",
            "screen_fused_ref", "screen_scores_ref", "ub_histogram_ref",
            "cm_burst_ref", "chain_suffix_sums_ref", "screen_fused_batch_ref",
-           "ub_histogram_batch_ref", "cm_burst_batch_ref", "on_cuda",
+           "ub_histogram_batch_ref", "cm_burst_batch_ref", "cm_epochs",
+           "cm_epochs_ref", "cm_epochs_smem_ok", "gram_sweep",
+           "gram_sweep_batch", "gram_sweep_ref", "gram_sweep_batch_ref",
+           "gram_smem_ok", "on_cuda",
            "launch_counts", "reset_launch_counts", "KERNELS"]

@@ -117,6 +117,38 @@ def test_fleet_early_finish_is_isolated():
     assert int(res.n_outer[1]) > int(res.n_outer[0])
 
 
+def test_gram_fleet_sweeps_in_one_batched_call_per_outer_step(monkeypatch):
+    """The Gram fleet runs the card's path on the CPU too: one K6b call
+    (its plain version here) per outer step for the live problems only,
+    rows still bitwise the serial solves."""
+    from repro_torch.kernels.gram import gram as kgram
+    calls = []
+    real = kgram.gram_sweep_batch
+
+    def counted(G, *a, **k):
+        calls.append(G.shape[0])
+        return real(G, *a, **k)
+
+    monkeypatch.setattr(kgram, "gram_sweep_batch", counted)
+    rng = np.random.default_rng(2)
+    n, p = 40, 120
+    X = rng.uniform(-10, 10, (n, p))
+    w = np.zeros(p)
+    w[rng.choice(p, 10, replace=False)] = rng.normal(size=10)
+    y = X @ w + 0.5 * rng.normal(size=n)
+    lmax = float(j_lambda_max(j_get_loss("least_squares"), X, y))
+    res = rt.fleet_solve(X, np.stack([y, y]), [0.8 * lmax, 0.02 * lmax],
+                         rt.SaifConfig(eps=1e-9, inner_backend="gram"),
+                         device="cpu")
+    assert len(calls) == int(res.n_outer.max())
+    assert sum(calls) == int(res.n_outer.sum())
+    assert calls[-1] == 1                       # the straggler alone
+    monkeypatch.undo()
+    for i, lam in enumerate([0.8 * lmax, 0.02 * lmax]):
+        _assert_bitwise(res, rt.saif(X, y, lam, rt.SaifConfig(
+            eps=1e-9, inner_backend="gram"), device="cpu"), i)
+
+
 def test_fleet_overflow_isolated_to_one_problem():
     """At k_max = 8 the small-lambda problem overflows: the fleet regrows
     cold, and every row still equals its serial solve (which regrows on
@@ -238,9 +270,11 @@ def test_unported_fleet_options_raise():
     with pytest.raises(NotImplementedError, match="A5"):
         rt.fleet_solve(X, Y, lams, rt.SaifConfig(parity="fast"),
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="A5"):
-        rt.fleet_solve(X, Y, lams, rt.SaifConfig(), device="cpu",
-                       weights=np.ones_like(Y))
+    # sample weights are ported; the kernel burst refuses them, as the
+    # reference's pallas fleet does
+    with pytest.raises(ValueError, match="sample weights"):
+        rt.fleet_solve(X, Y, lams, rt.SaifConfig(inner_backend="cuda"),
+                       device="cpu", weights=np.ones_like(Y))
     with pytest.raises(NotImplementedError):
         rt.fleet_solve(X, Y, lams, rt.SaifConfig(unpen_idx=0), device="cpu")
     prep = rt.prepare_fleet(X, Y, device="cpu")

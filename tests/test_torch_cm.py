@@ -1,7 +1,7 @@
 """repro_torch's CM sweeps and the plain CM burst against repro, float64:
 the plain ``cm_burst`` against ``cm_burst_pallas`` (interpret mode) for
-least squares and logistic, and ``gram_epochs`` / ``cm_epochs_compact``
-against their references, all at rtol 1e-10 (the same arithmetic, summed
+least squares and logistic, and the Gram sweep (``ops.gram_sweep`` on CPU
+tensors) / ``cm_epochs_compact`` against their references, all at rtol 1e-10 (the same arithmetic, summed
 in another order)."""
 import jax.numpy as jnp
 import numpy as np
@@ -101,8 +101,8 @@ def test_gram_epochs_matches():
     G, rho = A.T @ A, A.T @ y
     bj = jcm.gram_epochs(jnp.asarray(G), jnp.asarray(rho), jnp.asarray(beta),
                          jnp.asarray(mask), lam, jnp.asarray(order), 14, 6)
-    bt = tcm.gram_epochs(_t(G), _t(rho), _t(beta), _t(mask), lam, _t(order),
-                         14, 6)
+    bt = ops.gram_sweep(_t(G), _t(rho), _t(beta), _t(mask), lam, _t(order),
+                        14, 6)
     _close(bt.numpy(), bj)
     # the covariance form and the residual form are one sweep
     br, _ = tcm.cm_epochs_compact(t_get_loss("least_squares"), _t(A), _t(y),

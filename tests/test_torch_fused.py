@@ -395,8 +395,9 @@ CPU, CUDA = torch.device("cpu"), torch.device("cuda")
     (("least_squares", 100, 400), CUDA, "cuda"),
     (("least_squares", 1000, 1024), CUDA, "cuda"),
     (("least_squares", 100, 401), CUDA, "cuda"),
-    # ... past its shared-memory gate the Gram engine under the crossover
-    (("least_squares", 10**4, 40_000), CUDA, "gram"),
+    # ... past its shared-memory gate the Gram engine (K6) under the
+    # crossover, while the capacity fits K6's own gate
+    (("least_squares", 10**4, 4096), CUDA, "gram"),
     (("logistic", 1000, 1024), CUDA, "cuda"),
     # on the CPU the reference's crossover stands
     (("least_squares", 100, 400), CPU, "gram"),
@@ -413,6 +414,9 @@ def test_auto_inner_routing_over_every_gate():
     loop; the unpenalized slot's weights count against the gate."""
     with pytest.raises(ValueError, match="inner_backend='torch'"):
         resolve_inner_backend("auto", "least_squares", 10**4, 50_000, CUDA)
+    # under the crossover but past the Gram-sweep kernel's gate
+    with pytest.raises(ValueError, match="inner_backend='torch'"):
+        resolve_inner_backend("auto", "least_squares", 10**4, 40_000, CUDA)
     from repro_torch.kernels.cm.cm import cm_smem_bytes, cm_smem_ok
     n, k = 5000, 1024
     assert cm_smem_bytes(n, k, 8, pen=True) == cm_smem_bytes(n, k, 8) + 8 * k

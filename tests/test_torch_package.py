@@ -72,8 +72,8 @@ def test_config_and_backend_names():
 
 
 def test_port_imports_no_jax_and_no_reference():
-    """Importing every repro_torch module, the fleet's among them, pulls
-    in neither jax nor repro."""
+    """Importing every repro_torch module, the fleet's, CV's, selection's
+    and the new kernels' among them, pulls in neither jax nor repro."""
     src = os.path.join(os.path.dirname(rt.__file__), os.pardir)
     code = (
         "import pkgutil, sys, importlib, repro_torch\n"
@@ -85,15 +85,18 @@ def test_port_imports_no_jax_and_no_reference():
         "assert not bad, bad\n"
         "fleet = ['repro_torch.core.batch', 'repro_torch.convert',\n"
         "         'repro_torch.kernels.screen.screen',\n"
-        "         'repro_torch.kernels.cm.cm']\n"
+        "         'repro_torch.kernels.cm.cm', 'repro_torch.core.cv',\n"
+        "         'repro_torch.core.select', 'repro_torch.kernels.gram.gram',\n"
+        "         'repro_torch.kernels.gram.ref']\n"
         "assert all(m in sys.modules for m in fleet), fleet\n"
         "from repro_torch.kernels import ops\n"
         "assert {'screen_fused_batch', 'ub_histogram_batch',\n"
-        "        'cm_burst_batch'} <= set(ops.KERNELS)\n"
+        "        'cm_burst_batch', 'cm_epochs', 'gram_sweep',\n"
+        "        'gram_sweep_batch'} <= set(ops.KERNELS)\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))"
     )
     env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 16
+    assert int(out.stdout.strip()) >= 20
