@@ -849,6 +849,7 @@ def check_fleet_kernels(dtype, X, Y, lams, h, res, loss_name, records,
     import torch
     from repro_torch.core.active_set import compact_order
     from repro_torch.kernels import ops
+    from repro_torch.kernels.screen.screen import _scan
 
     dt = getattr(torch, dtype)
     isz = torch.finfo(dt).bits // 8
@@ -890,6 +891,10 @@ def check_fleet_kernels(dtype, X, Y, lams, h, res, loss_name, records,
         same1 = same1 and all(torch.equal(a[i], o) for a, o in zip(k1, one))
     ms1 = time_ms(lambda: ops.screen_fused_batch(Xd, Theta, col_norm, active,
                                                  r, h=h), 10)
+    # the same scan without the mask and the tile top-h epilogue: the split
+    # of the kernel's time between its scan and its epilogue
+    ms1u = time_ms(lambda: _scan("screen_fused_batch", Xd, Theta, col_norm,
+                                 None, r, 1, False), 10)
     plain1 = time_ms(lambda: ops.screen_fused_batch_ref(
         Xd, Theta, col_norm, active, r, h=h), 2)
     lib1 = time_ms(lambda: torch.abs(Theta @ Xd), 10)
@@ -900,9 +905,9 @@ def check_fleet_kernels(dtype, X, Y, lams, h, res, loss_name, records,
           f"max_abs_err={abs1:.3e} rel_err={err1:.3e} tol={tol:.0e} "
           f"ids_ok={ids_ok} (ids differing at near-ties: "
           f"{int(swapped.sum())} of {int(fin.sum())}) bitwise_B_x_K1="
-          f"{same1} ms={ms1:.4f} plain_ms={plain1:.4f} "
-          f"library_ms(abs(Theta@X))={lib1:.4f} bound_ms={b1:.4f} ({by1})",
-          flush=True)
+          f"{same1} ms={ms1:.4f} unmasked_ms={ms1u:.4f} plain_ms="
+          f"{plain1:.4f} library_ms(abs(Theta@X))={lib1:.4f} "
+          f"bound_ms={b1:.4f} ({by1})", flush=True)
     if not (err1 <= tol and ids_ok and same1):
         raise RuntimeError(f"screen_fused_batch {dtype} disagrees")
     if Wn is not None:
@@ -989,6 +994,128 @@ def check_fleet_kernels(dtype, X, Y, lams, h, res, loss_name, records,
         records["cm_burst_batch"].update(
             max_abs_err=abs3, ms=ms3, plain_ms=plain3, bound_ms=b3,
             bound_by=by3, library_ms=None)
+
+
+def cv_screen_h(X, y, lams):
+    """The candidate count of the ``[cv-ls]`` fold fleets' K1b scans: the
+    largest h of the grid, computed as ``cv_solve`` computes it."""
+    import repro_torch as rt
+    from repro_torch.core.batch import prepare_fleet
+    from repro_torch.core.saif import add_batch_size_static
+    cfg = rt.SaifConfig(eps=1e-6)
+    n, p = X.shape
+    prep = prepare_fleet(X, y.expand(CV_FOLDS, n).contiguous(), cfg,
+                         weights=rt.kfold_weights(n, CV_FOLDS).to(X),
+                         device=X.device)
+    return max(add_batch_size_static(cfg.c, float(lam), mx, md, p)
+               for lam in lams
+               for mx, md in zip(prep.c0_max, prep.c0_median))
+
+
+def check_screen_cv_shape(dtype, X, cv, h):
+    """K1b at the ``[cv-ls]`` fold fleets' shape: B = 5 folds, each with its
+    own column norms sqrt(w_k . X^2), the folds' active sets at the grid's
+    last lambda, the grid's largest h; against its twin and bit for bit 5
+    launches of K1, each with its own norms; masked and unmasked times."""
+    import torch
+    import repro_torch as rt
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.screen.screen import _scan
+    dt = getattr(torch, dtype)
+    tol = {"float64": 1e-10, "float32": 1e-4}[dtype]
+    Xd = X.to(dt)
+    n, p = Xd.shape
+    W = rt.kfold_weights(n, CV_FOLDS).to(X)
+    XX = X * X
+    cn = torch.stack([torch.sqrt(w @ XX) for w in W]).to(dt)
+    del XX
+    fr = cv.fold_results[-1]
+    active = torch.zeros(CV_FOLDS, p, dtype=torch.bool, device=X.device)
+    for k in range(CV_FOLDS):
+        active[k, fr.active_idx[k][fr.active_mask[k]]] = True
+    g = torch.Generator(device="cpu").manual_seed(2)
+    Theta = (torch.randn(CV_FOLDS, n, generator=g, dtype=torch.float64)
+             / n).to(X.device, dt)
+    r = torch.linspace(0.01, 0.1, CV_FOLDS, dtype=dt, device=X.device)
+    k1 = ops.screen_fused_batch(Xd, Theta, cn, active, r, h=h)
+    ref = ops.screen_fused_batch_ref(Xd, Theta, cn, active, r, h=h)
+    abs1, err1 = errs(zip((k1[0], k1[1], k1[2], k1[3], k1[5]),
+                          (ref[0], ref[1], ref[2], ref[3], ref[5])))
+    fin = torch.isfinite(ref[3])
+    swapped = k1[4][fin] != ref[4][fin]
+    rows = torch.nonzero(fin)[:, 0][swapped]
+    scale1 = float(ref[3][fin].abs().max())
+    tie = ((ref[0][rows, k1[4][fin][swapped].long()]
+            - ref[0][rows, ref[4][fin][swapped].long()]).abs()
+           <= tol * scale1)
+    ids_ok = bool(tie.all()) and (dtype == "float32" or
+                                  int(swapped.sum()) == 0)
+    same = all(all(torch.equal(a[i], o) for a, o in zip(k1, ops.screen_fused(
+        Xd, Theta[i].contiguous(), cn[i].contiguous(),
+        active[i].contiguous(), r[i], h=h))) for i in range(CV_FOLDS))
+    ms = time_ms(lambda: ops.screen_fused_batch(Xd, Theta, cn, active, r,
+                                                h=h), 10)
+    ms_u = time_ms(lambda: _scan("screen_fused_batch", Xd, Theta, cn, None,
+                                 r, 1, False), 10)
+    print(f"[kernel screen_fused_batch {dtype} cv shape] B={CV_FOLDS} n={n} "
+          f"p={p} h={h} (the [cv-ls] grid's largest) active="
+          f"{active.sum(1).tolist()} max_abs_err={abs1:.3e} rel_err="
+          f"{err1:.3e} tol={tol:.0e} ids_ok={ids_ok} (ids differing at "
+          f"near-ties: {int(swapped.sum())}) bitwise_B_x_K1_own_norms={same}"
+          f" ms={ms:.4f} unmasked_ms={ms_u:.4f}", flush=True)
+    if not (err1 <= tol and ids_ok and same):
+        raise RuntimeError(f"screen_fused_batch {dtype} at the cv shape "
+                           f"disagrees")
+
+
+def tie_probe(dtype):
+    """K1 and K1b on scores that tie bit for bit: X and Theta hold small
+    integers, so every sum is exact in any order, and X's columns repeat
+    (40 distinct columns over p = 777, a partial last tile). One problem has
+    a fully active tile, another an active partial last tile; B = 20 takes
+    K1b over two chunks of problems. At h = 256 and h = 3 every output of
+    K1b must equal its plain version exactly, and each row must equal K1
+    on that problem bit for bit (and K1 its plain version)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    dt = getattr(torch, dtype)
+    dev = torch.device("cuda")
+    n, p, b = 64, 777, 20
+    rng = np.random.default_rng(11)
+    base = rng.integers(-3, 4, (n, 40)).astype(np.float64)
+    Xd = torch.from_numpy(np.ascontiguousarray(
+        base[:, rng.integers(0, 40, p)])).to(dev, dt)
+    Theta = torch.from_numpy(rng.integers(-2, 3, (b, n)).astype(
+        np.float64)).to(dev, dt)
+    cn = torch.linalg.vector_norm(Xd, dim=0)
+    act = rng.random((b, p)) < 0.1
+    act[0, 256:512] = True
+    act[1, 768:] = True
+    active = torch.from_numpy(act).to(dev)
+    r = torch.linspace(0.0, 0.5, b, dtype=dt, device=dev)
+    results = []
+    for h in (256, 3):
+        k1 = ops.screen_fused_batch(Xd, Theta, cn, active, r, h=h)
+        ref = ops.screen_fused_batch_ref(Xd, Theta, cn, active, r, h=h)
+        exact = all(torch.equal(a, c) for a, c in zip(k1, ref))
+        serial = True
+        for i in range(b):
+            one = ops.screen_fused(Xd, Theta[i].contiguous(), cn,
+                                   active[i].contiguous(), r[i], h=h)
+            one_ref = ops.screen_fused_ref(Xd, Theta[i].clone(), cn,
+                                           active[i], r[i], h=h)
+            serial = serial and all(
+                torch.equal(a[i], o) and torch.equal(o, q)
+                for a, o, q in zip(k1, one, one_ref))
+        ties = int((ref[3][:, :, 1:] == ref[3][:, :, :-1]).sum())
+        results.append((h, exact, serial, ties))
+    print(f"[tie-probe {dtype}] n={n} p={p} B={b} (h, outputs equal the "
+          f"plain version, rows bitwise K1, tied neighbours among the tile "
+          f"winners): {results}", flush=True)
+    if not all(e and s for _, e, s, _ in results):
+        raise RuntimeError(f"tie probe {dtype}: K1/K1b differ from their "
+                           f"plain versions or from each other")
 
 
 def weighted_cert(loss_name, X, y, w, beta, lam):
@@ -1553,11 +1680,14 @@ def main() -> int:
     h = add_batch_size_static(cfg.c, lam, prep.c0_max, prep.c0_median,
                               args.p)
     del prep
+    h_cv = cv_screen_h(X, ycv, cv_lams)
     for dtype in ("float64", "float32"):
         check_kernels(dtype, X, y, lam, h, ls_res["auto"], (XL, yL, lamL),
                       lg_res["auto"], fused, records)
         check_fleet_kernels(dtype, X, Yf, fl_lams, fl_h, fl_res,
                             "least_squares", records, Wn=W_sel)
+        check_screen_cv_shape(dtype, X, cv, h_cv)
+        tie_probe(dtype)
         check_gram_sweep(dtype, X, y, lam, ls_res["gram"], cv, records)
     check_cm_epochs(X, y, lam, ls_res["auto"], records)
 

@@ -2,37 +2,41 @@
 //
 // K1 screen_fused — replaces repro/kernels/screen/screen.py:271
 //    screen_fused_pallas (and, with masked == 0, :124 screen_scores_pallas).
-//    Per column i of the row-major (n, p) design X:
-//        s_i  = |x_i^T theta|                 (-inf when i is active/padding)
-//        ub_i = s_i + ||x_i|| r,  lb_i = |s_i - ||x_i|| r|   (+inf when masked)
-//    and per tile of BP columns its top-h_tile (score, global id), ties to
-//    the lowest lane, and its max ub.
-//    Bound on this card: reading X once, n*p*itemsize bytes at 3.35 TB/s;
-//    the epilogue is O(BP * h_tile) per tile, on data already on chip.
-//    Design: one CTA per tile of BP = 256 columns, one thread per column.
-//    The thread walks the n rows, so a warp reads 32 neighbouring columns of
-//    one row: every load of X is coalesced and X is read exactly once. The
-//    TPU kernel carried a partial sum across sequential grid steps; here the
-//    sum stays in a register for the whole column (no cross-CTA traffic),
-//    kept in the working type (double for f64). theta is staged through
-//    shared memory in chunks of BP rows. The top-h is h_tile rounds of a
-//    block argmax over (available, score, -lane), the TPU kernel's
-//    sort-free iterative extraction.
-//
 // K1b screen_fused_batch — replaces repro/kernels/screen/screen.py:394
 //    screen_fused_batch_pallas: K1 for m problems over one shared X
 //    (Theta (m, n), active (m, p), r (m,), col_norm shared or per problem).
-//    Bound on this card: reading X once per chunk of BB = 16 problems,
-//    n*p*itemsize bytes at 3.35 TB/s (2*n*p*16 flops per chunk stay far
-//    under the f64 peak). Design: K1's grid gains a chunk axis; a thread
-//    keeps BB accumulators, one per problem of its chunk, so one load of
-//    X[i, col] feeds all of them and X is read once per chunk instead of
-//    once per problem. Theta for the chunk is staged through shared memory
-//    as K1 stages theta, row-major so that a row's 16 values come in
-//    16-byte broadcast loads; then the same buffer holds the finished sums
-//    for K1's epilogue, run once per problem. K1 is the BB = 1 instance of the
-//    same kernel, and every row step is one explicit fma in the same row
-//    order, so each problem's scores are bitwise K1's.
+//    Per problem b and column i of the row-major (n, p) design X:
+//        s_i  = |x_i^T theta_b|               (-inf when i is active/padding)
+//        ub_i = s_i + ||x_i|| r_b,  lb_i = |s_i - ||x_i|| r_b|
+//    and per tile of BP = 256 columns its top-h_tile (score, global id) in
+//    the order of a stable descending sort of (score, lane), and its max ub.
+//    K1 is the BB = 1 instance of one template, K1b the BB = 16 instance.
+//    Bound on this card: bytes, X read once per chunk of BB = 16 problems,
+//    n*p*itemsize at 3.35 TB/s. The 2*n*p*16 flops of a chunk fit in under
+//    half that time on the f64 CUDA cores; a tensor-core product would not
+//    keep the sum order (and wgmma has no f64 type).
+//    Design, against that bound:
+//    - the scan: a thread owns COLS columns of a tile and QB of the chunk's
+//      problems and keeps their sums in registers, one fma per row in row
+//      order from 0, so each problem's scores are bit for bit K1's and no
+//      sum is split over rows. Theta reaches the threads as shared-memory
+//      broadcasts, which cost as much as distinct loads: COLS = 2 halves
+//      them per fma, and in float64 a thread keeps all 16 of K1b's sums
+//      per column (128 threads a CTA, so that its 2 x 16 sums fit in
+//      registers under three CTAs per SM);
+//    - the X stream: persistent CTAs, CTAS per SM, walk the (tile, chunk)
+//      work items; X and Theta rows reach shared memory through a ring of
+//      STAGES slabs filled with cp.async (16-byte copies where a row allows
+//      them, element copies otherwise, so any p and alignment work), STAGES
+//      - 1 slabs in flight, and the stream runs on across a CTA's items.
+//      Three CTAs per SM hide the latency of the shared loads and fma
+//      chains better than one CTA streaming across items;
+//    - the epilogue: per problem the 256 masked scores go to shared memory
+//      and one warp sorts (score, lane) with a bitonic network, 8 pairs per
+//      lane, in O(log^2 256) steps and no barrier; the BB problems spread
+//      over the CTA's warps, and the tile's max ub is a warp reduction. The
+//      Pallas kernel's h_tile rounds of argmax were cheap on a TPU's
+//      sequential grid; on this card each round cost two block barriers.
 //
 // K2 ub_histogram — replaces repro/kernels/screen/screen.py:512
 //    ub_histogram_pallas. hist[m] = #{i : #{l : lb_sorted[l] <= ub_i} = m}.
@@ -52,8 +56,7 @@
 
 namespace {
 
-constexpr int BP = 256;          // columns per CTA = threads per CTA
-constexpr int NWARP = BP / 32;
+constexpr int BP = 256;          // columns per tile of the scan
 
 template <typename T> __device__ __forceinline__ T pos_inf();
 template <> __device__ __forceinline__ float pos_inf<float>() { return CUDART_INF_F; }
@@ -72,33 +75,6 @@ __device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(
 __device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
 __device__ __forceinline__ double fma_rn(double a, double b, double c) { return __fma_rn(a, b, c); }
 
-template <typename T>
-struct Cand {
-  int av;     // 1 if the lane is still available
-  T val;
-  int lane;
-};
-
-// a beats b: available first, then the larger score, then the lower lane
-template <typename T>
-__device__ __forceinline__ bool beats(const Cand<T>& a, const Cand<T>& b) {
-  if (a.av != b.av) return a.av > b.av;
-  if (a.val != b.val) return a.val > b.val;
-  return a.lane < b.lane;
-}
-
-template <typename T>
-__device__ __forceinline__ Cand<T> warp_best(Cand<T> c) {
-  for (int off = 16; off > 0; off >>= 1) {
-    Cand<T> o;
-    o.av = __shfl_down_sync(0xffffffffu, c.av, off);
-    o.val = __shfl_down_sync(0xffffffffu, c.val, off);
-    o.lane = __shfl_down_sync(0xffffffffu, c.lane, off);
-    if (beats(o, c)) c = o;
-  }
-  return c;
-}
-
 // The BB Theta values of one row of a chunk, read from shared memory in
 // 16-byte loads (one broadcast per load) instead of one load per problem.
 template <typename T, int BB>
@@ -106,10 +82,176 @@ struct __align__(16) ThetaRow {
   T v[BB];
 };
 
-// Grid (p tiles, problem chunks). CTA (tile, c) scans columns
-// [tile*BP, tile*BP + BP) for problems [c*BB, c*BB + nb) of the m.
+constexpr int SMEM_BUDGET = 220 * 1024;   // of the 228 KB of an SM
+constexpr int SORT_PER_LANE = BP / 32;    // (key, lane) pairs a lane sorts
+
+// Geometry and shared memory of the scan instance (T, BB). A thread owns
+// COLS neighbouring columns of the tile and QB of the chunk's BB problems
+// (GROUPS groups of TPG threads split the problems), so that one shared
+// load of a Theta value feeds COLS fmas and one load of X feeds QB. Shared
+// memory (a third of the SM's per CTA) holds a ring of STAGES slabs (ROWS
+// rows of X's tile and of the chunk's Theta), as deep as it allows, and
+// per problem the tile's masked scores, each row padded by one element per
+// 8 so that a lane's 8 consecutive pairs load without bank conflicts, and
+// its per-warp maxima of ub.
 template <typename T, int BB>
-__global__ void __launch_bounds__(BP)
+struct Scan {
+  // K1b: 2 columns x 16 problems a thread in float64; in float32 2 x 8,
+  // twice the threads, measured faster
+  static constexpr int GROUPS = BB >= 16 && sizeof(T) == 4 ? 2 : 1;
+  static constexpr int COLS = BB >= 16 ? 2 : 1;
+  static constexpr int QB = BB / GROUPS;
+  static constexpr int TPG = BP / COLS;
+  static constexpr int THREADS = TPG * GROUPS;
+  static constexpr int NWARP = THREADS / 32;
+  static constexpr int GWARP = TPG / 32;            // warps of a group
+  static constexpr int CTAS = 3;                    // per SM
+  static constexpr int SLAB = BB >= 16 ? 8 * 1024 : 16 * 1024;   // X bytes
+  static constexpr int ROWS = SLAB / (BP * (int)sizeof(T));
+  static constexpr int EPAD = BP + BP / SORT_PER_LANE;
+  static constexpr size_t EPI_BYTES =
+      (size_t)BB * (EPAD + GWARP) * sizeof(T);
+  static constexpr size_t X_STAGE = (size_t)ROWS * BP * sizeof(T);
+  static constexpr size_t TH_STAGE = (size_t)ROWS * sizeof(ThetaRow<T, BB>);
+  static constexpr int STAGES =
+      (int)((SMEM_BUDGET / CTAS - EPI_BYTES) / (X_STAGE + TH_STAGE));
+  static constexpr size_t SMEM = STAGES * (X_STAGE + TH_STAGE) + EPI_BYTES;
+  static_assert(BB % GROUPS == 0, "even split of the problems");
+  static_assert(X_STAGE % (16 * THREADS) == 0,
+                "16-byte copies split evenly over the threads");
+  static_assert(STAGES >= 3, "a ring needs stages in flight");
+};
+
+// N values of type T read from shared memory as one aligned load.
+template <typename T, int N>
+struct alignas(sizeof(T) * N >= 16 ? 16 : sizeof(T) * N) Vec {
+  T v[N];
+};
+
+// cp.async of one element; with ok false nothing is read and the shared
+// word is zero-filled.
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s),
+               "l"(src), "n"(N), "r"(ok ? N : 0)
+               : "memory");
+}
+// cp.async of 16 bytes past L1; with ok false the 16 bytes are zero-filled.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// (key a, lane ia) comes before (key b, lane ib): the larger score, then
+// the lower lane. Total on finite and -inf keys.
+template <typename T>
+__device__ __forceinline__ bool before(T a, int ia, T b, int ib) {
+  return a > b || (a == b && ia < ib);
+}
+
+// One step of the bitonic network over pairs jj = lx * L apart, which sit
+// in lanes lx apart: the lower slot of an ascending block keeps the better
+// pair of the two.
+template <typename T, int L>
+__device__ __forceinline__ void sort_across(T (&k)[L], int (&id)[L], int wl,
+                                            int kk, int lx) {
+  const bool lower = (wl & lx) == 0;
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    const T ok = __shfl_xor_sync(0xffffffffu, k[j], lx);
+    const int oi = __shfl_xor_sync(0xffffffffu, id[j], lx);
+    const bool up = ((wl * L + j) & kk) == 0;
+    if (before(ok, oi, k[j], id[j]) == (lower == up)) {
+      k[j] = ok;
+      id[j] = oi;
+    }
+  }
+}
+
+// The same step for pairs JJ < L apart, in one lane's registers.
+template <typename T, int L, int JJ>
+__device__ __forceinline__ void sort_within(T (&k)[L], int (&id)[L], int wl,
+                                            int kk) {
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    const int pj = j ^ JJ;
+    if (pj > j) {
+      const bool up = ((wl * L + j) & kk) == 0;
+      if (up ? before(k[pj], id[pj], k[j], id[j])
+             : before(k[j], id[j], k[pj], id[pj])) {
+        const T tk = k[j];
+        k[j] = k[pj];
+        k[pj] = tk;
+        const int ti = id[j];
+        id[j] = id[pj];
+        id[pj] = ti;
+      }
+    }
+  }
+}
+
+// One warp: the tile's top h_tile (score, global id) of one problem and its
+// max ub (the largest of the n_umax per-warp maxima in umax_s). Lane wl
+// holds pairs wl*8 .. wl*8+7 and sorts them with the warp in a bitonic
+// network, best first; partners 8 or more apart sit in another lane (a
+// shuffle), nearer ones in the same lane's registers.
+template <typename T>
+__device__ __forceinline__ void tile_top(const T* key_s, const T* umax_s,
+                                         int n_umax, int wl, int h_tile,
+                                         int base, T* tops, int* topi,
+                                         T* tmax) {
+  constexpr int L = SORT_PER_LANE;
+  T k[L];
+  int id[L];
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    k[j] = key_s[wl * (L + 1) + j];
+    id[j] = wl * L + j;
+  }
+  T mx = -pos_inf<T>();
+  for (int i = 0; i < n_umax; ++i) mx = fmax(mx, umax_s[i]);
+  if (wl == 0) *tmax = mx;
+
+  // blocks of kk pairs, merged over distances jj = kk/2 .. 1; the loops
+  // over kk and over the lane distances stay rolled to keep the code small
+#pragma unroll 1
+  for (int kk = 2; kk <= BP; kk <<= 1) {
+#pragma unroll 1
+    for (int lx = kk / (2 * L); lx > 0; lx >>= 1)   // jj = lx * L >= L
+      sort_across<T, L>(k, id, wl, kk, lx);
+    if (kk > 4) sort_within<T, L, 4>(k, id, wl, kk);
+    if (kk > 2) sort_within<T, L, 2>(k, id, wl, kk);
+    sort_within<T, L, 1>(k, id, wl, kk);
+  }
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    const int t = wl * L + j;
+    if (t < h_tile) {
+      tops[t] = k[j];
+      topi[t] = base + id[j];
+    }
+  }
+}
+
+// Persistent: CTA c takes work items c, c + gridDim.x, ... of the
+// (p tiles) x (problem chunks) items, item = tile * chunks + chunk, so the
+// CTAs running at one time share X tiles in L2 when m > BB. Item (tile,
+// chunk) scans columns [tile*BP, tile*BP + BP) for problems
+// [chunk*BB, chunk*BB + nb) of the m.
+template <typename T, int BB>
+__global__ void __launch_bounds__(Scan<T, BB>::THREADS, Scan<T, BB>::CTAS)
 screen_fused_kernel(const T* __restrict__ X, const T* __restrict__ Theta,
                     const T* __restrict__ col_norm, int cn_stride,
                     const uint8_t* __restrict__ active,
@@ -117,101 +259,166 @@ screen_fused_kernel(const T* __restrict__ X, const T* __restrict__ Theta,
                     int masked, T* __restrict__ score, T* __restrict__ ub,
                     T* __restrict__ lb, T* __restrict__ tops,
                     int* __restrict__ topi, T* __restrict__ tmax) {
-  // row i of the chunk's Theta block, then (per lane) the finished sums
-  __shared__ ThetaRow<T, BB> th_s[BP];
-  __shared__ Cand<T> red[NWARP];
-  __shared__ T red_max[NWARP];
-  __shared__ int winner;
+  using S = Scan<T, BB>;
+  constexpr int ROWS = S::ROWS, QB = S::QB, COLS = S::COLS;
+  constexpr int STAGES = S::STAGES;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* xs = reinterpret_cast<T*>(smem);
+  ThetaRow<T, BB>* ths =
+      reinterpret_cast<ThetaRow<T, BB>*>(smem + STAGES * S::X_STAGE);
+  T* key_s = reinterpret_cast<T*>(smem + STAGES * (S::X_STAGE + S::TH_STAGE));
+  T* umax_s = key_s + BB * S::EPAD;
 
-  const int lane = threadIdx.x;
-  const int tile = blockIdx.x;
-  const int col = tile * BP + lane;
-  const bool in = col < p;
-  const int q0 = blockIdx.y * BB;
-  const int nb = min(BB, m - q0);
-  const int p_blocks = gridDim.x;
+  const int t = threadIdx.x;
+  const int g = t / S::TPG;            // problems [g*QB, g*QB + QB) of a chunk
+  const int c0 = (t % S::TPG) * COLS;  // columns [c0, c0 + COLS) of the tile
+  const int p_blocks = (p + BP - 1) / BP;
+  const int chunks = (m + BB - 1) / BB;
+  const int items = p_blocks * chunks;
+  const int my_items =
+      (int)blockIdx.x < items ? (items - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  // slabs per item; at least one, whose barrier guards key_s between items
+  const int slabs = n > ROWS ? (n + ROWS - 1) / ROWS : 1;
+  const int total = my_items * slabs;
 
-  T acc[BB];
+  // the producer side, run by every thread: the next slab of this CTA's
+  // stream (rows [row0, row0 + ROWS) of its item's tile and of its chunk's
+  // Theta rows) into its stage
+  int pn = 0, p_item = blockIdx.x, p_row0 = 0, p_stage = 0;
+  auto fetch = [&]() {
+    if (pn < total) {
+      const int tile = p_item / chunks, q0 = (p_item % chunks) * BB;
+      const int nb = min(BB, m - q0);
+      // 16-byte copies where a row's vector is aligned and inside p (all
+      // of them when p*itemsize is a multiple of 16), else element copies
+      constexpr int VEC = 16 / sizeof(T), VPR = BP / VEC;
 #pragma unroll
-  for (int q = 0; q < BB; ++q) acc[q] = T(0);
-  for (int r0 = 0; r0 < n; r0 += BP) {
-    const int rows = min(BP, n - r0);
-    __syncthreads();
-    for (int e = lane; e < rows * BB; e += BP) {   // consecutive smem words
-      const int i = e / BB, q = e % BB;
-      th_s[i].v[q] = q < nb ? Theta[(size_t)(q0 + q) * n + r0 + i] : T(0);
-    }
-    __syncthreads();
-    if (in) {
-      const T* xp = X + (size_t)r0 * p + col;
-#pragma unroll (BB == 1 ? 8 : 4)
-      for (int i = 0; i < rows; ++i) {
-        const T x = xp[(size_t)i * p];           // one load feeds the chunk
-        const ThetaRow<T, BB> th = th_s[i];
+      for (int k = 0; k < ROWS * VPR / S::THREADS; ++k) {
+        const int e = t + k * S::THREADS;
+        const int i = e / VPR, c = tile * BP + (e % VPR) * VEC;
+        T* dst = xs + (size_t)p_stage * ROWS * BP + i * BP + (e % VPR) * VEC;
+        const T* src = X + (size_t)(p_row0 + i) * p + c;
+        if (p_row0 + i >= n) {            // zeros: fma(0, 0, acc) == acc
+          cp_async16(dst, X, false);
+        } else if (c + VEC <= p && ((uintptr_t)src & 15) == 0) {
+          cp_async16(dst, src, true);
+        } else {
 #pragma unroll
-        for (int q = 0; q < BB; ++q)
-          if (q < nb) acc[q] = fma_rn(th.v[q], x, acc[q]);
+          for (int j = 0; j < VEC; ++j)
+            cp_async<sizeof(T)>(dst + j, c + j < p ? src + j : X, c + j < p);
+        }
+      }
+      for (int e = t; e < ROWS * BB; e += S::THREADS) {   // rows fastest
+        const int q = e / ROWS, i = e % ROWS;
+        const bool ok = q < nb && p_row0 + i < n;
+        cp_async<sizeof(T)>(
+            &ths[p_stage * ROWS + i].v[q],
+            ok ? Theta + (size_t)(q0 + q) * n + p_row0 + i : Theta, ok);
+      }
+      ++pn;
+      p_stage = p_stage + 1 == STAGES ? 0 : p_stage + 1;
+      p_row0 += ROWS;
+      if (p_row0 >= slabs * ROWS) {
+        p_row0 = 0;
+        p_item += gridDim.x;
       }
     }
-  }
-  __syncthreads();
+    cp_async_commit();                    // empty groups keep the count
+  };
+
+#pragma unroll 1
+  for (int k = 0; k < STAGES - 1; ++k) fetch();
+
+  const int w = t >> 5, wl = t & 31;
+  int stage = 0;
+  for (int it = 0; it < my_items; ++it) {
+    const int item = blockIdx.x + it * gridDim.x;
+    const int tile = item / chunks, q0 = (item % chunks) * BB + g * QB;
+    const int nq = max(0, min(QB, m - q0));   // this thread's live problems
+
+    T acc[COLS][QB];
 #pragma unroll
-  for (int q = 0; q < BB; ++q) th_s[lane].v[q] = acc[q];  // own lane only
-
-  const int w = lane >> 5, wl = lane & 31;
-  for (int q = 0; q < nb; ++q) {
-    const int b = q0 + q;
-    const size_t at = (size_t)b * p + col;
-    const T s = fabs(th_s[lane].v[q]);
-    const T nr = in ? mul_rn(col_norm[(size_t)b * cn_stride + col], r[b])
-                    : T(0);
-    if (!masked) {
-      if (in) {
-        score[at] = s;
-        ub[at] = add_rn(s, nr);
-        lb[at] = fabs(sub_rn(s, nr));
+    for (int j = 0; j < COLS; ++j)
+#pragma unroll
+      for (int q = 0; q < QB; ++q) acc[j][q] = T(0);
+    for (int sl = 0; sl < slabs; ++sl) {
+      cp_async_wait<STAGES - 2>();        // this slab has landed (own copies)
+      __syncthreads();                    // everyone's; the last stage is free
+      fetch();
+      const T* xr = xs + (size_t)stage * ROWS * BP + c0;
+      const ThetaRow<T, BB>* tr = ths + stage * ROWS;
+      stage = stage + 1 == STAGES ? 0 : stage + 1;
+#pragma unroll
+      for (int i = 0; i < ROWS; ++i) {
+        // one load of X feeds QB problems, one of Theta COLS columns
+        const Vec<T, COLS> x = *reinterpret_cast<const Vec<T, COLS>*>(
+            xr + i * BP);
+        const Vec<T, QB> th =
+            reinterpret_cast<const Vec<T, QB>*>(tr[i].v)[g];
+#pragma unroll
+        for (int q = 0; q < QB; ++q)
+#pragma unroll
+          for (int j = 0; j < COLS; ++j)
+            acc[j][q] = fma_rn(th.v[q], x.v[j], acc[j][q]);
       }
-      continue;
-    }
-    const bool act = !in || active[at] != 0;
-    const T ms = act ? -pos_inf<T>() : s;
-    const T u = add_rn(ms, nr);
-    if (in) {
-      score[at] = ms;
-      ub[at] = u;
-      lb[at] = fabs(sub_rn(ms, nr));
     }
 
-    // tile max ub
-    T mx = u;
-    for (int off = 16; off > 0; off >>= 1)
-      mx = fmax(mx, __shfl_down_sync(0xffffffffu, mx, off));
-    if (wl == 0) red_max[w] = mx;
-    __syncthreads();
-    const size_t tb = (size_t)b * p_blocks + tile;
-    if (lane == 0) {
-      T mm = red_max[0];
-      for (int i = 1; i < NWARP; ++i) mm = fmax(mm, red_max[i]);
-      tmax[tb] = mm;
+    // epilogue: the bounds, then (masked) each problem's tile max ub and
+    // top-h, one warp per problem; the ring keeps streaming meanwhile
+    T mx[QB];
+#pragma unroll
+    for (int q = 0; q < QB; ++q) {
+      mx[q] = -pos_inf<T>();
+#pragma unroll
+      for (int j = 0; j < COLS; ++j) {
+        const int lane = c0 + j, col = tile * BP + lane;
+        const bool in = col < p;
+        if (q < nq) {
+          const size_t at = (size_t)(q0 + q) * p + col;
+          const T sc = fabs(acc[j][q]);
+          const T nr =
+              in ? mul_rn(col_norm[(size_t)(q0 + q) * cn_stride + col],
+                          r[q0 + q])
+                 : T(0);
+          if (!masked) {
+            if (in) {
+              score[at] = sc;
+              ub[at] = add_rn(sc, nr);
+              lb[at] = fabs(sub_rn(sc, nr));
+            }
+            continue;
+          }
+          const bool act = !in || active[at] != 0;
+          const T ms = act ? -pos_inf<T>() : sc;
+          const T u = add_rn(ms, nr);
+          if (in) {
+            score[at] = ms;
+            ub[at] = u;
+            lb[at] = fabs(sub_rn(ms, nr));
+          }
+          key_s[(g * QB + q) * S::EPAD + lane + lane / SORT_PER_LANE] = ms;
+          mx[q] = fmax(mx[q], u);
+        }
+      }
     }
-
-    // tile top-h: h_tile rounds of block argmax, the winner leaves the pool
-    int avail = 1;
-    for (int t = 0; t < h_tile; ++t) {
-      Cand<T> c{avail, avail ? ms : -pos_inf<T>(), lane};
-      c = warp_best(c);
-      if (wl == 0) red[w] = c;
+    if (masked) {
+#pragma unroll
+      for (int q = 0; q < QB; ++q) {
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          mx[q] = fmax(mx[q], __shfl_xor_sync(0xffffffffu, mx[q], off));
+        if (wl == 0 && q < nq)
+          umax_s[(g * QB + q) * S::GWARP + (t % S::TPG) / 32] = mx[q];
+      }
+      // the next write of key_s/umax_s is behind the next slab's barrier
       __syncthreads();
-      if (lane == 0) {
-        Cand<T> best = red[0];
-        for (int i = 1; i < NWARP; ++i)
-          if (beats(red[i], best)) best = red[i];
-        tops[tb * h_tile + t] = best.val;
-        topi[tb * h_tile + t] = tile * BP + best.lane;
-        winner = best.lane;
+      const int b0 = (item % chunks) * BB, nb = min(BB, m - b0);
+      for (int q = w; q < nb; q += S::NWARP) {
+        const size_t tb = (size_t)(b0 + q) * p_blocks + tile;
+        tile_top(key_s + q * S::EPAD, umax_s + q * S::GWARP, S::GWARP, wl,
+                 h_tile, tile * BP, tops + tb * h_tile, topi + tb * h_tile,
+                 tmax + tb);
       }
-      __syncthreads();
-      if (lane == winner) avail = 0;
     }
   }
 }
@@ -246,11 +453,29 @@ int launch_screen(const void* X, const void* Theta, const void* col_norm,
                   int cn_stride, const void* active, const void* r, int m,
                   int n, int p, int h_tile, int masked, void* score, void* ub,
                   void* lb, void* tops, void* topi, void* tmax, void* stream) {
-  const dim3 grid((p + BP - 1) / BP, (m + BB - 1) / BB);
-  screen_fused_kernel<T, BB><<<grid, BP, 0, (cudaStream_t)stream>>>(
-      (const T*)X, (const T*)Theta, (const T*)col_norm, cn_stride,
-      (const uint8_t*)active, (const T*)r, m, n, p, h_tile, masked, (T*)score,
-      (T*)ub, (T*)lb, (T*)tops, (int*)topi, (T*)tmax);
+  const size_t smem = Scan<T, BB>::SMEM;
+  cudaError_t e = cudaFuncSetAttribute(
+      screen_fused_kernel<T, BB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, sms = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, screen_fused_kernel<T, BB>, Scan<T, BB>::THREADS, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int items = ((p + BP - 1) / BP) * ((m + BB - 1) / BB);
+  if (items == 0) return (int)cudaSuccess;
+  const int grid = items < sms * per_sm ? items : sms * per_sm;
+  screen_fused_kernel<T, BB>
+      <<<grid, Scan<T, BB>::THREADS, smem,
+         (cudaStream_t)stream>>>(
+          (const T*)X, (const T*)Theta, (const T*)col_norm, cn_stride,
+          (const uint8_t*)active, (const T*)r, m, n, p, h_tile, masked,
+          (T*)score, (T*)ub, (T*)lb, (T*)tops, (int*)topi, (T*)tmax);
   return (int)cudaGetLastError();
 }
 

@@ -96,7 +96,12 @@ def screen_fused(X: Tensor, theta: Tensor, col_norm: Tensor, active: Tensor,
     (the features to exclude), r the ball radius, h the candidate count.
     Returns score, ub, lb (p,) masked as in the reference; per tile of
     ``BP`` columns its top ``min(h, BP)`` scores and global ids (int32),
-    ties to the lowest lane; and per tile the max ub.
+    the first entries of a stable descending sort of (masked score, lane),
+    so ties go to the lowest lane; and per tile the max ub.
+
+    On the card each score is one fma chain over the rows in order (the
+    same bits as every problem of K1b); persistent CTAs stream X through
+    shared memory, and one warp sorts each tile's 256 scores.
     """
     if X.device.type == "cpu":
         return screen_fused_ref(X, theta, col_norm, active, r, h=h)
@@ -114,7 +119,10 @@ def screen_fused_batch(X: Tensor, Theta: Tensor, col_norm: Tensor,
     col_norm (p,) shared or (m, p), active (m, p) bool, r (m,) radii (a
     tensor, which may stay on the card). Returns score, ub, lb (m, p),
     tile winners tops/topi (m, p/BP, min(h, BP)) and tile max ub
-    (m, p/BP): per problem bitwise what K1 returns.
+    (m, p/BP): per problem bitwise what K1 returns. On the card a thread
+    sums 2 columns for 16 (float64) or 8 (float32) of a chunk's problems,
+    and each problem's tile top-h is one warp's sort, the problems' sorts
+    side by side.
     """
     if X.device.type == "cpu":
         return screen_fused_batch_ref(X, Theta, col_norm, active, r, h=h)

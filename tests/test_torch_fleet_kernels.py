@@ -239,3 +239,44 @@ def test_fleet_screens_match_serial_screens():
                                            rtol=RTOL, atol=0)
             assert torch.equal(o.cand_ge[:8], s.cand_ge)
             assert int(o.n_surv) == int(s.n_surv)
+
+
+def _tied_scan(b, n=40, p=777, seed=21):
+    """Scores that tie bit for bit in any summation order: small-integer X
+    and Theta (every sum exact), X's columns drawn from 40 distinct ones;
+    per-problem masks, problem 0 with a fully active tile and problem 1
+    with its partial last tile active."""
+    r = np.random.default_rng(seed)
+    base = r.integers(-3, 4, (n, 40)).astype(np.float64)
+    X = base[:, r.integers(0, 40, p)]
+    Theta = r.integers(-2, 3, (b, n)).astype(np.float64)
+    active = r.random((b, p)) < 0.1
+    active[0, 256:512] = True
+    active[1, 768:] = True
+    return X, Theta, np.linalg.norm(X, axis=0), active, r.uniform(0, .5, b)
+
+
+@pytest.mark.parametrize("h", [3, 256])
+def test_fleet_scan_twin_tied_scores_saturated_tiles(h):
+    """The order K1b's warp sort must reproduce, on exact ties: the fleet
+    twin's merged candidate ids are screen_fused_batch_pallas's, and each
+    row is bitwise the serial twin."""
+    b = 3
+    X, Theta, norm, active, radii = _tied_scan(b)
+    out = ops.screen_fused_batch(_t(X), _t(Theta), _t(norm), _t(active),
+                                 _t(radii), h=h)
+    pal = screen_fused_batch_pallas(X, Theta,
+                                    np.broadcast_to(norm, (b, X.shape[1])),
+                                    active, radii, h=h, interpret=True)
+    for i in range(b):
+        ser = ops.screen_fused(_t(X), _t(Theta[i]), _t(norm), _t(active[i]),
+                               float(radii[i]), h=h)
+        for a, s in zip(out, ser):
+            assert torch.equal(a[i], s)
+        cs, ci = _merge(out[3][i].numpy(), out[4][i].numpy(), h)
+        cs_p, ci_p = _merge(pal[3][i], pal[4][i], h)
+        fin = np.isfinite(cs_p)
+        assert fin.sum() == min(h, int((~active[i]).sum()))
+        assert len(np.unique(cs[fin])) < fin.sum()       # ties among them
+        np.testing.assert_array_equal(cs[fin], cs_p[fin])
+        np.testing.assert_array_equal(ci[fin], ci_p[fin])

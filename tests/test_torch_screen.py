@@ -163,3 +163,30 @@ def test_screen_backends_match(n, p):
         _same_screen(out_c, out_j)
         _same_screen(out_c, psc(jnp.asarray(theta), jnp.asarray(r),
                                 jnp.asarray(active)))
+
+
+@pytest.mark.parametrize("h", [3, 256])
+def test_fused_scan_tied_scores_saturated_tile(h):
+    """On scores that tie bit for bit (small-integer X and theta, X's
+    columns drawn from 40 distinct ones; p = 777, a partial last tile), with
+    a fully active tile: the serial twin's merged candidate ids are
+    screen_fused_pallas's, ties to the lowest id."""
+    n, p = 40, 777
+    r = np.random.default_rng(22)
+    base = r.integers(-3, 4, (n, 40)).astype(np.float64)
+    X = base[:, r.integers(0, 40, p)]
+    theta = r.integers(-2, 3, n).astype(np.float64)
+    norm = np.linalg.norm(X, axis=0)
+    active = r.random(p) < 0.1
+    active[256:512] = True
+    _, _, _, tops, topi, _ = ops.screen_fused(_t(X), _t(theta), _t(norm),
+                                              _t(active), 0.2, h=h)
+    _, _, _, tops_p, topi_p, _ = screen_fused_pallas(
+        X, theta, norm, active, 0.2, h=h, interpret=True)
+    cs, ci = _merge(tops.numpy(), topi.numpy(), h)
+    cs_p, ci_p = _merge(tops_p, topi_p, h)
+    fin = np.isfinite(cs_p)
+    assert fin.sum() == min(h, int((~active).sum()))
+    assert len(np.unique(cs[fin])) < fin.sum()           # ties among them
+    np.testing.assert_array_equal(cs[fin], cs_p[fin])
+    np.testing.assert_array_equal(ci[fin], ci_p[fin])
