@@ -210,7 +210,8 @@ def support(beta, tol=1e-8):
 def profile_solve(tag, solve, wall):
     """Run ``solve`` once more under torch.profiler and print the device's
     busy time (the sum of kernel times, one stream) against the unprofiled
-    wall time ``wall``, and the kernels that take most of it."""
+    wall time ``wall``, and the kernels that take most of it (a kernel's
+    template instances counted together)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -224,9 +225,15 @@ def profile_solve(tag, solve, wall):
         print(f"[profile {tag}] device time: not measured (the profiler "
               f"recorded no device activity)", flush=True)
         return
-    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:5]
-    tops = "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.2f} ms"
-                     f" x{e.count}" for e in top)
+    # one line per kernel, its template instances summed
+    fam = {}
+    for e in ev:
+        name = e.key.split("<")[0].split("::")[-1].split("(")[0].strip()
+        t, c = fam.get(name, (0.0, 0))
+        fam[name] = (t + e.self_device_time_total, c + e.count)
+    top = sorted(fam.items(), key=lambda kv: -kv[1][0])[:5]
+    tops = "; ".join(f"{name[:60]} {t / 1e3:.2f} ms x{c}"
+                     for name, (t, c) in top)
     print(f"[profile {tag}] device_busy_s={busy_s:.4f} wall_s={wall:.4f} "
           f"idle_share={1 - busy_s / wall:.3f} top: {tops}", flush=True)
 
@@ -318,6 +325,35 @@ def burst_error(loss_name, out, ref, ys, lam_s):
     return max(abs3, gap_err), max(err3, gap_err / d_scale)
 
 
+def burst_inputs(Xs, idx, mask):
+    """K3's inputs on a solve's final active block ``Xs[:, idx]`` (dead
+    slots zeroed), from beta = 0: (A, A^T, col_sq, order, live count,
+    beta0)."""
+    import torch
+    from repro_torch.core.active_set import compact_order
+    k = mask.shape[0]
+    order = compact_order(torch.arange(k, device=mask.device), mask)
+    A = torch.where(mask[None, :], Xs[:, idx], 0.0)
+    cn = torch.where(mask, torch.linalg.vector_norm(A, dim=0), 0.0)
+    return (A, A.T.contiguous(), cn * cn, order, int(mask.sum()),
+            torch.zeros(k, dtype=Xs.dtype, device=Xs.device))
+
+
+def gram_slots(X, y, idx, mask, dt, w=None):
+    """K6's inputs on a final active block ``X[:, idx]`` (dead slots
+    zeroed; ``w``: a fold's sample weights), from beta = 0: (G, rho,
+    beta0, mask, order, live count)."""
+    import torch
+    from repro_torch.core.active_set import compact_order
+    k = mask.shape[0]
+    Xa = torch.where(mask[None, :], X[:, idx], 0.0)
+    Xw = Xa if w is None else w[:, None] * Xa
+    order = compact_order(torch.arange(k, device=mask.device), mask)
+    return ((Xa.T @ Xw).to(dt), (Xw.T @ y).to(dt),
+            torch.zeros(k, dtype=dt, device=mask.device), mask, order,
+            int(mask.sum()))
+
+
 def check_kernels(dtype, X, y, lam, h, ls_res, logit, logit_res, fused,
                   records):
     """Hold K1, K2, K3 and K3-pen against their plain versions at the
@@ -325,7 +361,6 @@ def check_kernels(dtype, X, y, lam, h, ls_res, logit, logit_res, fused,
     fused solves."""
     import torch
     import repro_torch as rt
-    from repro_torch.core.active_set import compact_order
     from repro_torch.kernels import ops
 
     dt = getattr(torch, dtype)
@@ -414,13 +449,8 @@ def check_kernels(dtype, X, y, lam, h, ls_res, logit, logit_res, fused,
              logit_res)):
         mask = res.active_mask
         k = mask.shape[0]
-        count = int(mask.sum())
-        order = compact_order(torch.arange(k, device=mask.device), mask)
-        A = torch.where(mask[None, :], Xs[:, res.active_idx], 0.0)
-        AT = A.T.contiguous()
-        cn = torch.where(mask, torch.linalg.vector_norm(A, dim=0), 0.0)
-        col_sq = cn * cn
-        beta0 = torch.zeros(k, dtype=dt, device=A.device)
+        A, AT, col_sq, order, count, beta0 = burst_inputs(
+            Xs, res.active_idx, mask)
         n_ep = 40
 
         def run_k(AT=AT, ys=ys, col_sq=col_sq, mask=mask, order=order,
@@ -446,7 +476,8 @@ def check_kernels(dtype, X, y, lam, h, ls_res, logit, logit_res, fused,
         print(f"[kernel cm_burst {dtype} {loss_name}] n={Xs.shape[0]} k={k} "
               f"count={count} n_epochs={n_ep} max_abs_err={abs3:.3e} "
               f"rel_err={err3:.3e} "
-              f"tol={tol3:.0e} ms={ms3:.4f} plain_ms={plain3:.4f} "
+              f"tol={tol3:.0e} ms={ms3:.4f} us_per_step="
+              f"{ms3 * 1e3 / steps:.4f} plain_ms={plain3:.4f} "
               f"bound_ms={b3:.6f} ({by3})", flush=True)
         if not err3 <= tol3:
             raise RuntimeError(f"cm_burst {dtype} {loss_name} disagrees")
@@ -458,15 +489,10 @@ def check_kernels(dtype, X, y, lam, h, ls_res, logit, logit_res, fused,
         Xs, ys = Xt.to(dt), ys.to(dt)
         mask = res.active_mask
         k = mask.shape[0]
-        count = int(mask.sum())
-        order = compact_order(torch.arange(k, device=mask.device), mask)
-        A = torch.where(mask[None, :], Xs[:, res.active_idx], 0.0)
-        AT = A.T.contiguous()
-        cn = torch.where(mask, torch.linalg.vector_norm(A, dim=0), 0.0)
-        col_sq = cn * cn
+        A, AT, col_sq, order, count, beta0 = burst_inputs(
+            Xs, res.active_idx, mask)
         pen = torch.where(mask & (res.active_idx == Xs.shape[1] - 1), 0.0,
                           1.0).to(dt)
-        beta0 = torch.zeros(k, dtype=dt, device=A.device)
         n_ep = 40
 
         def run_k(AT=AT, ys=ys, col_sq=col_sq, mask=mask, order=order,
@@ -487,15 +513,17 @@ def check_kernels(dtype, X, y, lam, h, ls_res, logit, logit_res, fused,
         ms4 = time_ms(run_k, 3)
         plain4 = time_ms(run_p, 1)
         n_s = Xs.shape[0]
+        steps = n_ep * count
         # the sweep's steps, and the tail: fresh z, 4 x 2 polish dots for
         # logistic, 2 projection dots, the dual correlations
-        flops = (n_ep * count * 4 * n_s + 4 * n_s * k
+        flops = (steps * 4 * n_s + 4 * n_s * k
                  + (16 * n_s if loss_name == "logistic" else 0) + 4 * n_s)
         b4, by4 = bound_ms(k * n_s * isz + 3 * n_s * isz + 4 * k * isz
                            + 5 * k + isz, flops, dtype)
         print(f"[kernel cm_burst_pen {dtype} {loss_name}] n={n_s} k={k} "
               f"count={count} n_epochs={n_ep} max_abs_err={abs4:.3e} "
               f"rel_err={err4:.3e} tol={tol3:.0e} ms={ms4:.4f} "
+              f"us_per_step={ms4 * 1e3 / steps:.4f} "
               f"plain_ms={plain4:.4f} bound_ms={b4:.6f} ({by4})",
               flush=True)
         if not err4 <= tol3:
@@ -980,8 +1008,9 @@ def check_fleet_kernels(dtype, X, Y, lams, h, res, loss_name, records,
     print(f"[kernel cm_burst_batch {dtype} {loss_name}] B={b} n={n} k={k} "
           f"live={count.tolist()} n_epochs=40 (last problem 0) "
           f"max_abs_err={abs3:.3e} rel_err={err3:.3e} tol={tol3:.0e} "
-          f"bitwise_B_x_K3={same3} ms={ms3:.4f} plain_ms={plain3:.4f} "
-          f"bound_ms={b3:.6f} ({by3})", flush=True)
+          f"bitwise_B_x_K3={same3} ms={ms3:.4f} us_per_step="
+          f"{ms3 * 1e3 / (40 * int(count.max())):.4f} plain_ms="
+          f"{plain3:.4f} bound_ms={b3:.6f} ({by3})", flush=True)
     if not (err3 <= tol3 and same3):
         raise RuntimeError(f"cm_burst_batch {dtype} disagrees")
     if dtype == "float64":
@@ -1431,7 +1460,6 @@ def check_gram_sweep(dtype, X, y, lam, gram_res, cv, records):
     of K6. ``nonzero`` counts the slots the sweep moved off 0."""
     import torch
     import repro_torch as rt
-    from repro_torch.core.active_set import compact_order
     from repro_torch.kernels import ops
     dt = getattr(torch, dtype)
     isz = torch.finfo(dt).bits // 8
@@ -1439,13 +1467,7 @@ def check_gram_sweep(dtype, X, y, lam, gram_res, cv, records):
     n_ep = 40
 
     def slots(idx, mask, w=None):
-        k = mask.shape[0]
-        Xa = torch.where(mask[None, :], X[:, idx], 0.0)
-        Xw = Xa if w is None else w[:, None] * Xa
-        order = compact_order(torch.arange(k, device=mask.device), mask)
-        return ((Xa.T @ Xw).to(dt), (Xw.T @ y).to(dt),
-                torch.zeros(k, dtype=dt, device=mask.device), mask, order,
-                int(mask.sum()))
+        return gram_slots(X, y, idx, mask, dt, w)
 
     G, rho, beta, mask, order, count = slots(gram_res.active_idx,
                                              gram_res.active_mask)
@@ -1500,7 +1522,8 @@ def check_gram_sweep(dtype, X, y, lam, gram_res, cv, records):
           f"live={cnt.tolist()} n_epochs={n_ep} from beta=0 nonzero="
           f"{(refb != 0).sum(1).tolist()} max_abs_err={errb:.3e} "
           f"rel_err={relb:.3e} tol={tol:.0e} bitwise_B_x_K6={same} "
-          f"ms={msb:.4f} plain_ms={plainb:.4f} bound_ms={bndb:.6f} ({byb})",
+          f"ms={msb:.4f} us_per_step={msb * 1e3 / (n_ep * int(cnt.max())):.4f}"
+          f" plain_ms={plainb:.4f} bound_ms={bndb:.6f} ({byb})",
           flush=True)
     if not (relb <= tol and same):
         raise RuntimeError(f"gram_sweep_batch {dtype} disagrees")

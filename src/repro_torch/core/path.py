@@ -211,7 +211,7 @@ def run_path(prep: PathState, lams: Sequence[float],
             polish_factor=config.polish_factor, max_outer=config.max_outer,
             use_seq_ball=use_seq, screen_backend=screen,
             inner_backend=_inner_name(prep, config, k_max),
-            screen_rule=rule, unpen_idx=unpen_i)
+            screen_rule=rule, unpen_idx=unpen_i, p_true=p_true)
 
     results: List[SaifResult] = [None] * len(lams_np)
     if warm0 is not None:

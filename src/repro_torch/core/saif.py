@@ -429,10 +429,11 @@ def _solve(X, y, col_norm, c0, lam, eps, delta0, init_idx, init_beta,
            init_mask, carry_in: InnerCarry, h_tilde, h_cap, *, loss_name,
            h, k_max, inner_epochs, polish_factor, max_outer, use_seq_ball,
            screen_backend, inner_backend, screen_rule: ScreenRule,
-           unpen_idx: int = -1) -> SaifResult:
+           unpen_idx: int = -1, p_true: int = 0) -> SaifResult:
     """One serial solve (the reference's ``_saif_jit``): the engine
     :func:`_advance` on a fleet of one, with the serial screen and inner
-    backend."""
+    backend. With ``p_true < p`` the columns from ``p_true`` on are
+    bucket padding."""
     loss = get_loss(loss_name)
     p = X.shape[1]
     make_screen = (make_screen_cuda if screen_backend == "cuda"
@@ -440,6 +441,13 @@ def _solve(X, y, col_norm, c0, lam, eps, delta0, init_idx, init_beta,
     inner = make_inner(inner_backend, loss, X, y, col_norm, h, unpen_idx)
     aset = aset_lib.init_active_set(p, k_max, init_idx, X.dtype, init_beta,
                                     live_mask=init_mask)
+    if 0 < p_true < p:
+        # pad columns are born active without a slot, as in the reference:
+        # every screen masks them, DEL touches only live slots and ADD
+        # draws from screen candidates, so a pad is never scored,
+        # recruited or deleted
+        aset = aset._replace(in_active=aset.in_active | (
+            torch.arange(p, device=X.device) >= p_true))
     carry = inner.init(aset, carry_in, aset_lib.gather_columns(X, aset))
     prob = _Problem(y, lam, eps, delta0, h_tilde, h_cap, h, c0, aset, carry,
                     inner, cn=col_norm)
@@ -465,7 +473,7 @@ class PathState(NamedTuple):
     c0_max: float
     c0_median: float      # mean of the two middle values for even p
     b0: float = 0.0
-    n_true: int = 0       # 0 = unpadded (padding is not ported yet)
+    n_true: int = 0       # 0 = unpadded
     p_true: int = 0
 
 
@@ -581,7 +589,7 @@ def solve_scalar(prep: PathState, lam: float,
             polish_factor=config.polish_factor, max_outer=config.max_outer,
             use_seq_ball=use_seq, screen_backend=screen,
             inner_backend=inner, screen_rule=rule,
-            unpen_idx=-1 if unpen is None else unpen)
+            unpen_idx=-1 if unpen is None else unpen, p_true=p_true)
         if not res.overflowed or k_max >= p_true:
             return res
         k_max = min(2 * k_max, p_true)  # elastic capacity growth

@@ -42,7 +42,9 @@ def cm_smem_bytes(n: int, k: int, itemsize: int, pen: bool = False) -> int:
     """Shared memory of one burst: y, z, the dual workspace (n each), beta
     and col_sq (k each), the reduction slots, order (int32) and mask, and
     with ``pen`` the (k,) weights. The unpenalized column is read from the
-    block itself."""
+    block itself. Up to n = 2048 the kernel keeps a thread's rows of y and
+    z in registers and leaves their regions unused, so one gate serves
+    both of its forms."""
     return ((3 * n + (3 if pen else 2) * k + 4 * _NW) * itemsize + k * 5)
 
 

@@ -22,12 +22,30 @@ Tensor = torch.Tensor
 
 # Dynamic shared memory one CTA may take on Hopper is 227 KB; keep headroom
 GRAM_SMEM_BUDGET_BYTES = 200 * 1024
+SMEM_MAX_BYTES = 232_448     # the card's limit, which the ring may fill
+_RING = 16                   # rows of G in the kernel's ring
+_WARP_K = 1024               # capacity up to which one warp sweeps
 
 
 def gram_smem_bytes(k: int, itemsize: int) -> int:
-    """Shared memory of one sweep: qr, beta, inv_l and thr (k each), the
-    two update slots, order (int32) and mask."""
+    """Shared memory of one sweep's state, the gate's measure: qr, beta,
+    inv_l and thr (k each), the two update slots, order (int32) and
+    mask."""
     return (4 * k + 2) * itemsize + 5 * k
+
+
+def gram_sweep_form(k: int, itemsize: int):
+    """How the kernel sweeps a capacity-``k`` block: (threads of the sweep,
+    rows of G in its ring, shared memory in bytes). Up to k = 1024, when a
+    row is a whole number of 16-byte words, one warp sweeps with a ring of
+    G rows (filled by bulk copies, two barriers a row) 16-byte aligned
+    after the state; else 256 threads read G from L2."""
+    ring_off = -(-gram_smem_bytes(k, itemsize) // 16) * 16
+    ring_bytes = _RING * (k * itemsize + 16)
+    if (k <= _WARP_K and (k * itemsize) % 16 == 0
+            and ring_off + ring_bytes <= SMEM_MAX_BYTES):
+        return 32, _RING, ring_off + ring_bytes
+    return 256, 0, gram_smem_bytes(k, itemsize)
 
 
 def gram_smem_ok(k: int, itemsize: int = 8) -> bool:

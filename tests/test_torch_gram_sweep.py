@@ -8,7 +8,9 @@ per-problem column norms on the CPU, float64:
   * K1b's twin with a (B, p) norm matrix (a weighted fleet's) against the
     reference's ``screen_fused_batch_pallas`` in interpret mode, and
     bitwise K1's twin per problem with its own norms;
-  * the wrappers given CPU tensors launch nothing; the shared-memory gate.
+  * the wrappers given CPU tensors launch nothing; the shared-memory
+    gates, K6's layout and `auto`'s routing at the smoke's and the
+    tests' shapes.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -126,3 +128,94 @@ def test_fleet_scan_twin_with_per_problem_norms(n, p, b):
                                     _t(radii), h=h)
     assert torch.equal(shared[1][0], out[1][0])
     assert not torch.equal(shared[1][1:], out[1][1:])
+
+
+# Shared-memory bytes of the shapes the smoke and the tests give the
+# kernels, as the first kernels' layouts counted them: (n, k, itemsize,
+# pen) -> K3's, (k, itemsize) -> K6's state. The redesigned kernels keep
+# both, so every gate answers as it did.
+_CM_BYTES = {(1000, 512, 8, False): 35008, (1000, 1024, 8, False): 45760,
+             (1000, 256, 8, False): 29632, (1000, 512, 8, True): 39104,
+             (800, 512, 8, False): 30208, (1000, 512, 4, False): 18784,
+             (60, 64, 8, False): 3040, (80, 128, 8, False): 4864,
+             (5000, 1024, 8, True): 149952, (7900, 512, 8, True): 204704,
+             (8000, 512, 8, True): 207104, (8192, 512, 8, False): 207616}
+_GRAM_BYTES = {(512, 8): 18960, (1024, 8): 37904, (512, 4): 10760,
+               (64, 8): 2384, (2048, 8): 75792, (4096, 8): 151568,
+               (5534, 8): 204774, (5535, 8): 204811, (9752, 4): 204800}
+
+
+@pytest.mark.parametrize("shape", sorted(_CM_BYTES))
+def test_cm_smem_gate(shape):
+    from repro_torch.kernels.cm.cm import (CM_SMEM_BUDGET_BYTES,
+                                           cm_smem_bytes, cm_smem_ok)
+    n, k, isz, pen = shape
+    assert cm_smem_bytes(n, k, isz, pen) == _CM_BYTES[shape]
+    assert cm_smem_ok(n, k, isz, pen) == (_CM_BYTES[shape]
+                                          <= CM_SMEM_BUDGET_BYTES)
+
+
+@pytest.mark.parametrize("shape", sorted(_GRAM_BYTES))
+def test_gram_smem_gate_at_shapes(shape):
+    from repro_torch.kernels.gram.gram import (GRAM_SMEM_BUDGET_BYTES,
+                                               gram_smem_bytes, gram_smem_ok)
+    k, isz = shape
+    assert gram_smem_bytes(k, isz) == _GRAM_BYTES[shape]
+    assert gram_smem_ok(k, isz) == (_GRAM_BYTES[shape]
+                                    <= GRAM_SMEM_BUDGET_BYTES)
+
+
+@pytest.mark.parametrize("k,isz,want", [
+    # one warp with the ring up to k = 1024 (every shape of the smoke)
+    (64, 8, (32, 16, 10832)), (512, 8, (32, 16, 84752)),
+    (1024, 8, (32, 16, 169232)), (1024, 4, (32, 16, 87312)),
+    # a row that is not a whole number of 16-byte words, or k past 1024:
+    # 256 threads and no ring
+    (999, 8, (256, 0, 36979)), (1022, 4, (256, 0, 21470)),
+    (1025, 8, (256, 0, 37941)), (2048, 8, (256, 0, 75792)),
+    (4096, 4, (256, 0, 86024)), (5534, 8, (256, 0, 204774)),
+    (9752, 4, (256, 0, 204800)),
+])
+def test_gram_sweep_form(k, isz, want):
+    from repro_torch.kernels.gram.gram import gram_sweep_form
+    assert gram_sweep_form(k, isz) == want
+
+
+def test_gram_sweep_form_fits_under_every_gate():
+    """Every capacity the gate admits gets a layout within the card's
+    limit, and the ring only where the state alone fits the gate."""
+    from repro_torch.kernels.gram.gram import (SMEM_MAX_BYTES,
+                                               gram_smem_bytes, gram_smem_ok,
+                                               gram_sweep_form)
+    for isz in (8, 4):
+        ks = [k for k in range(1, 10_000) if gram_smem_ok(k, isz)]
+        assert ks == list(range(1, ks[-1] + 1))
+        for k in ks:
+            threads, ring, nbytes = gram_sweep_form(k, isz)
+            assert nbytes <= SMEM_MAX_BYTES
+            assert nbytes >= gram_smem_bytes(k, isz)
+            assert (threads == 32) == (ring > 0)
+            assert ring == 0 or k <= 1024
+
+
+@pytest.mark.parametrize("loss,n,k,device,unpen,want", [
+    # the smoke's solves on the card: LS (auto), logistic, fused (the
+    # unpenalized slot), the CV refit and fold-1 serial solve
+    ("least_squares", 1000, 512, "cuda", False, "cuda"),
+    ("least_squares", 1000, 1024, "cuda", False, "cuda"),
+    ("least_squares", 800, 512, "cuda", False, "cuda"),
+    ("logistic", 1000, 256, "cuda", False, "cuda"),
+    ("logistic", 1000, 512, "cuda", True, "cuda"),
+    # the shared-memory form's edge, and past it the Gram engine
+    ("least_squares", 7900, 512, "cuda", True, "cuda"),
+    ("least_squares", 8000, 512, "cuda", True, "gram"),
+    # the CPU tests' shapes keep the reference's crossover
+    ("least_squares", 60, 64, "cpu", False, "gram"),
+    ("least_squares", 60, 512, "cpu", False, "torch"),
+    ("logistic", 80, 128, "cpu", False, "torch"),
+])
+def test_auto_routing_at_smoke_and_test_shapes(loss, n, k, device, unpen,
+                                               want):
+    from repro_torch.core.inner_backend import resolve_inner_backend
+    assert resolve_inner_backend("auto", loss, n, k, torch.device(device),
+                                 8, unpen) == want
