@@ -32,9 +32,15 @@ Phases (each one fails the run by raising):
    phase 5's problem: every point certified, supports growing;
 8. every kernel against its plain version on the card, in float64 and
    float32, at the shapes the solves gave it: max error against a stated
-   tolerance, the kernel's time, the plain version's time, the time of a
+   tolerance, the kernel's own device time per launch (``ms``, from
+   torch.profiler) beside the time of a call of its wrapper (``call_ms``,
+   CUDA events around the calls), the plain version's time, the time of a
    PyTorch call computing the same function where one exists, and the
-   least time the card could take (bytes or operations, whichever bounds);
+   least time the card could take (bytes or operations, whichever
+   bounds); K2's histogram and tail entries bit for bit their twins at the
+   solve's shapes and on inputs with ties, ub on a bound, -inf and NaN ub
+   and +inf bounds (h = 1 to 1024); ``[screen-step]``: the device
+   activities and host microseconds of one serial screen call;
 9. the least-squares fleet at full width: phase 2's X with B = 16
    responses built as benchmarks/bench_batch.py's ``_fleet_problem``
    builds them (15 true features in [-1, 1], N(0, 1) noise, a seed per
@@ -53,9 +59,10 @@ Phases (each one fails the run by raising):
 12. K1b, K2b and K3b against their plain versions at the fleet's shapes
    (B = 16, n = 1000, p = 100,000, its h and k_max), in float64 and
    float32, and each against B launches of its serial kernel (K1, K2,
-   K3), bit for bit; K1b also with per-problem column norms (the 16
-   subsample masks of phase 14), against its twin and 16 launches of K1
-   each with its own norms;
+   K3), bit for bit; K1b and K2b's tail also with per-problem column
+   norms (the 16 subsample masks of phase 14), against their twins and
+   16 launches of K1 and K2 each with its own norms; K2b on the edge
+   inputs; ``[screen-step]`` of one fleet screen call;
 13. ``[cv-ls]``: ``cv_solve`` with K = 5 folds over the lambda grid
    CV_GRID (geometric, fractions of lambda_max) on phase 2's X and a
    response built as the fleets' are (15 true features); the fold fleets
@@ -87,8 +94,8 @@ read just after; the
 kernel launches of phases 8, 12 and 17, of the checks of phases 13-14, of
 the comparisons of phase 4, of the serial solves that phases 9-10 compare
 with, of the lambda_max helpers and of one extra solve
-under torch.profiler (the device's busy time and idle share) do not
-count. The last two lines are the card's name and power limit and
+under torch.profiler (the device's busy time and idle share; these run
+last, after phase 17) do not count. The last two lines are the card's name and power limit and
 ``{"ok": true, "device": {...}}``; the line before them is the per-kernel
 JSON record.
 """
@@ -182,7 +189,8 @@ def fused_chain_data(n, p, seed=0, logistic=False):
 
 
 def time_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call on the card (CUDA events, one warm-up)."""
+    """Mean milliseconds per call on the card (CUDA events, one warm-up):
+    the call's time, host work between launches included."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -194,6 +202,53 @@ def time_ms(fn, reps: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def device_events(fn, reps: int, expect=None):
+    """The device activities (kernels, copies, memsets) that ``reps`` calls
+    of ``fn`` put on the card, from torch.profiler after one warm-up.
+    Late in a run a session can miss some of its launches (one or two of
+    200, whatever the waits around them; a fresh process misses none), so
+    callers average over the launches it kept. ``expect`` = (name, launches
+    per call): a session that kept under half of that kernel's launches
+    is run again, three times at most."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if expect is None:
+            return ev
+        seen = sum(expect[0] in e.name for e in ev)
+        if 2 * seen >= expect[1] * reps:
+            return ev
+        print(f"[profiler] kept {seen} of {reps} x {expect[1]} launches of "
+              f"{expect[0]}; again", file=sys.stderr, flush=True)
+    raise RuntimeError(f"the profiler kept under half of {reps} x "
+                       f"{expect[1]} launches of {expect[0]} three times")
+
+
+def device_ms(fn, reps: int, kernel: str) -> float:
+    """The kernel's own device time per launch, in ms: the durations of
+    the launches whose name holds ``kernel`` over ``reps`` calls (one
+    each; ten at least, as a session may miss one or two), summed and
+    divided by their number (the wrapper's other device work, such as a
+    fill or a cast, is left out)."""
+    reps = max(reps, 10)
+    ev = [e for e in device_events(fn, reps, (kernel, 1)) if kernel in e.name]
+    return sum(e.device_time_total for e in ev) / len(ev) / 1e3
+
+
+def kernel_ms(fn, reps: int, kernel: str):
+    """(device ms per launch of ``kernel``, ms per call of ``fn``)."""
+    return device_ms(fn, reps, kernel), time_ms(fn, reps)
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str):
@@ -209,18 +264,20 @@ def support(beta, tol=1e-8):
 
 def profile_solve(tag, solve, wall):
     """Run ``solve`` once more under torch.profiler and print the device's
-    busy time (the sum of kernel times, one stream) against the unprofiled
-    wall time ``wall``, and the kernels that take most of it (a kernel's
-    template instances counted together)."""
+    busy time (the sum of its activities' durations, one stream) against
+    the unprofiled wall time ``wall``, and the kernels that take most of
+    it (a kernel's template instances counted together). Only device
+    activities count: a host op's entry carries its kernels' time too."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         solve()
         torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    busy_s = sum(e.self_device_time_total for e in ev) / 1e6
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_s = sum(e.device_time_total for e in ev) / 1e6
     if busy_s == 0.0:
         print(f"[profile {tag}] device time: not measured (the profiler "
               f"recorded no device activity)", flush=True)
@@ -228,14 +285,20 @@ def profile_solve(tag, solve, wall):
     # one line per kernel, its template instances summed
     fam = {}
     for e in ev:
-        name = e.key.split("<")[0].split("::")[-1].split("(")[0].strip()
+        name = e.name.split("<")[0].split("::")[-1].split("(")[0].strip()
         t, c = fam.get(name, (0.0, 0))
-        fam[name] = (t + e.self_device_time_total, c + e.count)
+        fam[name] = (t + e.device_time_total, c + 1)
     top = sorted(fam.items(), key=lambda kv: -kv[1][0])[:5]
     tops = "; ".join(f"{name[:60]} {t / 1e3:.2f} ms x{c}"
                      for name, (t, c) in top)
     print(f"[profile {tag}] device_busy_s={busy_s:.4f} wall_s={wall:.4f} "
-          f"idle_share={1 - busy_s / wall:.3f} top: {tops}", flush=True)
+          f"idle_share={1 - busy_s / wall:.3f} device_ops={len(ev)} "
+          f"top: {tops}", flush=True)
+
+
+# profiled re-runs of the solves, (tag, solve, wall), run after the kernel
+# checks: the kernel rows' short profiler sessions come first
+DEFERRED_PROFILES = []
 
 
 def solve_phase(name, lam, cfg, runs, expect, solve, kkt, profiled=()):
@@ -269,7 +332,8 @@ def solve_phase(name, lam, cfg, runs, expect, solve, kkt, profiled=()):
         results[label] = res
         launches[label] = counts
         if label in profiled:
-            profile_solve(f"{name}/{label}", lambda: solve(c), wall)
+            DEFERRED_PROFILES.append((f"{name}/{label}",
+                                      lambda c=c: solve(c), wall))
     sups = {label: support(r.beta) for label, r in results.items()}
     first = next(iter(sups.values()))
     if any(s != first for s in sups.values()):
@@ -354,6 +418,136 @@ def gram_slots(X, y, idx, mask, dt, w=None):
             int(mask.sum()))
 
 
+def same_bits(outs, refs):
+    """Every output equals its reference bit for bit (NaN where it has NaN,
+    the same dtype and shape)."""
+    import torch
+    for a, b in zip(outs, refs):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            return False
+        if a.is_floating_point():
+            nan = torch.isnan(b)
+            if not torch.equal(torch.isnan(a), nan):
+                return False
+            ints = torch.int64 if a.dtype == torch.float64 else torch.int32
+            if not torch.equal(a[~nan].view(ints), b[~nan].view(ints)):
+                return False
+        elif not torch.equal(a, b):
+            return False
+    return True
+
+
+def tail_edge_inputs(dtype, b, h, per_problem, p=777, seed=31):
+    """Inputs of K2's tail entry with every edge at once: p not a multiple
+    of 256; -inf ub (active columns) and a NaN ub; tied candidates; a
+    padding candidate (score -inf, id >= p, so lb = +inf); two ub exactly
+    on a candidate's bound. Returns (ub, tmax, cand_score, cand_idx,
+    col_norm, r) on the card, ub (b, p)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    dt, dev = getattr(torch, dtype), torch.device("cuda")
+    rng = np.random.default_rng(seed + h)
+    ub = 2.0 * rng.normal(size=(b, p))
+    ub[rng.random((b, p)) < 0.1] = -np.inf
+    ub[:, 5] = np.nan
+    score = np.abs(rng.normal(size=(b, h)))
+    idx = rng.integers(0, p, (b, h))
+    if h > 1:
+        score[:, 1] = score[:, 0]
+        idx[:, 1] = idx[:, 0]                  # a tied bound
+        score[:, h - 1] = -np.inf
+        idx[:, h - 1] = p + 3                  # a padding lane
+    cn = np.abs(rng.normal(size=(b, p) if per_problem else (p,)))
+    r = rng.uniform(0.0, 0.5, b)
+
+    def t(a, d=dt):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, d)
+
+    args = [t(ub), None, t(score), t(idx, torch.int64), t(cn), t(r)]
+    # ub exactly on two candidates' bounds (the twin's)
+    lb = ops.screen_tail_batch_ref(args[0], args[0][:, :1], *args[2:])[1]
+    args[0][:, 7] = lb[:, 0]
+    args[0][:, 9] = lb[:, min(2, h - 1)]
+    pb = -(-p // 256)
+    pad = torch.full((b, pb * 256 - p), -torch.inf, dtype=dt, device=dev)
+    args[1] = torch.cat([args[0], pad], 1).reshape(b, pb, 256).amax(2)
+    return args
+
+
+def check_tail_edges(dtype, batch):
+    """K2's two entries against their twins bit for bit on
+    :func:`tail_edge_inputs` at h = 1, 3, 16, 300 (the block-wide sort)
+    and 1024; with ``batch`` K2b on 3 problems, with shared and with
+    per-problem norms, each row also bitwise the serial kernel's."""
+    import torch
+    from repro_torch.kernels import ops
+    ok = True
+    for h in (1, 3, 16, 300, 1024):
+        for per_problem in ((False, True) if batch else (False,)):
+            b = 3 if batch else 1
+            ub, tmax, sc, ix, cn, r = tail_edge_inputs(dtype, b, h,
+                                                       per_problem)
+            if batch:
+                out = ops.screen_tail_batch(ub, tmax, sc, ix, cn, r)
+                ref = ops.screen_tail_batch_ref(ub, tmax, sc, ix, cn, r)
+                ok = ok and same_bits(out, ref)
+                for i in range(b):
+                    one = ops.screen_tail(ub[i], tmax[i], sc[i], ix[i],
+                                          cn[i] if per_problem else cn, r[i])
+                    ok = ok and same_bits([o[i] for o in out], one)
+                lbs = torch.sort(ref[1], dim=1).values
+                ok = ok and same_bits([ops.ub_histogram_batch(ub, lbs)],
+                                      [ops.ub_histogram_batch_ref(ub, lbs)])
+            else:
+                args = (ub[0], tmax[0], sc[0], ix[0], cn, r[0])
+                ref = ops.screen_tail_ref(*args)
+                ok = ok and same_bits(ops.screen_tail(*args), ref)
+                lbs = torch.sort(ref[1]).values
+                ok = ok and same_bits([ops.ub_histogram(ub[0], lbs)],
+                                      [ops.ub_histogram_ref(ub[0], lbs)])
+    print(f"[kernel {'ub_histogram_batch' if batch else 'ub_histogram'} "
+          f"{dtype} edges] p=777 h=1,3,16,300,1024 ties, ub on a bound, "
+          f"-inf and NaN ub, +inf lb{', shared and per-problem norms' if batch else ''}: "
+          f"bitwise_twin={ok}", flush=True)
+    if not ok:
+        raise RuntimeError(f"K2 {dtype} (batch={batch}) differs from its "
+                           f"twin on the edge inputs")
+
+
+def screen_step(tag, screen, reps=50, calls=10):
+    """One screen call as the engine makes it: the device activities the
+    profiler counts in it (those after the scan apart; means over
+    ``calls`` calls, as a session may miss a launch), and the host's
+    microseconds per call (issue only, and to the end of the work)."""
+    import torch
+    ev = device_events(screen, calls, ("screen_fused_kernel", 1))
+    after = [e for e in ev if "screen_fused_kernel" not in e.name]
+    names = {}
+    for e in after:
+        k = e.name.split("<")[0].split("(")[0].split("::")[-1].strip()[:40]
+        names[k] = names.get(k, 0) + 1
+    names = {k: round(v / calls, 1) for k, v in names.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        screen()
+    host = (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / reps
+    ops, ops_after = len(ev) / calls, len(after) / calls
+    dev_us = sum(e.device_time_total for e in ev) / calls
+    after_us = sum(e.device_time_total for e in after) / calls
+    print(f"[screen-step {tag}] device_ops_per_call={ops:.1f} after_scan="
+          f"{ops_after:.1f} device_us_per_call={dev_us:.2f} after_scan_us="
+          f"{after_us:.2f} host_us_per_call={host * 1e6:.1f} "
+          f"wall_us_per_call={wall * 1e6:.1f} after_scan_ops={names}",
+          flush=True)
+    return {"device_ops": ops, "after_scan": ops_after, "device_us": dev_us,
+            "after_scan_us": after_us, "host_us": host * 1e6,
+            "wall_us": wall * 1e6}
+
+
 def check_kernels(dtype, X, y, lam, h, ls_res, logit, logit_res, fused,
                   records):
     """Hold K1, K2, K3 and K3-pen against their plain versions at the
@@ -399,12 +593,13 @@ def check_kernels(dtype, X, y, lam, h, ls_res, logit, logit_res, fused,
     k1u = ops.screen_scores(Xd, theta, col_norm, r)
     k1u_ref = ops.screen_scores_ref(Xd, theta, col_norm, r)
     err1u = errs(zip(k1u, k1u_ref))[1]
-    ms1 = time_ms(lambda: ops.screen_fused(Xd, theta, col_norm, active, r,
-                                           h=h), 20)
+    ms1, call1 = kernel_ms(lambda: ops.screen_fused(
+        Xd, theta, col_norm, active, r, h=h), 20, "screen_fused_kernel")
     plain1 = time_ms(lambda: ops.screen_fused_ref(Xd, theta, col_norm,
                                                   active, r, h=h), 5)
     lib1 = time_ms(lambda: torch.abs(theta @ Xd), 20)
-    ms1u = time_ms(lambda: ops.screen_scores(Xd, theta, col_norm, r), 20)
+    ms1u = device_ms(lambda: ops.screen_scores(Xd, theta, col_norm, r), 20,
+                     "screen_fused_kernel")
     plain1u = time_ms(lambda: ops.screen_scores_ref(Xd, theta, col_norm, r),
                       5)
     h_tile = min(h, 256)
@@ -416,7 +611,8 @@ def check_kernels(dtype, X, y, lam, h, ls_res, logit, logit_res, fused,
           f"max_abs_err={abs1:.3e} rel_err={err1:.3e} tol={tol:.0e} "
           f"ids_ok={ids_ok} "
           f"(ids differing at near-ties: {n_swapped} of {int(fin.sum())}) "
-          f"unmasked_rel_err={err1u:.3e} ms={ms1:.4f} unmasked_ms={ms1u:.4f}"
+          f"unmasked_rel_err={err1u:.3e} ms={ms1:.4f} call_ms={call1:.4f} "
+          f"unmasked_ms={ms1u:.4f}"
           f" plain_ms={plain1:.4f} unmasked_plain_ms={plain1u:.4f} "
           f"library_ms(abs(theta@X))={lib1:.4f} "
           f"bound_ms={b1:.4f} ({by1})", flush=True)
@@ -424,21 +620,37 @@ def check_kernels(dtype, X, y, lam, h, ls_res, logit, logit_res, fused,
         raise RuntimeError(f"screen_fused {dtype} disagrees with its plain "
                            f"version")
 
-    # K2 at the screen's candidate count, on the scan's ub
-    ub = k1_ref[1]
+    # K2: the histogram entry at the screen's candidate count on the
+    # scan's ub; the tail entry as the screen calls it, on the scan's
+    # outputs and the merged tile winners; both bit for bit their twins
+    ub, tmax = k1_ref[1], k1_ref[5]
     lb_sorted = torch.sort(k1_ref[2][torch.isfinite(k1_ref[2])][:h]).values
     hist = ops.ub_histogram(ub, lb_sorted)
-    hist_ref = ops.ub_histogram_ref(ub, lb_sorted)
-    err2 = int((hist - hist_ref).abs().max())
-    ms2 = time_ms(lambda: ops.ub_histogram(ub, lb_sorted), 50)
-    plain2 = time_ms(lambda: ops.ub_histogram_ref(ub, lb_sorted), 5)
-    hh = lb_sorted.shape[0]
-    b2, by2 = bound_ms(p * isz + hh * isz + (hh + 1) * 4, p * hh, dtype)
-    print(f"[kernel ub_histogram {dtype}] p={p} h={hh} max_abs_err={err2} "
-          f"tol=0 ms={ms2:.4f} plain_ms={plain2:.4f} bound_ms={b2:.6f} "
-          f"({by2})", flush=True)
-    if err2 != 0:
+    err2 = int((hist - ops.ub_histogram_ref(ub, lb_sorted)).abs().max())
+    ms2h, call2h = kernel_ms(lambda: ops.ub_histogram(ub, lb_sorted), 50,
+                             "screen_tail_kernel")
+    vals, pos = torch.sort(k1_ref[3].reshape(-1), descending=True,
+                           stable=True)
+    targs = (ub, tmax, vals[:h], k1_ref[4].reshape(-1)[pos[:h]].long(),
+             col_norm, torch.tensor(r, dtype=dt, device=Xd.device))
+    same2 = same_bits(ops.screen_tail(*targs), ops.screen_tail_ref(*targs))
+    ms2, call2 = kernel_ms(lambda: ops.screen_tail(*targs), 50,
+                           "screen_tail_kernel")
+    plain2 = time_ms(lambda: ops.screen_tail_ref(*targs), 5)
+    hh = targs[2].shape[0]
+    b2, by2 = bound_ms(p * isz + pb * isz + hh * (3 * isz + 8 + 4) + 2 * isz
+                       + 4, p * hh.bit_length(), dtype)
+    print(f"[kernel ub_histogram {dtype}] p={p} h={hh} tail: bitwise_twin="
+          f"{same2} ms={ms2:.4f} call_ms={call2:.4f} plain_ms={plain2:.4f} "
+          f"bound_ms={b2:.6f} ({by2}); histogram entry: max_abs_err={err2} "
+          f"tol=0 ms={ms2h:.4f} call_ms={call2h:.4f}", flush=True)
+    if err2 != 0 or not same2:
         raise RuntimeError(f"ub_histogram {dtype} disagrees")
+    check_tail_edges(dtype, batch=False)
+    if dtype == "float64":
+        from repro_torch.core.screen_backend import make_screen_cuda
+        sfn = make_screen_cuda(Xd, col_norm, h)
+        screen_step("serial", lambda: sfn(theta, targs[5], active))
 
     # K3 on both losses, at each solve's final active block, from beta = 0,
     # one polish burst (the main path's longest)
@@ -467,7 +679,7 @@ def check_kernels(dtype, X, y, lam, h, ls_res, logit, logit_res, fused,
 
         out, ref = run_k(), run_p()
         abs3, err3 = burst_error(loss_name, out, ref, ys, lam_s)
-        ms3 = time_ms(run_k, 3)
+        ms3, call3 = kernel_ms(run_k, 3, "cm_burst_kernel")
         plain3 = time_ms(run_p, 1)
         steps = n_ep * count
         flops = steps * 4 * Xs.shape[0] + 4 * Xs.shape[0] * k
@@ -476,12 +688,12 @@ def check_kernels(dtype, X, y, lam, h, ls_res, logit, logit_res, fused,
         print(f"[kernel cm_burst {dtype} {loss_name}] n={Xs.shape[0]} k={k} "
               f"count={count} n_epochs={n_ep} max_abs_err={abs3:.3e} "
               f"rel_err={err3:.3e} "
-              f"tol={tol3:.0e} ms={ms3:.4f} us_per_step="
+              f"tol={tol3:.0e} ms={ms3:.4f} call_ms={call3:.4f} us_per_step="
               f"{ms3 * 1e3 / steps:.4f} plain_ms={plain3:.4f} "
               f"bound_ms={b3:.6f} ({by3})", flush=True)
         if not err3 <= tol3:
             raise RuntimeError(f"cm_burst {dtype} {loss_name} disagrees")
-        k3[loss_name] = (abs3, ms3, plain3, b3, by3)
+        k3[loss_name] = (abs3, ms3, call3, plain3, b3, by3)
 
     # K3-pen at each fused solve's final block, pen from its slot map
     k3p = {}
@@ -510,7 +722,7 @@ def check_kernels(dtype, X, y, lam, h, ls_res, logit, logit_res, fused,
 
         out, ref = run_k(), run_p()
         abs4, err4 = burst_error(loss_name, out, ref, ys, lam_s)
-        ms4 = time_ms(run_k, 3)
+        ms4, call4 = kernel_ms(run_k, 3, "cm_burst_kernel")
         plain4 = time_ms(run_p, 1)
         n_s = Xs.shape[0]
         steps = n_ep * count
@@ -523,29 +735,29 @@ def check_kernels(dtype, X, y, lam, h, ls_res, logit, logit_res, fused,
         print(f"[kernel cm_burst_pen {dtype} {loss_name}] n={n_s} k={k} "
               f"count={count} n_epochs={n_ep} max_abs_err={abs4:.3e} "
               f"rel_err={err4:.3e} tol={tol3:.0e} ms={ms4:.4f} "
-              f"us_per_step={ms4 * 1e3 / steps:.4f} "
+              f"call_ms={call4:.4f} us_per_step={ms4 * 1e3 / steps:.4f} "
               f"plain_ms={plain4:.4f} bound_ms={b4:.6f} ({by4})",
               flush=True)
         if not err4 <= tol3:
             raise RuntimeError(f"cm_burst_pen {dtype} {loss_name} "
                                f"disagrees")
-        k3p[loss_name] = (abs4, ms4, plain4, b4, by4)
+        k3p[loss_name] = (abs4, ms4, call4, plain4, b4, by4)
 
     if dtype == "float64":
-        e3, m3, pl3, bb3, bby3 = k3["least_squares"]
+        e3, m3, c3, pl3, bb3, bby3 = k3["least_squares"]
         records["screen_fused"].update(
-            max_abs_err=abs1, ms=ms1, plain_ms=plain1, bound_ms=b1,
-            bound_by=by1, library_ms=lib1)
+            max_abs_err=abs1, ms=ms1, call_ms=call1, plain_ms=plain1,
+            bound_ms=b1, bound_by=by1, library_ms=lib1)
         records["ub_histogram"].update(
-            max_abs_err=err2, ms=ms2, plain_ms=plain2, bound_ms=b2,
-            bound_by=by2, library_ms=None)
+            max_abs_err=err2, ms=ms2, call_ms=call2, plain_ms=plain2,
+            bound_ms=b2, bound_by=by2, library_ms=None)
         records["cm_burst"].update(
-            max_abs_err=max(e3, k3["logistic"][0]), ms=m3, plain_ms=pl3,
-            bound_ms=bb3, bound_by=bby3, library_ms=None)
-        e4, m4, pl4, bb4, bby4 = k3p["least_squares"]
+            max_abs_err=max(e3, k3["logistic"][0]), ms=m3, call_ms=c3,
+            plain_ms=pl3, bound_ms=bb3, bound_by=bby3, library_ms=None)
+        e4, m4, c4, pl4, bb4, bby4 = k3p["least_squares"]
         records["cm_burst_pen"].update(
-            max_abs_err=max(e4, k3p["logistic"][0]), ms=m4, plain_ms=pl4,
-            bound_ms=bb4, bound_by=bby4, library_ms=None)
+            max_abs_err=max(e4, k3p["logistic"][0]), ms=m4, call_ms=c4,
+            plain_ms=pl4, bound_ms=bb4, bound_by=bby4, library_ms=None)
 
 
 def transform_phase(X, records):
@@ -605,7 +817,8 @@ def transform_phase(X, records):
         err = float((S - S_ref).abs().max())
         ycut = float((yardstick(Xd) - S_ref).abs().max())
         del S, S_ref
-        ms = time_ms(lambda: ops.chain_suffix_sums(Xd), 10)
+        ms, call = kernel_ms(lambda: ops.chain_suffix_sums(Xd), 10,
+                             "chain_suffix_kernel")
         plain = time_ms(lambda: ops.chain_suffix_sums_ref(Xd), 1)
         lib = time_ms(lambda: yardstick(Xd), 10)
         isz = Xd.element_size()
@@ -614,7 +827,7 @@ def transform_phase(X, records):
         floor = (p - 1) * cyc / (clock * 1e6) * 1e3
         print(f"[kernel chain_suffix_sums {dtype}] n={n} p={p} "
               f"bitwise_equal={same} max_abs_err={err:.3e} tol=0 (bits) "
-              f"ms={ms:.4f} plain_ms={plain:.4f} "
+              f"ms={ms:.4f} call_ms={call:.4f} plain_ms={plain:.4f} "
               f"library_ms(flip-cumsum-flip)={lib:.4f} "
               f"library_max_abs_dev={ycut:.3e} bound_ms={bnd:.4f} ({by}) "
               f"add_latency_cycles={cyc:.2f} max_sm_clock_mhz={clock:.0f} "
@@ -623,8 +836,8 @@ def transform_phase(X, records):
             raise RuntimeError(f"chain_suffix_sums {dtype} is not bitwise "
                                f"its plain version")
         if rec is None:
-            rec = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
-                       bound_by=by, library_ms=lib)
+            rec = dict(max_abs_err=err, ms=ms, call_ms=call, plain_ms=plain,
+                       bound_ms=bnd, bound_by=by, library_ms=lib)
         del Xd
     records["chain_suffix_sums"].update(rec)
     return launches
@@ -665,7 +878,7 @@ def fused_phases():
             {"auto": {},
              "plain": {"screen_backend": "torch", "inner_backend": "torch"}},
             {"auto": on, "plain": off},
-            lambda c: rt.saif_fused(
+            lambda c, y=y, lam=lam: rt.saif_fused(   # profiled later
                 X, y, parent, lam, c, transform_backend=(
                     "torch" if c.inner_backend == "torch" else "auto"))[1],
             lambda r: rt.kkt_residual(loss, Xt, y, r.beta, lam, pen),
@@ -791,7 +1004,8 @@ def fleet_phase(name, X, Y, fracs, loss_name, serial_expect, fleet_expect):
     if bad:
         raise RuntimeError(f"{name}: problems {bad} not certified or not "
                            f"bitwise their serial solves")
-    profile_solve(name, lambda: rt.fleet_solve(X, Y, lams, cfg), wall)
+    DEFERRED_PROFILES.append(
+        (name, lambda: rt.fleet_solve(X, Y, lams, cfg), wall))
     from repro_torch.core.batch import fleet_batch_sizes, prepare_fleet
     _, h = fleet_batch_sizes(prepare_fleet(X, Y, cfg), lams, cfg)
     return res, lams, counts, h
@@ -857,13 +1071,13 @@ def check_screen_per_problem_norms(dtype, Xd, Theta, active, r, h, Wn,
         one = ops.screen_fused(Xd, Theta[i].contiguous(), cn[i].contiguous(),
                                active[i].contiguous(), r[i], h=h)
         same = same and all(torch.equal(a[i], o) for a, o in zip(k1, one))
-    ms = time_ms(lambda: ops.screen_fused_batch(Xd, Theta, cn, active, r,
-                                                h=h), 10)
+    ms, call = kernel_ms(lambda: ops.screen_fused_batch(
+        Xd, Theta, cn, active, r, h=h), 10, "screen_fused_kernel")
     print(f"[kernel screen_fused_batch {dtype} per-problem norms] B={b} "
           f"max_abs_err={abs1:.3e} rel_err={err1:.3e} tol={tol:.0e} "
           f"ids_ok={ids_ok} (ids differing at near-ties: "
           f"{int(swapped.sum())}) bitwise_B_x_K1_own_norms={same} "
-          f"ms={ms:.4f}", flush=True)
+          f"ms={ms:.4f} call_ms={call:.4f}", flush=True)
     if not (err1 <= tol and ids_ok and same):
         raise RuntimeError(f"screen_fused_batch {dtype} with per-problem "
                            f"norms disagrees")
@@ -917,12 +1131,13 @@ def check_fleet_kernels(dtype, X, Y, lams, h, res, loss_name, records,
         one = ops.screen_fused(Xd, Theta[i].contiguous(), col_norm,
                                active[i].contiguous(), r[i], h=h)
         same1 = same1 and all(torch.equal(a[i], o) for a, o in zip(k1, one))
-    ms1 = time_ms(lambda: ops.screen_fused_batch(Xd, Theta, col_norm, active,
-                                                 r, h=h), 10)
+    ms1, call1 = kernel_ms(lambda: ops.screen_fused_batch(
+        Xd, Theta, col_norm, active, r, h=h), 10, "screen_fused_kernel")
     # the same scan without the mask and the tile top-h epilogue: the split
     # of the kernel's time between its scan and its epilogue
-    ms1u = time_ms(lambda: _scan("screen_fused_batch", Xd, Theta, col_norm,
-                                 None, r, 1, False), 10)
+    ms1u = device_ms(lambda: _scan("screen_fused_batch", Xd, Theta, col_norm,
+                                   None, r, 1, False), 10,
+                     "screen_fused_kernel")
     plain1 = time_ms(lambda: ops.screen_fused_batch_ref(
         Xd, Theta, col_norm, active, r, h=h), 2)
     lib1 = time_ms(lambda: torch.abs(Theta @ Xd), 10)
@@ -933,7 +1148,8 @@ def check_fleet_kernels(dtype, X, Y, lams, h, res, loss_name, records,
           f"max_abs_err={abs1:.3e} rel_err={err1:.3e} tol={tol:.0e} "
           f"ids_ok={ids_ok} (ids differing at near-ties: "
           f"{int(swapped.sum())} of {int(fin.sum())}) bitwise_B_x_K1="
-          f"{same1} ms={ms1:.4f} unmasked_ms={ms1u:.4f} plain_ms="
+          f"{same1} ms={ms1:.4f} call_ms={call1:.4f} unmasked_ms="
+          f"{ms1u:.4f} plain_ms="
           f"{plain1:.4f} library_ms(abs(Theta@X))={lib1:.4f} "
           f"bound_ms={b1:.4f} ({by1})", flush=True)
     if not (err1 <= tol and ids_ok and same1):
@@ -942,23 +1158,60 @@ def check_fleet_kernels(dtype, X, Y, lams, h, res, loss_name, records,
         check_screen_per_problem_norms(dtype, Xd, Theta, active, r, h,
                                        Wn.to(dt), tol)
 
-    # K2b on the scan's ub against each problem's h smallest finite lb
-    ub = ref[1]
+    # K2b: the histogram entry on the scan's ub against each problem's h
+    # smallest finite lb; the tail entry as the fleet screen calls it, with
+    # the shared norms and with the 16 subsample masks' norms; both bit
+    # for bit their twins and, row by row, the serial kernel
+    ub, tmax = ref[1], ref[5]
     lb_sorted = torch.stack([torch.sort(ref[2][i][torch.isfinite(
         ref[2][i])][:h]).values for i in range(b)])
     hist = ops.ub_histogram_batch(ub, lb_sorted)
     err2 = int((hist - ops.ub_histogram_batch_ref(ub, lb_sorted)).abs().max())
     same2 = all(torch.equal(hist[i], ops.ub_histogram(ub[i], lb_sorted[i]))
                 for i in range(b))
-    ms2 = time_ms(lambda: ops.ub_histogram_batch(ub, lb_sorted), 20)
-    plain2 = time_ms(lambda: ops.ub_histogram_batch_ref(ub, lb_sorted), 2)
-    b2, by2 = bound_ms(b * p * isz + b * h * isz + b * (h + 1) * 4,
-                       b * p * h, dtype)
-    print(f"[kernel ub_histogram_batch {dtype}] B={b} p={p} h={h} "
-          f"max_abs_err={err2} tol=0 bitwise_B_x_K2={same2} ms={ms2:.4f} "
-          f"plain_ms={plain2:.4f} bound_ms={b2:.6f} ({by2})", flush=True)
-    if err2 != 0 or not same2:
+    ms2h, call2h = kernel_ms(lambda: ops.ub_histogram_batch(ub, lb_sorted),
+                             20, "screen_tail_kernel")
+    vals, pos = torch.sort(ref[3].reshape(b, -1), dim=1, descending=True,
+                           stable=True)
+    cidx = torch.gather(ref[4].reshape(b, -1), 1, pos[:, :h]).long()
+    norms = [col_norm]
+    if Wn is not None:
+        XX = Xd * Xd
+        norms.append(torch.stack([torch.sqrt(w @ XX) for w in Wn.to(dt)]))
+        del XX
+    tails = []
+    for cn in norms:
+        targs = (ub, tmax, vals[:, :h], cidx, cn, r)
+        out = ops.screen_tail_batch(*targs)
+        ok = same_bits(out, ops.screen_tail_batch_ref(*targs))
+        for i in range(b):
+            ok = ok and same_bits([o[i] for o in out], ops.screen_tail(
+                ub[i], tmax[i], vals[i, :h], cidx[i],
+                cn if cn.ndim == 1 else cn[i], r[i]))
+        tails.append(ok)
+    targs = (ub, tmax, vals[:, :h], cidx, col_norm, r)
+    ms2, call2 = kernel_ms(lambda: ops.screen_tail_batch(*targs), 20,
+                           "screen_tail_kernel")
+    plain2 = time_ms(lambda: ops.screen_tail_batch_ref(*targs), 2)
+    b2, by2 = bound_ms(b * (p * isz + pb * isz + h * (3 * isz + 8 + 4)
+                            + 2 * isz + 4), b * p * h.bit_length(), dtype)
+    print(f"[kernel ub_histogram_batch {dtype}] B={b} p={p} h={h} tail: "
+          f"bitwise_twin_and_B_x_K2 (shared{', per-problem' if Wn is not None else ''} norms)={tails} "
+          f"ms={ms2:.4f} call_ms={call2:.4f} plain_ms={plain2:.4f} "
+          f"bound_ms={b2:.6f} ({by2}); histogram entry: max_abs_err={err2} "
+          f"tol=0 bitwise_B_x_K2={same2} ms={ms2h:.4f} call_ms={call2h:.4f}",
+          flush=True)
+    if err2 != 0 or not same2 or not all(tails):
         raise RuntimeError(f"ub_histogram_batch {dtype} disagrees")
+    check_tail_edges(dtype, batch=True)
+    if dtype == "float64":
+        from repro_torch.core.screen_backend import make_batch_screen_cuda
+        fsc = make_batch_screen_cuda(Xd, col_norm, h)
+        thetas = list(Theta)
+        rs = list(r)
+        acts = list(active)
+        do = [True] * b
+        screen_step(f"fleet B={b}", lambda: fsc(thetas, rs, acts, do))
 
     # K3b at each problem's final active block, from beta = 0, one polish
     # burst; the last problem frozen (0 epochs), as the fleet does
@@ -999,7 +1252,7 @@ def check_fleet_kernels(dtype, X, Y, lams, h, res, loss_name, records,
                               loss_name=loss_name)
         same3 = same3 and all(torch.equal(o[i], s) for o, s in zip(out, one))
     tol3 = {"float64": 1e-12, "float32": 1e-3}[dtype]
-    ms3 = time_ms(run_k, 3)
+    ms3, call3 = kernel_ms(run_k, 3, "cm_burst_kernel")
     plain3 = time_ms(run_p, 1)
     steps = int((n_ep.long() * count.long()).sum())
     flops = steps * 4 * n + b * 4 * n * k
@@ -1008,21 +1261,22 @@ def check_fleet_kernels(dtype, X, Y, lams, h, res, loss_name, records,
     print(f"[kernel cm_burst_batch {dtype} {loss_name}] B={b} n={n} k={k} "
           f"live={count.tolist()} n_epochs=40 (last problem 0) "
           f"max_abs_err={abs3:.3e} rel_err={err3:.3e} tol={tol3:.0e} "
-          f"bitwise_B_x_K3={same3} ms={ms3:.4f} us_per_step="
+          f"bitwise_B_x_K3={same3} ms={ms3:.4f} call_ms={call3:.4f} "
+          f"us_per_step="
           f"{ms3 * 1e3 / (40 * int(count.max())):.4f} plain_ms="
           f"{plain3:.4f} bound_ms={b3:.6f} ({by3})", flush=True)
     if not (err3 <= tol3 and same3):
         raise RuntimeError(f"cm_burst_batch {dtype} disagrees")
     if dtype == "float64":
         records["screen_fused_batch"].update(
-            max_abs_err=abs1, ms=ms1, plain_ms=plain1, bound_ms=b1,
-            bound_by=by1, library_ms=lib1)
+            max_abs_err=abs1, ms=ms1, call_ms=call1, plain_ms=plain1,
+            bound_ms=b1, bound_by=by1, library_ms=lib1)
         records["ub_histogram_batch"].update(
-            max_abs_err=err2, ms=ms2, plain_ms=plain2, bound_ms=b2,
-            bound_by=by2, library_ms=None)
+            max_abs_err=err2, ms=ms2, call_ms=call2, plain_ms=plain2,
+            bound_ms=b2, bound_by=by2, library_ms=None)
         records["cm_burst_batch"].update(
-            max_abs_err=abs3, ms=ms3, plain_ms=plain3, bound_ms=b3,
-            bound_by=by3, library_ms=None)
+            max_abs_err=abs3, ms=ms3, call_ms=call3, plain_ms=plain3,
+            bound_ms=b3, bound_by=by3, library_ms=None)
 
 
 def cv_screen_h(X, y, lams):
@@ -1082,16 +1336,17 @@ def check_screen_cv_shape(dtype, X, cv, h):
     same = all(all(torch.equal(a[i], o) for a, o in zip(k1, ops.screen_fused(
         Xd, Theta[i].contiguous(), cn[i].contiguous(),
         active[i].contiguous(), r[i], h=h))) for i in range(CV_FOLDS))
-    ms = time_ms(lambda: ops.screen_fused_batch(Xd, Theta, cn, active, r,
-                                                h=h), 10)
-    ms_u = time_ms(lambda: _scan("screen_fused_batch", Xd, Theta, cn, None,
-                                 r, 1, False), 10)
+    ms, call = kernel_ms(lambda: ops.screen_fused_batch(
+        Xd, Theta, cn, active, r, h=h), 10, "screen_fused_kernel")
+    ms_u = device_ms(lambda: _scan("screen_fused_batch", Xd, Theta, cn, None,
+                                   r, 1, False), 10, "screen_fused_kernel")
     print(f"[kernel screen_fused_batch {dtype} cv shape] B={CV_FOLDS} n={n} "
           f"p={p} h={h} (the [cv-ls] grid's largest) active="
           f"{active.sum(1).tolist()} max_abs_err={abs1:.3e} rel_err="
           f"{err1:.3e} tol={tol:.0e} ids_ok={ids_ok} (ids differing at "
           f"near-ties: {int(swapped.sum())}) bitwise_B_x_K1_own_norms={same}"
-          f" ms={ms:.4f} unmasked_ms={ms_u:.4f}", flush=True)
+          f" ms={ms:.4f} call_ms={call:.4f} unmasked_ms={ms_u:.4f}",
+          flush=True)
     if not (err1 <= tol and ids_ok and same):
         raise RuntimeError(f"screen_fused_batch {dtype} at the cv shape "
                            f"disagrees")
@@ -1290,9 +1545,8 @@ def cv_phase(X, y, fleet_expect, refit_expect):
     if not ok:
         raise RuntimeError("cv-ls: fold 1 differs from its row-subsampled "
                            "serial solve")
-    profile_solve("cv-ls", lambda: rt.cv_solve(X, y, lams, n_folds=CV_FOLDS,
-                                               config=cfg, refit=False),
-                  wall)
+    DEFERRED_PROFILES.append(("cv-ls", lambda: rt.cv_solve(
+        X, y, lams, n_folds=CV_FOLDS, config=cfg, refit=False), wall))
     return cv, lams, {k: counts[k] + refit_counts[k] for k in counts}, lm
 
 
@@ -1433,8 +1687,9 @@ def check_cm_epochs(X, y, lam, res, records):
         b, _ = ops.cm_epochs(A, yf, b, csq, mask, lam, n_epochs=1)
         objs.append(cm_objective(A, yf, b, lam))
     mono = all(c <= p_ * (1 + 1e-6) for p_, c in zip(objs, objs[1:]))
-    ms = time_ms(lambda: ops.cm_epochs(A, yf, beta0, csq, mask, lam,
-                                       n_epochs=40), 3)
+    ms, call = kernel_ms(lambda: ops.cm_epochs(A, yf, beta0, csq, mask, lam,
+                                               n_epochs=40), 3,
+                         "cm_epochs_kernel")
     plain = time_ms(lambda: ops.cm_epochs_ref(A, yf, beta0, csq, mask, lam,
                                               n_epochs=40), 1)
     steps = 40 * k
@@ -1443,12 +1698,14 @@ def check_cm_epochs(X, y, lam, res, records):
     print(f"[kernel cm_epochs float32] n={n} k={k} live={int(mask.sum())} "
           f"epochs=1,40 max_abs_err={worst:.3e} rel_err={max(errs_r):.3e} "
           f"tol=1e-03 objective_by_epoch={objs} non_increasing={mono} "
-          f"ms={ms:.4f} us_per_step={ms * 1e3 / steps:.4f} "
+          f"ms={ms:.4f} call_ms={call:.4f} us_per_step="
+          f"{ms * 1e3 / steps:.4f} "
           f"plain_ms={plain:.4f} bound_ms={bnd:.6f} ({by})", flush=True)
     if not (max(errs_r) <= 1e-3 and mono):
         raise RuntimeError("cm_epochs disagrees with its plain version")
-    records["cm_epochs"].update(max_abs_err=worst, ms=ms, plain_ms=plain,
-                                bound_ms=bnd, bound_by=by, library_ms=None)
+    records["cm_epochs"].update(max_abs_err=worst, ms=ms, call_ms=call,
+                                plain_ms=plain, bound_ms=bnd, bound_by=by,
+                                library_ms=None)
 
 
 def check_gram_sweep(dtype, X, y, lam, gram_res, cv, records):
@@ -1477,8 +1734,9 @@ def check_gram_sweep(dtype, X, y, lam, gram_res, cv, records):
     ref = ops.gram_sweep_ref(G, rho, beta, mask, lam_t, order, count, n_ep)
     err = float((out - ref).abs().max())
     rel = err / max(float(ref.abs().max()), 1e-300)
-    ms = time_ms(lambda: ops.gram_sweep(G, rho, beta, mask, lam_t, order,
-                                        count, n_ep), 5)
+    ms, call = kernel_ms(lambda: ops.gram_sweep(G, rho, beta, mask, lam_t,
+                                                order, count, n_ep), 5,
+                         "gram_sweep_kernel")
     plain = time_ms(lambda: ops.gram_sweep_ref(G, rho, beta, mask, lam_t,
                                                order, count, n_ep), 1)
     steps = n_ep * count
@@ -1487,7 +1745,8 @@ def check_gram_sweep(dtype, X, y, lam, gram_res, cv, records):
     print(f"[kernel gram_sweep {dtype}] k_max={k} live={count} "
           f"n_epochs={n_ep} from beta=0 nonzero={int((ref != 0).sum())} "
           f"max_abs_err={err:.3e} rel_err={rel:.3e} "
-          f"tol={tol:.0e} ms={ms:.4f} us_per_step={ms * 1e3 / steps:.4f} "
+          f"tol={tol:.0e} ms={ms:.4f} call_ms={call:.4f} "
+          f"us_per_step={ms * 1e3 / steps:.4f} "
           f"plain_ms={plain:.4f} bound_ms={bnd:.6f} ({by})", flush=True)
     if not rel <= tol:
         raise RuntimeError(f"gram_sweep {dtype} disagrees")
@@ -1510,8 +1769,8 @@ def check_gram_sweep(dtype, X, y, lam, gram_res, cv, records):
     same = all(torch.equal(outb[i], ops.gram_sweep(
         Gb[i], rb[i], bb[i], mb[i], lams[i], ob[i], per[i][5], n_ep))
         for i in range(m))
-    msb = time_ms(lambda: ops.gram_sweep_batch(Gb, rb, bb, mb, lams, ob, cnt,
-                                               nep), 5)
+    msb, callb = kernel_ms(lambda: ops.gram_sweep_batch(
+        Gb, rb, bb, mb, lams, ob, cnt, nep), 5, "gram_sweep_kernel")
     plainb = time_ms(lambda: ops.gram_sweep_batch_ref(Gb, rb, bb, mb, lams,
                                                       ob, cnt, nep), 1)
     kb = Gb.shape[1]
@@ -1522,18 +1781,19 @@ def check_gram_sweep(dtype, X, y, lam, gram_res, cv, records):
           f"live={cnt.tolist()} n_epochs={n_ep} from beta=0 nonzero="
           f"{(refb != 0).sum(1).tolist()} max_abs_err={errb:.3e} "
           f"rel_err={relb:.3e} tol={tol:.0e} bitwise_B_x_K6={same} "
-          f"ms={msb:.4f} us_per_step={msb * 1e3 / (n_ep * int(cnt.max())):.4f}"
+          f"ms={msb:.4f} call_ms={callb:.4f} "
+          f"us_per_step={msb * 1e3 / (n_ep * int(cnt.max())):.4f}"
           f" plain_ms={plainb:.4f} bound_ms={bndb:.6f} ({byb})",
           flush=True)
     if not (relb <= tol and same):
         raise RuntimeError(f"gram_sweep_batch {dtype} disagrees")
     if dtype == "float64":
-        records["gram_sweep"].update(max_abs_err=err, ms=ms, plain_ms=plain,
-                                     bound_ms=bnd, bound_by=by,
-                                     library_ms=None)
+        records["gram_sweep"].update(max_abs_err=err, ms=ms, call_ms=call,
+                                     plain_ms=plain, bound_ms=bnd,
+                                     bound_by=by, library_ms=None)
         records["gram_sweep_batch"].update(
-            max_abs_err=errb, ms=msb, plain_ms=plainb, bound_ms=bndb,
-            bound_by=byb, library_ms=None)
+            max_abs_err=errb, ms=msb, call_ms=callb, plain_ms=plainb,
+            bound_ms=bndb, bound_by=byb, library_ms=None)
 
 
 def main() -> int:
@@ -1704,6 +1964,10 @@ def main() -> int:
                               args.p)
     del prep
     h_cv = cv_screen_h(X, ycv, cv_lams)
+    from repro_torch.kernels.screen.screen import empty_launch
+    floor, floor_call = kernel_ms(empty_launch, 200, "empty_kernel")
+    print(f"[launch-floor] an empty kernel (one CTA of 32 threads): "
+          f"device_ms={floor:.5f} call_ms={floor_call:.5f}", flush=True)
     for dtype in ("float64", "float32"):
         check_kernels(dtype, X, y, lam, h, ls_res["auto"], (XL, yL, lamL),
                       lg_res["auto"], fused, records)
@@ -1713,6 +1977,8 @@ def main() -> int:
         tie_probe(dtype)
         check_gram_sweep(dtype, X, y, lam, ls_res["gram"], cv, records)
     check_cm_epochs(X, y, lam, ls_res["auto"], records)
+    for tag, solve, wall in DEFERRED_PROFILES:
+        profile_solve(tag, solve, wall)
 
     print(json.dumps({"kernels": list(records.values())}))
     print(nvidia_smi_line())

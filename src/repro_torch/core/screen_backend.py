@@ -10,8 +10,9 @@ as one :class:`ScreenOut`. Two backends:
   * ``torch`` — one matvec, a stable descending sort for the top-h, and
                 searchsorted/bincount counts (the reference's ``jnp``);
   * ``cuda``  — kernels K1 (masked scan + tile top-h + tile max-ub) and K2
-                (ub histogram against the sorted candidate bounds), the
-                reference's ``pallas``.
+                (the tail: the candidates' bounds, the ub histogram against
+                them, the counts, the survivors and max ub, in one launch),
+                the reference's ``pallas``.
 
 Both give the same candidates and the same integer counts: top-h ties go
 to the lowest feature id (``jax.lax.top_k``'s order), which ``torch.topk``
@@ -26,6 +27,8 @@ import torch
 # the rule/backend seam: re-exported so rule consumers import one module
 from repro_torch.core.screen_rule import (SCREEN_RULES,  # noqa: F401
                                           ScreenRule, resolve_screen_rule)
+from repro_torch.kernels.screen.ref import (ge_counts_from_hist,
+                                            survivor_count)
 
 Tensor = torch.Tensor
 
@@ -56,16 +59,6 @@ def _top(x: Tensor, h: int):
     return vals[:h], idx[:h]
 
 
-def ge_counts_from_hist(hist: Tensor, lb_sorted: Tensor,
-                        lb_cand: Tensor) -> Tensor:
-    """Per-candidate #{i : ub_i >= lb} from the c-histogram (exact); rows
-    of 2-D arguments are problems of a fleet."""
-    suffix = torch.cumsum(hist.flip(-1), -1).flip(-1)  # suffix[m] = Σ_{t>=m}
-    pos = torch.searchsorted(lb_sorted, lb_cand, right=False)
-    return torch.gather(suffix, -1, torch.clamp(
-        pos + 1, max=hist.shape[-1] - 1)).to(torch.int32)
-
-
 def violation_ge_counts(ub: Tensor, lb_cand: Tensor) -> Tensor:
     """Plain counts #{i : ub_i >= lb_l} per candidate, sort-free in p."""
     h = lb_cand.shape[0]
@@ -73,11 +66,6 @@ def violation_ge_counts(ub: Tensor, lb_cand: Tensor) -> Tensor:
     c = torch.searchsorted(lb_sorted, ub, right=True)
     hist = torch.bincount(c, minlength=h + 1)
     return ge_counts_from_hist(hist, lb_sorted, lb_cand)
-
-
-def survivor_count(ub: Tensor) -> Tensor:
-    """#{i : ub_i >= 1}; -inf entries (active/skipped) never count."""
-    return torch.sum(ub >= 1.0, dtype=torch.int32)
 
 
 def _candidate_out(scores_masked, ub, col_norm, r, h) -> ScreenOut:
@@ -102,27 +90,23 @@ def make_screen_torch(X: Tensor, col_norm: Tensor, h: int) -> ScreenFn:
 
 def make_screen_cuda(X: Tensor, col_norm: Tensor, h: int) -> ScreenFn:
     """Kernel backend: K1 scans, the (p/BP) h tile winners merge into the
-    global top-h, K2 histograms ub against the candidates' bounds."""
-    from repro_torch.kernels.screen.screen import screen_fused, ub_histogram
-
-    p = X.shape[1]
+    global top-h, and K2 computes the rest of the screen in one launch
+    (``screen_tail``)."""
+    from repro_torch.kernels.screen.screen import screen_fused, screen_tail
 
     def screen(theta, r, in_active):
         _, ub, _, tops, topi, tmax = screen_fused(X, theta, col_norm,
                                                   in_active, r, h=h)
-        # merge tile winners: O((p/BP) h) candidates, not O(p)
+        # merge tile winners: O((p/BP) h) candidates, not O(p); a saturated
+        # tile can name a padding lane (id >= p) with score -inf, which is
+        # never kept
         cand_score, pos = _top(tops.reshape(-1), h)
         cand_idx = topi.reshape(-1)[pos].long()
-        # a saturated tile can name a padding lane (id >= p) with score
-        # -inf; such a candidate is never kept, its gathers are clamped
-        cand_lb = torch.abs(cand_score -
-                            col_norm[torch.clamp(cand_idx, max=p - 1)] * r)
-        lb_sorted = torch.sort(cand_lb).values
-        hist = ub_histogram(ub, lb_sorted)
-        cand_ge = ge_counts_from_hist(hist, lb_sorted, cand_lb)
-        return ScreenOut(max_ub=torch.max(tmax), cand_score=cand_score,
+        max_ub, cand_lb, cand_ge, n_surv = screen_tail(
+            ub, tmax, cand_score, cand_idx, col_norm, r)
+        return ScreenOut(max_ub=max_ub, cand_score=cand_score,
                          cand_idx=cand_idx, cand_lb=cand_lb, cand_ge=cand_ge,
-                         n_surv=survivor_count(ub))
+                         n_surv=n_surv)
     return screen
 
 
@@ -249,12 +233,11 @@ def make_batch_screen_cuda(X: Tensor, col_norm: Tensor,
     """Kernel fleet screen: K1b scans the shared X once for every problem
     whose ``do`` is set (with the shared norms, or each problem's own row
     of a (B, p) matrix), each problem's (p/BP) h tile winners merge into
-    its top-h, and K2b histograms each problem's ub against its
-    candidates' bounds (the reference's ``pallas``)."""
+    its top-h, and K2b computes the rest of every problem's screen in one
+    launch (``screen_tail_batch``; the reference's ``pallas``)."""
     from repro_torch.kernels.screen.screen import (screen_fused_batch,
-                                                   ub_histogram_batch)
+                                                   screen_tail_batch)
 
-    p = X.shape[1]
     skip = _skip_screen_out(h, X.dtype, X.device)
 
     def screen(thetas, rs, in_actives, do):
@@ -270,17 +253,11 @@ def make_batch_screen_cuda(X: Tensor, col_norm: Tensor,
                                stable=True)
         cand_score = vals[:, :h]
         cand_idx = torch.gather(topi.reshape(m, -1), 1, pos[:, :h]).long()
-        # a saturated tile can name a padding lane (id >= p) with score
-        # -inf; such a candidate is never kept, its gathers are clamped
-        cand_lb = torch.abs(cand_score - torch.gather(
-            fleet_col_norms(cn, m), 1, torch.clamp(cand_idx, max=p - 1))
-            * r[:, None])
-        lb_sorted = torch.sort(cand_lb, dim=1).values
-        hist = ub_histogram_batch(ub, lb_sorted)
-        out = ScreenOut(max_ub=torch.amax(tmax, dim=1), cand_score=cand_score,
-                        cand_idx=cand_idx, cand_lb=cand_lb,
-                        cand_ge=ge_counts_from_hist(hist, lb_sorted, cand_lb),
-                        n_surv=torch.sum(ub >= 1.0, dim=1, dtype=torch.int32))
+        max_ub, cand_lb, cand_ge, n_surv = screen_tail_batch(
+            ub, tmax, cand_score, cand_idx, cn, r)
+        out = ScreenOut(max_ub=max_ub, cand_score=cand_score,
+                        cand_idx=cand_idx, cand_lb=cand_lb, cand_ge=cand_ge,
+                        n_surv=n_surv)
         return _rows(out, do, skip)
     return screen
 

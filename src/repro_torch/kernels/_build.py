@@ -41,6 +41,9 @@ _SIGNATURES = {
         "screen_fused_{dt}": _SCREEN,
         "screen_fused_batch_{dt}": _SCREEN,
         "ub_histogram_{dt}": [_P, _P, _I, _I, _I, _P, _P],
+        "screen_tail_{dt}": [_P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I,
+                             _P, _P, _P, _P, _P],
+        "empty_launch": [_P],
     },
     "cm_burst": {
         "cm_burst_ls_{dt}": _CM,

@@ -24,14 +24,20 @@ from repro_torch.kernels.gram.ref import gram_sweep_batch_ref, gram_sweep_ref
 from repro_torch.kernels.screen.ref import (screen_fused_batch_ref,
                                             screen_fused_ref,
                                             screen_scores_ref,
+                                            screen_tail_batch_ref,
+                                            screen_tail_ref,
                                             ub_histogram_batch_ref,
                                             ub_histogram_ref)
 from repro_torch.kernels.screen.screen import (screen_fused,
                                                screen_fused_batch,
-                                               screen_scores, ub_histogram,
+                                               screen_scores, screen_tail,
+                                               screen_tail_batch,
+                                               ub_histogram,
                                                ub_histogram_batch)
 
-# kernel name -> the wrapper whose ``launches`` counts it
+# kernel name -> the wrapper whose ``launches`` counts it (K2's tail entries
+# screen_tail and screen_tail_batch count in ub_histogram and
+# ub_histogram_batch, as screen_scores counts in screen_fused)
 KERNELS = {"screen_fused": screen_fused, "ub_histogram": ub_histogram,
            "cm_burst": cm_burst_xt, "cm_burst_pen": cm_burst_pen_xt,
            "chain_suffix_sums": chain_suffix_sums,
@@ -65,5 +71,6 @@ __all__ = ["screen_fused", "screen_scores", "ub_histogram", "cm_burst",
            "ub_histogram_batch_ref", "cm_burst_batch_ref", "cm_epochs",
            "cm_epochs_ref", "cm_epochs_smem_ok", "gram_sweep",
            "gram_sweep_batch", "gram_sweep_ref", "gram_sweep_batch_ref",
-           "gram_smem_ok", "on_cuda",
+           "gram_smem_ok", "screen_tail", "screen_tail_batch",
+           "screen_tail_ref", "screen_tail_batch_ref", "on_cuda",
            "launch_counts", "reset_launch_counts", "KERNELS"]

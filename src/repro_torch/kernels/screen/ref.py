@@ -75,3 +75,50 @@ def ub_histogram_ref(ub: Tensor, lb_sorted: Tensor) -> Tensor:
 def ub_histogram_batch_ref(ub: Tensor, lb_sorted: Tensor) -> Tensor:
     """:func:`ub_histogram_ref` per row: ub (m, p), lb_sorted (m, h)."""
     return torch.stack([ub_histogram_ref(u, l) for u, l in zip(ub, lb_sorted)])
+
+
+def ge_counts_from_hist(hist: Tensor, lb_sorted: Tensor,
+                        lb_cand: Tensor) -> Tensor:
+    """Per-candidate #{i : ub_i >= lb} from the c-histogram (exact); rows
+    of 2-D arguments are problems of a fleet."""
+    suffix = torch.cumsum(hist.flip(-1), -1).flip(-1)  # suffix[m] = Σ_{t>=m}
+    pos = torch.searchsorted(lb_sorted, lb_cand, right=False)
+    return torch.gather(suffix, -1, torch.clamp(
+        pos + 1, max=hist.shape[-1] - 1)).to(torch.int32)
+
+
+def survivor_count(ub: Tensor) -> Tensor:
+    """#{i : ub_i >= 1}; -inf entries (active/skipped) never count."""
+    return torch.sum(ub >= 1.0, dtype=torch.int32)
+
+
+def screen_tail_ref(ub: Tensor, tmax: Tensor, cand_score: Tensor,
+                    cand_idx: Tensor, col_norm: Tensor, r):
+    """The serial screen's tail, from the scan's ub (p,) and tile maxima
+    tmax and the merged candidates' scores and ids (h,): returns max ub,
+    the candidates' lower bounds lb_l = |score_l - ||x_l|| r|, their
+    violation counts #{i : ub_i >= lb_l} (int32) and the survivors
+    #{i : ub_i >= 1} (int32). A padding candidate (id >= p, score -inf)
+    reads column p - 1 and gets lb = +inf."""
+    p = ub.shape[0]
+    cand_lb = torch.abs(cand_score -
+                        col_norm[torch.clamp(cand_idx, max=p - 1)] * r)
+    lb_sorted = torch.sort(cand_lb).values
+    hist = ub_histogram_ref(ub, lb_sorted)
+    cand_ge = ge_counts_from_hist(hist, lb_sorted, cand_lb)
+    return torch.max(tmax), cand_lb, cand_ge, survivor_count(ub)
+
+
+def screen_tail_batch_ref(ub: Tensor, tmax: Tensor, cand_score: Tensor,
+                          cand_idx: Tensor, col_norm: Tensor, r: Tensor):
+    """:func:`screen_tail_ref` per row: ub (m, p), tmax (m, p/BP), scores
+    and ids (m, h), col_norm (p,) shared or (m, p), r (m,)."""
+    m, p = ub.shape
+    cn = col_norm.expand(m, -1) if col_norm.ndim == 1 else col_norm
+    cand_lb = torch.abs(cand_score - torch.gather(
+        cn, 1, torch.clamp(cand_idx, max=p - 1)) * r[:, None])
+    lb_sorted = torch.sort(cand_lb, dim=1).values
+    hist = ub_histogram_batch_ref(ub, lb_sorted)
+    return (torch.amax(tmax, dim=1), cand_lb,
+            ge_counts_from_hist(hist, lb_sorted, cand_lb),
+            torch.sum(ub >= 1.0, dim=1, dtype=torch.int32))

@@ -1,5 +1,6 @@
-"""Screening kernels K1 (fused scan) and K2 (violation histogram), and
-their fleet forms K1b and K2b: wrappers.
+"""Screening kernels K1 (fused scan) and K2 (violation histogram, and with
+it the rest of a screen's tail), and their fleet forms K1b and K2b:
+wrappers.
 
 The CUDA sources are ``csrc/screen.cu``; the plain versions are in
 ``ref.py``. A wrapper given CPU tensors returns the plain version; given
@@ -8,8 +9,10 @@ launches in its ``launches`` attribute.
 
 K1 replaces ``repro/kernels/screen/screen.py:271 screen_fused_pallas``
 (and, unmasked, ``:124 screen_scores_pallas``); K2 replaces
-``:512 ub_histogram_pallas``; K1b replaces ``:394
-screen_fused_batch_pallas`` and K2b ``:562 ub_histogram_batch_pallas``.
+``:512 ub_histogram_pallas`` and, in its tail entry, the code around
+it in one screen (``repro/core/screen_backend.py:146-168``); K1b replaces
+``:394 screen_fused_batch_pallas`` and K2b ``:562
+ub_histogram_batch_pallas``.
 """
 from __future__ import annotations
 
@@ -21,12 +24,14 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.screen.ref import (BP, screen_fused_batch_ref,
                                             screen_fused_ref,
                                             screen_scores_ref,
+                                            screen_tail_batch_ref,
+                                            screen_tail_ref,
                                             ub_histogram_batch_ref,
                                             ub_histogram_ref)
 
 Tensor = torch.Tensor
 _FLOATS = (torch.float32, torch.float64)
-# K2 keeps lb_sorted and the (h+1) bins in shared memory
+# K2 keeps the h bounds and the (h+1) bins in shared memory
 HIST_SMEM_BUDGET = 200 * 1024
 
 
@@ -142,8 +147,15 @@ def screen_scores(X: Tensor, theta: Tensor, col_norm: Tensor, r):
     return tuple(t[0] for t in out[:3])
 
 
+def _check_h(h: int, dt) -> None:
+    if h * torch.finfo(dt).bits // 8 + (h + 1) * 4 > HIST_SMEM_BUDGET:
+        raise ValueError(f"ub_histogram: h={h} candidates exceed the "
+                         f"kernel's shared-memory budget")
+
+
 def _hist(ub: Tensor, lb_sorted: Tensor) -> Tensor:
-    """Launch K2/K2b on ub (m, p) against lb_sorted (m, h)."""
+    """Launch K2/K2b's histogram entry on ub (m, p) against lb_sorted
+    (m, h)."""
     m, p = ub.shape
     h = lb_sorted.shape[1]
     dt = ub.dtype
@@ -151,10 +163,8 @@ def _hist(ub: Tensor, lb_sorted: Tensor) -> Tensor:
         raise ValueError(f"ub has dtype {dt}; the kernel takes float32/64")
     _require(ub, "ub", dt, (m, p), ub.device)
     _require(lb_sorted, "lb_sorted", dt, (m, h), ub.device)
-    if h * ub.element_size() + (h + 1) * 4 > HIST_SMEM_BUDGET:
-        raise ValueError(f"ub_histogram: h={h} candidates exceed the "
-                         f"kernel's shared-memory budget")
-    hist = torch.zeros((m, h + 1), dtype=torch.int32, device=ub.device)
+    _check_h(h, dt)
+    hist = torch.empty((m, h + 1), dtype=torch.int32, device=ub.device)
     lib = _build.library("screen")
     fn = lib.ub_histogram_f64 if dt == torch.float64 else lib.ub_histogram_f32
     rc = fn(_ptr(ub), _ptr(lb_sorted), m, p, h, _ptr(hist), _stream())
@@ -163,7 +173,8 @@ def _hist(ub: Tensor, lb_sorted: Tensor) -> Tensor:
 
 
 def ub_histogram(ub: Tensor, lb_sorted: Tensor) -> Tensor:
-    """K2: hist[m] = #{i : #{l : lb_sorted[l] <= ub_i} = m}, (h+1,) int32."""
+    """K2: hist[m] = #{i : #{l : lb_sorted[l] <= ub_i} = m}, (h+1,) int32;
+    lb_sorted ascending (NaN last, as torch.sort leaves it)."""
     if ub.device.type == "cpu":
         return ub_histogram_ref(ub, lb_sorted)
     hist = _hist(ub[None], lb_sorted[None])[0]
@@ -179,6 +190,94 @@ def ub_histogram_batch(ub: Tensor, lb_sorted: Tensor) -> Tensor:
     hist = _hist(ub, lb_sorted)
     ub_histogram_batch.launches += 1
     return hist
+
+
+def _tail(ub, tmax, cand_score, cand_idx, col_norm, r):
+    """Launch K2/K2b's tail entry on the m problems of ub (m, p); returns
+    (max_ub (m,), cand_lb (m, h), cand_ge (m, h), n_surv (m,))."""
+    m, p = ub.shape
+    h = cand_idx.shape[1]
+    dt, dev = ub.dtype, ub.device
+    if dt not in _FLOATS:
+        raise ValueError(f"ub has dtype {dt}; the kernel takes float32/64")
+    _require(ub, "ub", dt, (m, p), dev)
+    _require(tmax, "tmax", dt, (m, tmax.shape[-1]), dev)
+    _require(cand_idx, "cand_idx", torch.int64, (m, h), dev)
+    # the scores may be a prefix of each row of the merge's sort
+    if (cand_score.device != dev or cand_score.dtype != dt
+            or tuple(cand_score.shape) != (m, h)
+            or (h > 1 and cand_score.stride(1) != 1)):
+        raise ValueError(f"cand_score must be ({m}, {h}) {dt} on {dev} "
+                         f"with unit column stride")
+    if col_norm.ndim == 1:
+        _require(col_norm, "col_norm", dt, (p,), dev)
+    else:
+        _require(col_norm, "col_norm", dt, (m, p), dev)
+    _check_h(h, dt)
+    cand_lb = torch.empty((m, h), dtype=dt, device=dev)
+    cand_ge = torch.empty((m, h), dtype=torch.int32, device=dev)
+    n_surv = torch.empty(m, dtype=torch.int32, device=dev)
+    max_ub = torch.empty(m, dtype=dt, device=dev)
+    lib = _build.library("screen")
+    fn = lib.screen_tail_f64 if dt == torch.float64 else lib.screen_tail_f32
+    rc = fn(_ptr(ub), _ptr(tmax), _ptr(cand_score), cand_score.stride(0),
+            _ptr(cand_idx), _ptr(col_norm), p if col_norm.ndim == 2 else 0,
+            _ptr(r), m, p, tmax.shape[-1], h, _ptr(cand_lb), _ptr(cand_ge),
+            _ptr(n_surv), _ptr(max_ub), _stream())
+    _build.check(rc, "screen_tail")
+    return max_ub, cand_lb, cand_ge, n_surv
+
+
+def screen_tail(ub: Tensor, tmax: Tensor, cand_score: Tensor,
+                cand_idx: Tensor, col_norm: Tensor, r):
+    """The serial screen's tail in one launch of K2 (its launches count in
+    ``ub_histogram.launches``): from K1's ub (p,) and tile maxima tmax,
+    the merged candidates' scores and int64 ids (h,), the column norms
+    (p,) and the radius r, returns (max_ub, cand_lb (h,), cand_ge (h,)
+    int32, n_surv int32) as :func:`screen_tail_ref` computes them, bit
+    for bit.
+
+    On the card one thread-block cluster computes the bounds, sorts them
+    in each CTA's shared memory, counts each ub by a binary search into
+    shared bins in one pass and merges the bins into the leader CTA
+    through distributed shared memory, which writes the counts.
+    """
+    if ub.device.type == "cpu":
+        return screen_tail_ref(ub, tmax, cand_score, cand_idx, col_norm, r)
+    dt, dev = ub.dtype, ub.device
+    if isinstance(r, Tensor):
+        r = r.to(device=dev, dtype=dt).reshape(1)
+    else:               # a host scalar: filled on the card, no copy or sync
+        r = torch.full((1,), float(r), dtype=dt, device=dev)
+    out = _tail(ub[None], tmax[None], cand_score[None], cand_idx[None],
+                col_norm, r)
+    ub_histogram.launches += 1
+    return tuple(t[0] for t in out)
+
+
+def screen_tail_batch(ub: Tensor, tmax: Tensor, cand_score: Tensor,
+                      cand_idx: Tensor, col_norm: Tensor, r: Tensor):
+    """The fleet screen's tail, K2b (its launches count in
+    ``ub_histogram_batch.launches``): :func:`screen_tail` for the m
+    problems of ub (m, p), tmax (m, p/BP), scores and ids (m, h), col_norm
+    (p,) shared or (m, p), r (m,) in ub's dtype; each row bitwise the
+    serial tail."""
+    if ub.device.type == "cpu":
+        return screen_tail_batch_ref(ub, tmax, cand_score, cand_idx,
+                                     col_norm, r)
+    if r.dtype != ub.dtype or r.device != ub.device or r.shape != (
+            ub.shape[0],):
+        raise ValueError("r must be (m,) in ub's dtype, on ub's device")
+    out = _tail(ub, tmax, cand_score, cand_idx, col_norm, r.contiguous())
+    ub_histogram_batch.launches += 1
+    return out
+
+
+def empty_launch() -> None:
+    """Launch the empty kernel once (the floor under a launch's device
+    time; uncounted)."""
+    _build.check(_build.library("screen").empty_launch(_stream()),
+                 "empty_launch")
 
 
 screen_fused.launches = 0
