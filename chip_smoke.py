@@ -20,7 +20,10 @@ Phases (each one fails the run by raising):
    burst through K3; the same certificates;
 4. the fused transform at full width: phase 2's X through ``prepare_fused``
    on a chain under ``auto`` launches K4 exactly once, and K4 equals its
-   plain version bit for bit in float64 and float32;
+   plain version bit for bit in float64 and float32, at full width and at
+   edge shapes (13 rows, p = 1 to 5,000, signed zeros and NaN in the first
+   and last columns, a view whose rows start off a 16-byte boundary; NaN
+   where the plain version has NaN);
 5. fused least squares: the chain problem of benchmarks/bench_fused.py at
    n = 1000, p = 5,000, float64, at FUSED_LS_LAM lambda_max, through
    ``saif_fused`` under ``auto`` (K4, K1, K2 and K3-pen) and plain; each
@@ -82,8 +85,9 @@ Phases (each one fails the run by raising):
 16. ``[cm-epochs]``: ``ops.cm_epochs`` (K5) as a caller drives it, on
    the LS solve's final active block in float32;
 17. K5 against its plain version (1 and 40 epochs, the objective
-   non-increasing epoch by epoch), and the Gram sweep K6 against its
-   plain version on the LS Gram solve's final carry in float64 and
+   non-increasing epoch by epoch; and no epoch, a nonzero beta on dead
+   slots, n = 2,048, 2,049 and 7,900, k = 1), and the Gram sweep K6
+   against its plain version on the LS Gram solve's final carry in float64 and
    float32, and K6b on the CV's 5 fold carries at its last lambda against
    its plain version and bit for bit 5 launches of K6; both sweeps start
    from beta = 0, as the K3 and K5 checks do.
@@ -186,6 +190,26 @@ def fused_chain_data(n, p, seed=0, logistic=False):
     y = np.sign(X @ beta + 0.3 * rng.normal(size=n))
     y[y == 0] = 1.0
     return X, y
+
+
+# K4's edge shapes: one column, a tile less one, one tile, a tile plus one,
+# no whole 16-byte rows, whole rows with a partial tile, many tiles
+CHAIN_EDGE_P = (1, 255, 256, 257, 777, 1000, 5000)
+
+
+def chain_edge_input(n, p, dtype, seed):
+    """A gaussian (n, p) design for K4 with -0.0 and NaN in its first and
+    last columns, and row 6 all -0.0 (when n > 6)."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    X = torch.randn(n, p, generator=g, dtype=torch.float64)
+    X[0::3, -1] = -0.0
+    X[1::6, -1] = float("nan")
+    X[2::4, 0] = -0.0
+    X[3::8, 0] = float("nan")
+    if n > 6:
+        X[6, :] = -0.0
+    return X.to(dtype)
 
 
 def time_ms(fn, reps: int) -> float:
@@ -762,7 +786,8 @@ def check_kernels(dtype, X, y, lam, h, ls_res, logit, logit_res, fused,
 
 def transform_phase(X, records):
     """Phase 4: ``prepare_fused`` on a chain at full width launches K4 once;
-    K4 equals its plain version bit for bit in float64 and float32; times
+    K4 equals its plain version bit for bit in float64 and float32, at full
+    width and at the edge shapes (NaN where the twin has NaN); times
     against the bound, the latency floor and the cumsum yardstick."""
     import numpy as np
     import torch
@@ -804,6 +829,18 @@ def transform_phase(X, records):
     rec = None
     for dtype in ("float64", "float32"):
         dt = getattr(torch, dtype)
+        # the edge shapes: 13 rows (a CTA of 8 and one of 5), every tile
+        # case, signed zeros and NaN in the first and last columns, and a
+        # view whose rows start off a 16-byte boundary (element copies)
+        edges = [chain_edge_input(13, q, dt, seed=q).to(X.device)
+                 for q in CHAIN_EDGE_P]
+        off = torch.empty(13 * 1000 + 1, dtype=dt, device=X.device)
+        edges.append(off[1:].view(13, 1000).copy_(
+            chain_edge_input(13, 1000, dt, seed=1)))
+        edge_ok = all(same_bits([ops.chain_suffix_sums(E)],
+                                [ops.chain_suffix_sums_ref(E)])
+                      for E in edges)
+        del edges, off
         Xd = X.to(dt)
         S = ops.chain_suffix_sums(Xd)
         S_ref = ops.chain_suffix_sums_ref(Xd)
@@ -826,18 +863,27 @@ def transform_phase(X, records):
         cyc = add_latency_cycles(dt)
         floor = (p - 1) * cyc / (clock * 1e6) * 1e3
         print(f"[kernel chain_suffix_sums {dtype}] n={n} p={p} "
-              f"bitwise_equal={same} max_abs_err={err:.3e} tol=0 (bits) "
+              f"bitwise_equal={same} edge_shapes_bitwise={edge_ok} "
+              f"(n=13, p={','.join(map(str, CHAIN_EDGE_P))} and an "
+              f"unaligned view; NaN where the twin has NaN) "
+              f"max_abs_err={err:.3e} tol=0 (bits) "
               f"ms={ms:.4f} call_ms={call:.4f} plain_ms={plain:.4f} "
               f"library_ms(flip-cumsum-flip)={lib:.4f} "
               f"library_max_abs_dev={ycut:.3e} bound_ms={bnd:.4f} ({by}) "
               f"add_latency_cycles={cyc:.2f} max_sm_clock_mhz={clock:.0f} "
               f"latency_floor_ms={floor:.4f}", flush=True)
-        if not same:
+        if not (same and edge_ok):
             raise RuntimeError(f"chain_suffix_sums {dtype} is not bitwise "
                                f"its plain version")
         if rec is None:
             rec = dict(max_abs_err=err, ms=ms, call_ms=call, plain_ms=plain,
-                       bound_ms=bnd, bound_by=by, library_ms=lib)
+                       bound_ms=bnd, bound_by=by, library_ms=lib,
+                       latency_floor_ms=floor, add_latency_cycles=cyc)
+        else:
+            rec[dtype] = dict(ms=ms, call_ms=call, plain_ms=plain,
+                              bound_ms=bnd, bound_by=by, library_ms=lib,
+                              latency_floor_ms=floor,
+                              add_latency_cycles=cyc)
         del Xd
     records["chain_suffix_sums"].update(rec)
     return launches
@@ -1665,9 +1711,37 @@ def cm_objective(A, y, beta, lam):
     return float(0.5 * (r * r).sum() + lam * bd.abs().sum())
 
 
+def cm_epochs_edge_cases(A, yf, csq, mask, lam):
+    """K5's edge cases beside the LS block: (name, A, y, col_sq, mask, lam,
+    beta0, n_epochs). From the block: no epoch and a nonzero beta (r = y -
+    A beta alone), and a nonzero beta on every slot, the dead ones
+    included, for 3 epochs. Synthetic gaussian blocks (64 slots, 60 live,
+    3 epochs): n = 2,048 (8 rows a thread in registers), 2,049 and 7,900
+    (r in shared memory); and k = 1 at n = 1000 for 40 epochs."""
+    import torch
+    dev = A.device
+    g = torch.Generator().manual_seed(17)
+    beta_nz = (0.01 * torch.randn(A.shape[1], generator=g)).to(dev)
+    out = [("n_epochs=0", A, yf, csq, mask, lam, beta_nz, 0),
+           ("dead slots beta!=0", A, yf, csq, mask, lam, beta_nz, 3)]
+    for n, k, live, n_ep in ((2048, 64, 60, 3), (2049, 64, 60, 3),
+                             (7900, 64, 60, 3), (1000, 1, 1, 40)):
+        B = torch.randn(n, k, generator=g)
+        m = torch.arange(k) < live
+        B = torch.where(m[None, :], B, 0.0)
+        yy = B[:, :min(k, 20)].sum(1) + torch.randn(n, generator=g)
+        out.append((f"n={n} k={k}", B.to(dev), yy.to(dev),
+                    (B * B).sum(0).to(dev), m.to(dev),
+                    0.3 * float((B.T @ yy).abs().max()),
+                    torch.zeros(k, device=dev), n_ep))
+    return out
+
+
 def check_cm_epochs(X, y, lam, res, records):
     """K5 against its plain version at 1 and 40 epochs on the LS solve's
-    final block, the objective non-increasing epoch by epoch."""
+    final block, the objective non-increasing epoch by epoch, and at the
+    edge cases of ``cm_epochs_edge_cases`` (beta and r, the same
+    tolerance)."""
     import torch
     from repro_torch.kernels import ops
     A, yf, csq, mask, lam = cm_epochs_block(X, y, lam, res)
@@ -1681,6 +1755,20 @@ def check_cm_epochs(X, y, lam, res, records):
         e = float((b1 - b2).abs().max())
         errs_r.append(e / max(float(b2.abs().max()), 1e-30))
         worst = max(worst, e)
+    edge = []
+    for name, A_e, y_e, c_e, m_e, lam_e, b_e, n_ep in cm_epochs_edge_cases(
+            A, yf, csq, mask, lam):
+        b1, r1 = ops.cm_epochs(A_e, y_e, b_e, c_e, m_e, lam_e, n_epochs=n_ep)
+        b2, r2 = ops.cm_epochs_ref(A_e, y_e, b_e, c_e, m_e, lam_e,
+                                   n_epochs=n_ep)
+        e = max(float((b1 - b2).abs().max()) / max(float(b2.abs().max()),
+                                                   1e-30),
+                float((r1 - r2).abs().max()) / max(float(r2.abs().max()),
+                                                   1e-30))
+        # dead slots end at 0 (no epoch: beta comes back as it went in)
+        held = (bool((b1[~m_e] == 0).all()) if n_ep
+                else bool(torch.equal(b1, b_e)))
+        edge.append((name, e, held))
     objs = [cm_objective(A, yf, beta0, lam)]
     b = beta0
     for _ in range(5):
@@ -1701,11 +1789,16 @@ def check_cm_epochs(X, y, lam, res, records):
           f"ms={ms:.4f} call_ms={call:.4f} us_per_step="
           f"{ms * 1e3 / steps:.4f} "
           f"plain_ms={plain:.4f} bound_ms={bnd:.6f} ({by})", flush=True)
-    if not (max(errs_r) <= 1e-3 and mono):
+    print("[kernel cm_epochs float32 edges] " + " ".join(
+        f"{name}: rel_err={e:.3e} dead_slots_ok={held};"
+        for name, e, held in edge) + " tol=1e-03", flush=True)
+    edges_ok = all(e <= 1e-3 and held for _, e, held in edge)
+    if not (max(errs_r) <= 1e-3 and mono and edges_ok):
         raise RuntimeError("cm_epochs disagrees with its plain version")
     records["cm_epochs"].update(max_abs_err=worst, ms=ms, call_ms=call,
                                 plain_ms=plain, bound_ms=bnd, bound_by=by,
-                                library_ms=None)
+                                library_ms=None,
+                                us_per_step=ms * 1e3 / steps)
 
 
 def check_gram_sweep(dtype, X, y, lam, gram_res, cv, records):

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Time the CM burst K3 (least squares, logistic), its unpenalized-slot
-form K3-pen, its fleet form K3b and the Gram sweep K6 / K6b on one NVIDIA
-card at ``chip_smoke.py``'s shapes, per dependent coordinate step, and
-fingerprint their outputs so that two source trees can be held bit for
-bit against each other.
+form K3-pen, its fleet form K3b, the Gram sweep K6 / K6b and the
+least-squares epochs K5 on one NVIDIA card at ``chip_smoke.py``'s shapes,
+per dependent coordinate step, and fingerprint their outputs so that two
+source trees can be held bit for bit against each other.
 
     python3 scripts/cm_probe_torch.py                          # this tree
     python3 scripts/cm_probe_torch.py --src OTHER/src \\
@@ -21,19 +21,27 @@ and n = 7,900 (z and y in shared memory; with the logistic K3-pen tail
 at k = 512, 96 bytes under the shared-memory gate), K6 at k = 200 and
 1,000 (one warp, k not a multiple of its 32 lanes' vectors), 999 (a row
 not a whole number of 16-byte words), 2,048 and 4,096 (past one warp's
-1,024; the last three in the 256-thread form). Every case runs in two regimes:
+1,024; the last three in the 256-thread form). K5 (float32 only, its
+type) runs on the least-squares solve's final block as ``chip_smoke.py``
+hands it over (A (n, k) with its dead columns zeroed) for 1 and 40 epochs
+from beta = 0, for 0, 1 and 40 epochs from a nonzero beta (dead slots
+included), and on synthetic blocks past the smoke's: n = 2,048 (8 rows a
+thread in registers), 2,049 and 7,900 (r in shared memory), and k = 1,
+each also held against its plain twin. Every case runs in two regimes:
 with updates (the solve's lambda) and with every step a no-op (lambda at
-twice max |gradient| at beta = 0; K3-pen's unpenalized slot still moves).
+twice max |gradient| at beta = 0; K3-pen's unpenalized slot still moves,
+and K5 from a nonzero beta zeroes it).
 
 The first run solves the problems on the card and saves the blocks under
 ``--inputs`` (in the git-ignored ``build/``); later runs, from either
 tree, load them, so both trees see the same inputs. It prints nvcc's
-``-Xptxas -v`` report for ``csrc/cm_burst.cu`` and ``csrc/gram_sweep.cu``
-(from the one build the kernels use), with ``--sass DIR`` writes
-``cuobjdump -sass`` of both, then one line per timing (CUDA events, mean
-of ``--reps`` launches after a warm-up): ms and microseconds per
-dependent step (a fleet's problems run side by side, so its steps are its
-longest problem's), then a JSON line. Every output tensor of every probed
+``-Xptxas -v`` report for ``csrc/cm_burst.cu``, ``csrc/gram_sweep.cu`` and
+``csrc/cm_epochs.cu`` (from the one build the kernels use), with
+``--sass DIR`` writes ``cuobjdump -sass`` of them, then one line per
+timing (CUDA events, mean of ``--reps`` launches after a warm-up): ms and
+microseconds per dependent step (a fleet's problems run side by side, so
+its steps are its longest problem's; K5's lines also give the kernel's
+device time per launch from torch.profiler), then a JSON line. Every output tensor of every probed
 launch is fingerprinted (sha256 of its bytes); ``--compare-hashes`` fails
 the run when one differs from the saved ones.
 """
@@ -48,15 +56,15 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 N_EP = 40
-SOURCES = ("cm_burst", "gram_sweep")
+SOURCES = ("cm_burst", "gram_sweep", "cm_epochs")
 
 
-def build_with_report(_build, sass_dir):
-    """Build both sources (in parallel) with ``-Xptxas -v`` into the paths
+def build_with_report(_build, sass_dir, sources=SOURCES):
+    """Build the sources (in parallel) with ``-Xptxas -v`` into the paths
     the wrappers load; print the report; optionally dump SASS."""
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
-    for name in SOURCES:
+    for name in sources:
         out = _build._lib_path(name)
         cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
                str(out), str(_build.CSRC / f"{name}.cu")]
@@ -89,8 +97,9 @@ def make_inputs(path, dev):
     import repro_torch as rt
     from chip_smoke import (CV_FOLDS, CV_GRID, FLEET_LS, FUSED_LOGIT_LAM,
                             FUSED_LS_LAM, FUSED_P, LOGIT_LAM, LS_LAM, N,
-                            burst_inputs, fleet_responses, fused_chain_data,
-                            gram_slots, logistic_data, simulation_data)
+                            burst_inputs, cm_epochs_block, fleet_responses,
+                            fused_chain_data, gram_slots, logistic_data,
+                            simulation_data)
 
     cases = {}
 
@@ -112,6 +121,16 @@ def make_inputs(path, dev):
     lam = LS_LAM * lm
     res = rt.saif(X, y, lam, cfg)
     burst("K3 LS", "least_squares", X, y, res, lam)
+    A5, y5, csq5, mask5, _ = cm_epochs_block(X, y, lam, res)
+    k5 = A5.shape[1]
+    b5 = 0.01 * torch.randn(k5, generator=torch.Generator().manual_seed(9))
+    for n_ep, beta0, tag in ((1, None, "ep=1"), (40, None, "ep=40"),
+                             (0, b5, "ep=0 beta!=0"),
+                             (1, b5, "ep=1 beta!=0 dead slots"),
+                             (40, b5, "ep=40 beta!=0 dead slots")):
+        cases[f"K5 LS {tag}"] = dict(
+            kind="K5", A=A5.cpu(), y=y5.cpu(), col_sq=csq5.cpu(),
+            mask=mask5.cpu(), lam=float(lam), beta0=beta0, n_ep=n_ep)
     gres = rt.saif(X, y, lam, rt.SaifConfig(eps=1e-6, inner_backend="gram"))
     G, rho, _, mask, order, count = gram_slots(
         X, y, gres.active_idx, gres.active_mask, torch.float64)
@@ -209,6 +228,17 @@ def make_inputs(path, dev):
         cases[f"K6 k={k}"] = dict(
             kind="K6", G=A.T @ A, rho=rho, mask=mask, order=torch.arange(k),
             count=live, lam=0.3 * float(rho.abs().max()), n_ep=5, twin=True)
+    # K5 past the smoke's block: synthetic gaussian blocks in float32
+    for n, k, live in ((2048, 512, 500), (2049, 512, 500), (7900, 512, 500),
+                       (1000, 1, 1)):
+        A = torch.randn(n, k, generator=g)
+        yy = A[:, :min(k, 20)].sum(1) + torch.randn(n, generator=g)
+        mask = torch.arange(k) < live
+        A = torch.where(mask[None, :], A, 0.0)
+        cases[f"K5 n={n} k={k}"] = dict(
+            kind="K5", A=A, y=yy, col_sq=(A * A).sum(0), mask=mask,
+            lam=0.3 * float((A.T @ yy).abs().max()), beta0=None, n_ep=5,
+            twin=True)
     path.parent.mkdir(parents=True, exist_ok=True)
     torch.save(cases, path)
     return cases
@@ -219,6 +249,8 @@ def noop_lam(case):
     from beta = 0 then leaves its coordinate at 0."""
     import torch
     kind = case["kind"]
+    if kind == "K5":
+        return 2 * float((case["A"].T @ case["y"]).abs().max())
     if kind in ("K6", "K6b"):
         r = case["rho"]
         return (2 * r.abs().amax(-1)).tolist() if r.dim() > 1 else \
@@ -248,7 +280,7 @@ def main() -> int:
     sys.path.insert(0, str(Path(args.src).resolve()))
     sys.path.insert(0, str(ROOT))
     import repro_torch as rt
-    from chip_smoke import burst_error, nvidia_smi_line, time_ms
+    from chip_smoke import burst_error, device_ms, nvidia_smi_line, time_ms
     from repro_torch.kernels import _build, ops
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -273,6 +305,8 @@ def main() -> int:
         dt = getattr(torch, dtype)
         for name, c in cases.items():
             kind = c["kind"]
+            if kind == "K5" and dtype == "float64":
+                continue                  # K5 computes in float32 only
             n_ep = c.get("n_ep", N_EP)
             T = {k: (v.to(dev, dt) if torch.is_tensor(v)
                      and v.is_floating_point() else
@@ -312,6 +346,16 @@ def main() -> int:
                             T["order"], lam_t, nep, cnt,
                             loss_name=T["loss"])
                     steps = n_ep * max(T["count"])
+                elif kind == "K5":
+                    k = T["A"].shape[1]
+                    beta0 = (torch.zeros(k, dtype=dt, device=dev)
+                             if T["beta0"] is None else T["beta0"])
+
+                    def run(lam=lam, T=T, beta0=beta0, n_ep=n_ep):
+                        return ops.cm_epochs(T["A"], T["y"], beta0,
+                                             T["col_sq"], T["mask"], lam,
+                                             n_epochs=n_ep)
+                    steps = n_ep * k
                 elif kind == "K6":
                     k = T["G"].shape[0]
                     beta0 = torch.zeros(k, dtype=dt, device=dev)
@@ -354,6 +398,14 @@ def main() -> int:
                         err = burst_error(T["loss"], outs, ref, T["y"],
                                           lam)[1]
                         tol = {"float64": 1e-9, "float32": 1e-3}[dtype]
+                    elif kind == "K5":
+                        # the smoke's measure and tolerance
+                        ref = ops.cm_epochs_ref(
+                            T["A"], T["y"], beta0, T["col_sq"], T["mask"],
+                            lam, n_epochs=n_ep)[0]
+                        err = float((outs[0] - ref).abs().max()) / max(
+                            float(ref.abs().max()), 1e-30)
+                        tol = 1e-3
                     else:
                         ref = ops.gram_sweep_ref(
                             T["G"], T["rho"], beta0, T["mask"], lam_t,
@@ -366,9 +418,14 @@ def main() -> int:
                         bad.append(tag)
                 if kind in ("K6", "K6b") and form is not None:
                     extra += f" form={form(k, torch.finfo(dt).bits // 8)}"
+                dev_ms = None
+                if kind == "K5" and steps > 0:
+                    dev_ms = device_ms(run, args.reps, "cm_epochs_kernel")
+                    extra += (f" device_ms={dev_ms:.4f} device_us_per_step="
+                              f"{dev_ms * 1e3 / steps:.4f}")
                 us = ms * 1e3 / max(steps, 1)
                 record[tag] = {"ms": ms, "us_per_step": us, "steps": steps,
-                               "nonzero": moved}
+                               "nonzero": moved, "device_ms": dev_ms}
                 print(f"[probe {dtype}] {name} {regime}: steps={steps} "
                       f"ms={ms:.4f} us_per_step={us:.4f} "
                       f"nonzero_beta={moved}{extra}", flush=True)

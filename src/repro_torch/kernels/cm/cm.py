@@ -199,8 +199,10 @@ def cm_burst(A: Tensor, y: Tensor, beta: Tensor, col_sq: Tensor,
 
 
 def cm_epochs_smem_bytes(n: int, k: int) -> int:
-    """Shared memory of K5 (float32): r (n), beta and col_sq (k each), the
-    reduction slots and the mask."""
+    """Shared memory of K5 (float32): r (n), beta and max(col_sq, 1e-30)
+    (k each), the reduction slots and the mask. Up to n = 2048 the kernel
+    keeps a thread's rows of r in registers and leaves their region
+    unused, so one gate serves both of its forms."""
     return (n + 2 * k + 2 * _NW) * 4 + k
 
 

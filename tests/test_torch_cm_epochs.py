@@ -51,6 +51,48 @@ def test_cm_epochs_twin_matches_reference(seed, n, k, n_epochs):
                                    rtol=1e-4)
 
 
+@pytest.mark.parametrize("case", ["no_epochs", "one_slot", "dead_slot"])
+def test_cm_epochs_edge_cases(case):
+    """n_epochs = 0 (beta returned as it came, r = y - A beta), k = 1 (every
+    step the same slot), and a dead slot with beta != 0 (zeroed on its
+    first step, its column taken out of r): the twin against the
+    reference's interpret-mode kernel and its oracle."""
+    r = np.random.default_rng(7)
+    n, k, n_epochs = 48, 6, 3
+    if case == "no_epochs":
+        n_epochs = 0
+    if case == "one_slot":
+        k = 1
+    A = r.normal(size=(n, k)).astype(np.float32)
+    y = r.normal(size=n).astype(np.float32)
+    beta = (r.normal(size=k) * 0.5).astype(np.float32)
+    csq = (A * A).sum(axis=0)
+    mask = np.ones(k, bool)
+    if case == "dead_slot":
+        mask[2] = False
+        beta[2] = 0.75
+    lam = 0.4
+    b, res = ops.cm_epochs(_t(A), _t(y), _t(beta), _t(csq), _t(mask), lam,
+                           n_epochs=n_epochs)
+    assert b.shape == (k,) and res.shape == (n,)
+    if case == "no_epochs":
+        assert torch.equal(b, _t(beta))
+    if case == "dead_slot":
+        assert b[2] == 0
+    bj, rj = j_cm_epochs(jnp.asarray(A), jnp.asarray(y), jnp.asarray(beta),
+                         jnp.asarray(csq), jnp.asarray(mask), lam,
+                         n_epochs=n_epochs)
+    bo, ro = j_cm_epochs_ref(jnp.asarray(A), jnp.asarray(y),
+                             jnp.asarray(beta), jnp.asarray(csq),
+                             jnp.asarray(mask), jnp.float32(lam),
+                             n_epochs=n_epochs)
+    for bb, rr in ((bj, rj), (bo, ro)):
+        np.testing.assert_allclose(b.numpy(), np.asarray(bb), atol=1e-5,
+                                   rtol=1e-5)
+        np.testing.assert_allclose(res.numpy(), np.asarray(rr), atol=1e-4,
+                                   rtol=1e-4)
+
+
 def test_cm_epochs_casts_to_float32_like_the_reference():
     """float64 inputs are computed in float32, as the TPU kernel does."""
     r = np.random.default_rng(3)

@@ -94,6 +94,42 @@ def test_chain_transform_bitwise(seed, n, p):
     assert design.unpen_idx == p - 1
 
 
+def _raw_bits(a):
+    a = np.ascontiguousarray(np.asarray(a))
+    return a.view(np.uint64 if a.dtype == np.float64 else np.uint32)
+
+
+@pytest.mark.parametrize("dtype,n,p,signed_zeros", [
+    (np.float32, 9, 1, False), (np.float32, 13, 777, False),
+    (np.float32, 13, 1, True), (np.float32, 13, 777, True),
+    (np.float64, 13, 777, True)])
+def test_chain_transform_bitwise_edges(dtype, n, p, signed_zeros):
+    """The plain K4 in the input's dtype (float32 too), at p = 1 and
+    p = 777 (no whole tile of the reference's 128-column blocks), and with
+    -0.0 / +0.0 in the last column: bit for bit the numpy fold
+    (``transform_design``). The reference's Pallas kernel starts its carry
+    at +0.0 and pads on the right with +0.0, so where the fold is -0.0 it
+    reads +0.0; everywhere else it is bit for bit the same."""
+    X = np.random.default_rng(p).normal(size=(n, p)).astype(dtype)
+    if signed_zeros:
+        X[::2, -1] = -0.0
+        X[1::4, -1] = 0.0
+        X[3, :] = -0.0                  # a row whose every suffix is -0.0
+    Xb_np, xb_np = J.transform_design(X, J.build_tree(_chain_parent(p)))
+    S_np = np.concatenate([xb_np[:, None], Xb_np], axis=1)
+    assert S_np.dtype == dtype
+    S = ops.chain_suffix_sums(_t(X))               # plain K4 on the CPU
+    assert S.dtype == _t(X).dtype
+    assert np.array_equal(_raw_bits(S.numpy()), _raw_bits(S_np))
+    S_pl = np.asarray(chain_suffix_sums_pallas(jnp.asarray(X),
+                                               interpret=True))
+    assert S_pl.dtype == dtype
+    neg0 = (S_np == 0) & np.signbit(S_np)
+    assert neg0.any() == signed_zeros
+    assert np.array_equal(_raw_bits(S_pl)[~neg0], _raw_bits(S_np)[~neg0])
+    assert (S_pl[neg0] == 0).all() and not np.signbit(S_pl[neg0]).any()
+
+
 @pytest.mark.parametrize("seed", [0, 3])
 @pytest.mark.parametrize("p", [2, 17, 60])
 def test_tree_transform_matches_reference(seed, p):
