@@ -90,16 +90,33 @@ Phases (each one fails the run by raising):
    against its plain version on the LS Gram solve's final carry in float64 and
    float32, and K6b on the CV's 5 fold carries at its last lambda against
    its plain version and bit for bit 5 launches of K6; both sweeps start
-   from beta = 0, as the K3 and K5 checks do.
+   from beta = 0, as the K3 and K5 checks do;
+18. K7 against its plain version in float64 and float32 (rel 1e-9 and
+   1e-3): one epoch from beta = 0 over 20,000 columns of the LS design,
+   masked slots, an unpenalized slot, k = 1, one and two slots repeated,
+   n = 2,048 and 2,049, logistic (also with an unpenalized slot), and in
+   float64 5 epochs at the LS design's full width from a warm beta; its
+   device time per launch at 20,000 columns, on 2,000 columns and at full
+   width, and microseconds per step;
+19. ``[baselines-ls]``: the paper's baselines on phase 2's problem:
+   ``dynamic_screening``, ``sequential_path`` and
+   ``homotopy_path(kkt_check=True)`` over BASE_PATH, the unsafe
+   ``homotopy_path`` (its recall and precision against the safe one's
+   supports) and the unscreened ``solve_lasso_cm`` (tol 1e-6), each
+   counted alone: K7 and no other kernel. Every safe baseline is certified
+   by the KKT residual over all p (<= 1e-3 lambda at every lambda) and
+   finds SAIF's support; wall, outer steps, coordinate updates, K7
+   launches, the wall over SAIF's, and (profiled after it) K7's device
+   time and the idle share.
 
 Launch counters are zeroed just before each solve (and the transform of
-phase 4, the CV fleets, the CV refit, the selection and the K5 call) and
-read just after; the
-kernel launches of phases 8, 12 and 17, of the checks of phases 13-14, of
+phase 4, the CV fleets, the CV refit, the selection, the K5 call and each
+baseline) and read just after; the
+kernel launches of phases 8, 12, 17 and 18, of the checks of phases 13-14, of
 the comparisons of phase 4, of the serial solves that phases 9-10 compare
 with, of the lambda_max helpers and of one extra solve
 under torch.profiler (the device's busy time and idle share; these run
-last, after phase 17) do not count. The last two lines are the card's name and power limit and
+after phase 18, the baselines' after phase 19) do not count. The last two lines are the card's name and power limit and
 ``{"ok": true, "device": {...}}``; the line before them is the per-kernel
 JSON record.
 """
@@ -142,6 +159,11 @@ FLEET_LOGIT = (0.5, 0.2, 8)
 CV_GRID = (0.9, 0.004, 24)
 CV_FOLDS = 5
 SELECT_SUBSAMPLES = (16, 0.5)
+# [baselines-ls]: the sequential and homotopy paths run geometric from 0.95
+# to LS_LAM lambda_max in 5 points (benchmarks/bench_baselines.py:106),
+# every baseline at eps = 1e-6, on phase 2's full design: the five take
+# about 50 s there (PERF.md, section 4)
+BASE_PATH = (0.95, LS_LAM, 5)
 
 
 def nvidia_smi_line() -> str:
@@ -286,11 +308,12 @@ def support(beta, tol=1e-8):
     return set(torch.nonzero(beta.abs() > tol).flatten().tolist())
 
 
-def profile_solve(tag, solve, wall):
+def profile_solve(tag, solve, wall, kernels=()):
     """Run ``solve`` once more under torch.profiler and print the device's
     busy time (the sum of its activities' durations, one stream) against
     the unprofiled wall time ``wall``, and the kernels that take most of
-    it (a kernel's template instances counted together). Only device
+    it (a kernel's template instances counted together), and the device
+    time and launches of each kernel named in ``kernels``. Only device
     activities count: a host op's entry carries its kernels' time too."""
     import torch
     from torch.autograd import DeviceType
@@ -315,14 +338,26 @@ def profile_solve(tag, solve, wall):
     top = sorted(fam.items(), key=lambda kv: -kv[1][0])[:5]
     tops = "; ".join(f"{name[:60]} {t / 1e3:.2f} ms x{c}"
                      for name, (t, c) in top)
+    named = "".join(f" {kn}_ms={fam.get(kn, (0.0, 0))[0] / 1e3:.3f} "
+                    f"{kn}_launches={fam.get(kn, (0.0, 0))[1]}"
+                    for kn in kernels)
     print(f"[profile {tag}] device_busy_s={busy_s:.4f} wall_s={wall:.4f} "
-          f"idle_share={1 - busy_s / wall:.3f} device_ops={len(ev)} "
+          f"idle_share={1 - busy_s / wall:.3f} device_ops={len(ev)}{named} "
           f"top: {tops}", flush=True)
 
 
-# profiled re-runs of the solves, (tag, solve, wall), run after the kernel
-# checks: the kernel rows' short profiler sessions come first
+# profiled re-runs of the solves, (tag, solve, wall[, kernels]), run after
+# the kernel checks: the kernel rows' short profiler sessions come first
 DEFERRED_PROFILES = []
+# unprofiled wall of each counted solve of solve_phase, by "name/label"
+WALLS = {}
+
+
+def run_deferred_profiles():
+    """Profile the solves queued in DEFERRED_PROFILES, and empty it."""
+    while DEFERRED_PROFILES:
+        tag, solve, wall, *kernels = DEFERRED_PROFILES.pop(0)
+        profile_solve(tag, solve, wall, *kernels)
 
 
 def solve_phase(name, lam, cfg, runs, expect, solve, kkt, profiled=()):
@@ -355,6 +390,7 @@ def solve_phase(name, lam, cfg, runs, expect, solve, kkt, profiled=()):
         check_launches(f"{name}/{label}", counts, expect[label])
         results[label] = res
         launches[label] = counts
+        WALLS[f"{name}/{label}"] = wall
         if label in profiled:
             DEFERRED_PROFILES.append((f"{name}/{label}",
                                       lambda c=c: solve(c), wall))
@@ -370,8 +406,9 @@ def solve_phase(name, lam, cfg, runs, expect, solve, kkt, profiled=()):
 
 def check_launches(tag, counts, expect):
     """``expect``: kernel -> True (launched at least once), False (never)
-    or an int (exactly that many times)."""
-    for kname, must in expect.items():
+    or an int (exactly that many times). K7 (``cm_sweep_wide``), the
+    baselines' sweep, must not launch where ``expect`` does not name it."""
+    for kname, must in {"cm_sweep_wide": False, **expect}.items():
         got = counts[kname]
         if must is True and got == 0:
             raise RuntimeError(f"{tag}: kernel {kname} was never launched "
@@ -1889,6 +1926,257 @@ def check_gram_sweep(dtype, X, y, lam, gram_res, cv, records):
             bound_ms=bndb, bound_by=byb, library_ms=None)
 
 
+def baseline_runs(X, y, lam, lams):
+    """The five runs of ``[baselines-ls]`` as (name, call, safe): ``call()``
+    returns (beta at ``lam``, the betas along ``lams`` or None, outer steps
+    or None, coordinate updates or None, a summary list or None)."""
+    import repro_torch as rt
+
+    def dynamic():
+        r = rt.dynamic_screening(X, y, lam, rt.DynConfig(eps=1e-6))
+        return r.beta, None, r.n_outer, r.coord_updates, r.survivor_history
+
+    def sequential():
+        r = rt.sequential_path(X, y, lams, rt.SeqConfig(eps=1e-6))
+        return (r.betas[-1], r.betas, None, r.coord_updates,
+                [round(float(f), 4) for f in r.screened_frac])
+
+    def homotopy(kkt_check):
+        r = rt.homotopy_path(X, y, lams, rt.HomotopyConfig(
+            eps=1e-6, kkt_check=kkt_check))
+        return (r.betas[-1], r.betas, None, r.coord_updates,
+                [len(s) for s in r.supports])
+
+    def no_screening():
+        beta = rt.solve_lasso_cm(rt.get_loss("least_squares"), X, y, lam,
+                                 tol=1e-6)
+        return beta, None, None, None, None
+
+    return [("dynamic", dynamic, True), ("sequential", sequential, True),
+            ("homotopy-safe", lambda: homotopy(True), True),
+            ("homotopy-unsafe", lambda: homotopy(False), False),
+            ("no-screening", no_screening, True)]
+
+
+def baselines_phase(X, y, lam, lm, saif_beta, saif_wall):
+    """Phase 19, ``[baselines-ls]``: the paper's baselines on the LS design
+    ``X`` at ``lam`` (eps = 1e-6), each counted alone (K7 and no other
+    kernel): dynamic screening; the sequential path and the KKT-checked
+    homotopy over BASE_PATH; the unsafe homotopy, its recall and precision
+    at each lambda against the safe homotopy's supports; the unscreened CM
+    (``solve_lasso_cm``, tol 1e-6). Every safe baseline is certified by
+    the KKT residual over all p (<= 1e-3 lambda, at every lambda of a
+    path) and must find SAIF's ``auto`` support at ``lam``; its wall is
+    printed against SAIF's (``saif_wall``). Each run is
+    queued for a profiled rerun. Returns the summed launch counts."""
+    import numpy as np
+    import torch
+    import repro_torch as rt
+    from repro_torch.kernels import ops
+
+    ls = rt.get_loss("least_squares")
+    p = X.shape[1]
+    hi, lo, m = BASE_PATH
+    lams = (np.geomspace(hi, lo, m) * lm).tolist()
+    truth = support(saif_beta)
+    total = {k: 0 for k in ops.KERNELS}
+    safe_sups = None
+    for name, call, safe in baseline_runs(X, y, lam, lams):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        beta, betas, outer, updates, summary = call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        k7 = counts["cm_sweep_wide"]
+        if name == "no-screening":        # one K7 launch an epoch
+            outer, updates = k7, k7 * p
+        path = betas if betas is not None else [beta]
+        at = lams if betas is not None else [lam]
+        kkt = [float(rt.kkt_residual(ls, X, y, b, l)) / l
+               for b, l in zip(path, at)]
+        sups = [support(b) for b in path]
+        if name == "homotopy-safe":
+            safe_sups = sups
+        line = (f"[baselines-ls/{name}] p={p} wall_s={wall:.3f} "
+                f"wall_over_saif_auto={wall / saif_wall:.2f} outer="
+                f"{outer if outer is not None else '-'} coord_updates="
+                f"{updates} k7_launches={k7} max_kkt_over_lam="
+                f"{max(kkt):.3e} support={len(sups[-1])}")
+        if summary is not None:
+            line += f" summary={summary}"
+        if safe:
+            ok = max(kkt) <= 1e-3 and sups[-1] == truth
+            line += f" saif_support={sups[-1] == truth} certified={ok}"
+        else:
+            rp = [rt.support_metrics(np.array(sorted(a), dtype=int),
+                                     np.array(sorted(b), dtype=int))
+                  for a, b in zip(sups, safe_sups)]
+            ok = True
+            line += (" recall=" + str([round(r, 4) for r, _ in rp])
+                     + " precision=" + str([round(q, 4) for _, q in rp]))
+        print(line + f" launches={counts}", flush=True)
+        check_launches(f"baselines-ls/{name}", counts,
+                       {k: k == "cm_sweep_wide" for k in counts})
+        if not ok:
+            raise RuntimeError(f"baselines-ls/{name}: not certified or not "
+                               f"SAIF's support")
+        for k in total:
+            total[k] += counts[k]
+        DEFERRED_PROFILES.append((f"baselines-ls/{name}", call, wall,
+                                  ("cm_wide_kernel",)))
+    return total
+
+
+def wide_cases(X, y, lam, XL, yL, lamL, dtype):
+    """K7's checks in ``dtype``: (name, args, loss). One epoch from beta = 0
+    over the first 20,000 columns of the LS design; on 2,000 of them 3
+    epochs with a tenth of the slots masked and a nonzero beta on some of
+    those, and with an unpenalized slot; one slot (40 epochs); two slots
+    alternating and one slot repeated (5 epochs, each step's beta taken
+    in hand); n = 2,048 (8 rows a thread in registers) and 2,049 (rows in
+    shared memory) on gaussian blocks; logistic on 2,000 columns of its
+    design, also with an unpenalized slot (fused_baseline_cm's sweep)."""
+    import torch
+    from repro_torch.core.cm import sweep_order
+    dev = X.device
+    g = torch.Generator().manual_seed(23)
+    out = []
+
+    def add(name, XT, yy, lam_, n_ep=1, mask=None, beta=None, pen=None,
+            count=None, loss_name="least_squares"):
+        k = XT.shape[0]
+        mask = (torch.ones(k, dtype=torch.bool, device=dev) if mask is None
+                else mask)
+        beta = (torch.zeros(k, dtype=dtype, device=dev) if beta is None
+                else beta.to(dtype))
+        order, cnt = sweep_order(mask, beta)
+        out.append((name, (XT, yy.to(dtype), beta, XT.T @ beta,
+                           (XT * XT).sum(1), mask, order, lam_, n_ep,
+                           cnt if count is None else count, pen), loss_name))
+
+    XT20 = X[:, :20_000].T.contiguous().to(dtype)
+    add("k=20000", XT20, y, lam)
+    XT2 = XT20[:2000]
+    m = (torch.rand(2000, generator=g) > 0.1).to(dev)
+    b = torch.where(torch.rand(2000, generator=g) < 0.3,
+                    0.01 * torch.randn(2000, generator=g), 0.0).to(dev)
+    add("masked", XT2, y, lam, 3, mask=m, beta=b)
+    w = torch.ones(2000, dtype=dtype, device=dev)
+    w[0] = 0.0
+    add("pen-0 slot", XT2, y, lam, 3, pen=w)
+    add("k=1", XT20[:1], y, 0.01 * lam, 40)
+    add("count=2 alternating", XT20[:2], y, 0.01 * lam, 5)
+    add("count=1 repeated", XT20[:2], y, 0.01 * lam, 5, count=1)
+    for n in (2048, 2049):
+        B = torch.randn(n, 64, generator=g, dtype=torch.float64)
+        yy = B[:, :20].sum(1) + torch.randn(n, generator=g,
+                                            dtype=torch.float64)
+        add(f"n={n} k=64", B.T.contiguous().to(dev, dtype), yy.to(dev),
+            0.3 * float((B.T @ yy).abs().max()), 3)
+    XL2 = XL[:, :2000].T.contiguous().to(dtype)
+    add("logistic k=2000", XL2, yL, lamL, 3, loss_name="logistic")
+    add("logistic pen-0 slot", XL2, yL, lamL, 3, pen=w,
+        loss_name="logistic")
+    return out
+
+
+def check_cm_wide_warm(a, tol):
+    """K7 at full width as the baselines launch it most: 5 epochs from a
+    warm beta (one K7 epoch from 0, z = X beta), as dynamic screening's
+    first stage after its first outer step, against the plain version on
+    the same inputs copied to the host, where its loop makes no device
+    synchronisation a step. Raises past
+    ``tol`` (rel); returns the max abs error."""
+    import torch
+    from repro_torch.kernels import ops
+    XT, yy, _, _, col_sq, mask, order, lam, _, k = a
+    beta = ops.cm_sweep_wide(*a)[0]
+    warm = (XT, yy, beta, XT.T @ beta, col_sq, mask, order, lam, 5, k)
+    b1, z1 = ops.cm_sweep_wide(*warm)
+    t0 = time.perf_counter()
+    b2, z2 = ops.cm_sweep_wide_ref(*(v.cpu() if torch.is_tensor(v) else v
+                                     for v in warm))
+    plain_s = time.perf_counter() - t0
+    ab, r = errs([(b1.cpu(), b2), (z1.cpu(), z2)])
+    print(f"[kernel cm_sweep_wide float64] full width k={k} epochs=5 from a "
+          f"warm beta ({int((beta != 0).sum())} nonzero): rel_err={r:.3e} "
+          f"max_abs_err={ab:.3e} tol={tol:.0e} (plain on the host: "
+          f"{plain_s:.1f} s)", flush=True)
+    if not r <= tol:
+        raise RuntimeError("cm_sweep_wide float64 full width disagrees with "
+                           "its plain version")
+    return ab
+
+
+def check_cm_wide(X, y, lam, XL, yL, lamL, records):
+    """K7 against its plain version on the card in float64 and float32 at
+    the cases of ``wide_cases`` (beta and z against their own scale; dead
+    slots end at 0), rel 1e-9 / 1e-3; its device time per launch at the
+    k = 20,000 case, on 2,000 columns (16 MB in f64, held in L2 from one
+    launch to the next) and at the LS design's full width (one epoch from
+    0, the shape of dynamic screening's first stage and of the unscreened
+    CM), microseconds per step, the plain version's time, the byte
+    bound; at full width in float64 also 5 epochs from a warm beta against
+    the plain version (:func:`check_cm_wide_warm`)."""
+    import torch
+    from repro_torch.kernels import ops
+    tol = {"float64": 1e-9, "float32": 1e-3}
+    worst_abs, rows = 0.0, {}
+    for dtype in ("float64", "float32"):
+        dt = getattr(torch, dtype)
+        worst, parts = 0.0, []
+        for name, args, loss_name in wide_cases(X, y, lam, XL, yL, lamL, dt):
+            b1, z1 = ops.cm_sweep_wide(*args, loss_name=loss_name)
+            b2, z2 = ops.cm_sweep_wide_ref(*args, loss_name=loss_name)
+            a, r = errs([(b1, b2), (z1, z2)])
+            dead = bool((b1[~args[5]] == 0).all()) if args[8] else True
+            worst = max(worst, r if dead else float("inf"))
+            worst_abs = max(worst_abs, a if dtype == "float64" else 0.0)
+            parts.append(f"{name}: rel_err={r:.3e} dead_slots_ok={dead};")
+        print(f"[kernel cm_sweep_wide {dtype} cases] " + " ".join(parts)
+              + f" tol={tol[dtype]:.0e}", flush=True)
+        if not worst <= tol[dtype]:
+            raise RuntimeError(f"cm_sweep_wide {dtype} disagrees with its "
+                               f"plain version")
+        n = X.shape[0]
+        for label, XT in (("k=2000", X[:, :2000].T.contiguous().to(dt)),
+                          ("k=20000", X[:, :20_000].T.contiguous().to(dt)),
+                          ("full width", X.T.contiguous().to(dt))):
+            k = XT.shape[0]
+            a = (XT, y.to(dt), torch.zeros(k, dtype=dt, device=X.device),
+                 torch.zeros(n, dtype=dt, device=X.device), (XT * XT).sum(1),
+                 torch.ones(k, dtype=torch.bool, device=X.device),
+                 torch.arange(k, device=X.device), lam, 1, k)
+            ms, call = kernel_ms(lambda: ops.cm_sweep_wide(*a), 3,
+                                 "cm_wide_kernel")
+            it = XT.element_size()
+            bnd, by = bound_ms(k * n * it + 3 * n * it + k * (3 * it + 5),
+                               4.0 * n * k, dtype)
+            rows[(dtype, label)] = (ms, call, ms * 1e3 / k, bnd, by)
+            plain = None
+            if label == "k=20000":
+                plain = time_ms(lambda: ops.cm_sweep_wide_ref(*a), 1)
+                rows[(dtype, label)] += (plain,)
+            print(f"[kernel cm_sweep_wide {dtype}] {label} n={n} k={k} "
+                  f"epochs=1 ms={ms:.4f} call_ms={call:.4f} us_per_step="
+                  f"{ms * 1e3 / k:.4f} bound_ms={bnd:.6f} ({by})"
+                  + (f" plain_ms={plain:.4f}" if plain is not None else ""),
+                  flush=True)
+            if label == "full width" and dtype == "float64":
+                warm_err = check_cm_wide_warm(a, tol[dtype])
+                worst_abs = max(worst_abs, warm_err)
+            del XT, a
+    ms, call, us, bnd, by, plain = rows[("float64", "k=20000")]
+    full = rows[("float64", "full width")]
+    records["cm_sweep_wide"].update(
+        max_abs_err=worst_abs, ms=ms, call_ms=call, plain_ms=plain,
+        bound_ms=bnd, bound_by=by, library_ms=None, us_per_step=us,
+        full_width_ms=full[0], full_width_us_per_step=full[2],
+        full_width_bound_ms=full[3])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--p", type=int, default=100_000,
@@ -2000,6 +2288,9 @@ def main() -> int:
             "name": "gram_sweep_batch", "route": "cuda",
             "source": "src/repro_torch/csrc/gram_sweep.cu",
             "replaces": "src/repro/core/cm.py:126"},
+        "cm_sweep_wide": {"name": "cm_sweep_wide", "route": "cuda",
+                          "source": "src/repro_torch/csrc/cm_wide.cu",
+                          "replaces": "src/repro/core/cm.py:66"},
     }
 
     k4_launches = transform_phase(X, records)
@@ -2044,13 +2335,6 @@ def main() -> int:
     weighted_logistic_phase(XL, yL)
     k5_counts = cm_epochs_phase(X, y, lam, ls_res["auto"])
 
-    runs = [ls_counts["auto"], ls_counts["gram"], lg_counts["auto"],
-            *fused_counts, fl_counts, flg_counts, cv_counts, sel_counts,
-            k5_counts]
-    for k, rec in records.items():
-        rec["launches"] = sum(c[k] for c in runs) + (
-            k4_launches if k == "chain_suffix_sums" else 0)
-
     from repro_torch.core.saif import add_batch_size_static, prepare_path
     prep = prepare_path(X, y, cfg)
     h = add_batch_size_static(cfg.c, lam, prep.c0_max, prep.c0_median,
@@ -2070,8 +2354,19 @@ def main() -> int:
         tie_probe(dtype)
         check_gram_sweep(dtype, X, y, lam, ls_res["gram"], cv, records)
     check_cm_epochs(X, y, lam, ls_res["auto"], records)
-    for tag, solve, wall in DEFERRED_PROFILES:
-        profile_solve(tag, solve, wall)
+    check_cm_wide(X, y, lam, XL, yL, lamL, records)
+    run_deferred_profiles()
+
+    base_counts = baselines_phase(X, y, lam, lm, ls_res["auto"].beta,
+                                  WALLS["ls/auto"])
+    runs = [ls_counts["auto"], ls_counts["gram"], lg_counts["auto"],
+            *fused_counts, fl_counts, flg_counts, cv_counts, sel_counts,
+            k5_counts, base_counts]
+    for k, rec in records.items():
+        rec["launches"] = sum(c[k] for c in runs) + (
+            k4_launches if k == "chain_suffix_sums" else 0)
+
+    run_deferred_profiles()
 
     print(json.dumps({"kernels": list(records.values())}))
     print(nvidia_smi_line())

@@ -8,6 +8,12 @@ maintained by rank-1 updates. The covariance-update form for least squares
 (qr = G beta - rho on the active-block Gram matrix, O(k_max) per step) is
 kernel K6 in ``kernels/gram``, with its plain loop beside it.
 
+:func:`cm_epoch` is the reference's masked sweep over every column, and
+:func:`cm_epochs_wide` the same sweeps on a transposed design of any width
+(the inner solver of the baselines and of :func:`solve_lasso_cm`): K7
+``kernels/cm/wide.py::cm_sweep_wide`` on the card, its plain loop on the
+CPU.
+
 The residual-form loops are the plain versions the CUDA burst kernel is
 held against, and they run on whichever device holds the tensors. A
 cyclic sweep is a chain of dependent scalar steps, so each step here reads
@@ -107,6 +113,41 @@ def cm_epochs_compact(loss: Loss, Xa: Tensor, y: Tensor, beta: Tensor,
                      n_epochs, pen, sample_w)
 
 
+def sweep_order(mask: Tensor, beta: Tensor) -> Tuple[Tensor, int]:
+    """The slots a masked sweep must visit, first and in index order: the
+    live ones and the masked ones whose beta is not 0 (a masked slot at 0
+    steps to 0, a no-op). Returns (order, their number), the number at one
+    host read."""
+    visit = mask | (beta != 0)
+    order = torch.argsort((~visit).to(torch.int8), stable=True)
+    return order, int(visit.sum())
+
+
+def cm_epochs_wide(loss: Loss, XT: Tensor, y: Tensor, beta: Tensor,
+                   z: Tensor, mask: Tensor, lam, col_sq: Tensor,
+                   n_epochs: int, pen: Tensor | None = None
+                   ) -> Tuple[Tensor, Tensor]:
+    """``n_epochs`` of the reference's masked cyclic sweeps over every
+    column of the design, given transposed, ``XT`` (k, n), with its squared
+    column norms ``col_sq`` (k,): K7 on a card, its plain loop on the CPU.
+    Returns (beta, z)."""
+    from repro_torch.kernels.cm.wide import cm_sweep_wide
+    order, count = sweep_order(mask, beta)
+    return cm_sweep_wide(XT, y, beta, z, col_sq, mask, order, lam, n_epochs,
+                         count, pen, loss_name=loss.name)
+
+
+def cm_epoch(loss: Loss, Xa: Tensor, y: Tensor, beta: Tensor, z: Tensor,
+             mask: Tensor, lam, pen: Tensor | None = None
+             ) -> Tuple[Tensor, Tensor]:
+    """One full cyclic sweep over the (masked) coordinates of the (n, k)
+    block ``Xa`` from (beta, z = Xa beta), with optional per-column l1
+    weights ``pen`` (0 = unpenalized). Returns (beta, z)."""
+    XT = Xa.T.contiguous()
+    return cm_epochs_wide(loss, XT, y, beta, z, mask, lam,
+                          torch.sum(XT * XT, dim=1), 1, pen)
+
+
 def solve_lasso_cm(loss: Loss, X: Tensor, y: Tensor, lam: float,
                    tol: float = 1e-9, max_epochs: int = 100_000,
                    unpen_idx: int | None = None) -> Tensor:
@@ -114,13 +155,14 @@ def solve_lasso_cm(loss: Loss, X: Tensor, y: Tensor, lam: float,
     baseline and the oracle of the tests). ``unpen_idx`` exempts one
     coordinate from the l1 penalty (fused LASSO's ``b``): its step is
     unthresholded, for a general loss it is Newton-polished after every
-    sweep, and the dual point is projected onto its equality constraint."""
+    sweep, and the dual point is projected onto its equality constraint.
+    Every sweep is one call of :func:`cm_epochs_wide` on X^T: a launch of
+    K7 on a card, the plain loop on the CPU."""
     from repro_torch.core.duality import (duality_gap, feasible_dual,
                                           polish_unpen)
 
     p = X.shape[1]
     mask = torch.ones(p, dtype=torch.bool, device=X.device)
-    order = torch.arange(p, device=X.device)
     pen = x_unpen = None
     if unpen_idx is not None:
         pen = torch.ones(p, dtype=X.dtype, device=X.device)
@@ -128,9 +170,11 @@ def solve_lasso_cm(loss: Loss, X: Tensor, y: Tensor, lam: float,
         x_unpen = X[:, unpen_idx]
     beta = torch.zeros(p, dtype=X.dtype, device=X.device)
     z = torch.zeros_like(y)
+    XT = X.T.contiguous()
+    col_sq = torch.sum(XT * XT, dim=1)
     for _ in range(max_epochs):
-        beta, z = cm_epochs_compact(loss, X, y, beta, z, mask, lam, order,
-                                    p, 1, pen)
+        beta, z = cm_epochs_wide(loss, XT, y, beta, z, mask, lam, col_sq, 1,
+                                 pen)
         if unpen_idx is not None and loss.name != "least_squares":
             b_new, z = polish_unpen(loss, x_unpen, y, z, beta[unpen_idx])
             beta[unpen_idx] = b_new

@@ -1,5 +1,6 @@
 """Dual-variable machinery, in torch (port of ``repro.core.duality``).
 
+  * the primal->dual map (the unscaled dual candidate)
   * the scaled feasibility projection (Lemma 2's theta_k)
   * the gap-safe ball   B(theta, r),  r^2 = 2*alpha*gap/lam^2        (Eq. 6/11)
   * the sequential-style ball from lambda_max(t)                     (Thm 2)
@@ -26,6 +27,12 @@ Tensor = torch.Tensor
 class Ball(NamedTuple):
     center: Tensor  # (n,)
     radius: Tensor  # scalar
+
+
+def dual_point(loss: Loss, Xa: Tensor, y: Tensor, beta: Tensor,
+               lam) -> Tensor:
+    """hat_theta = -f'(Xa beta) / lam  (the unscaled dual candidate)."""
+    return -loss.grad(Xa @ beta, y) / lam
 
 
 def feasible_dual(loss: Loss, X_for_constraints: Tensor, y: Tensor,

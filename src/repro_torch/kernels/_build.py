@@ -22,7 +22,8 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("screen", "cm_burst", "chain_suffix", "cm_epochs", "gram_sweep")
+SOURCES = ("screen", "cm_burst", "chain_suffix", "cm_epochs", "gram_sweep",
+           "cm_wide")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -34,6 +35,7 @@ _I = ctypes.c_int
 _CM = [_P, _P, _P, _P, _P, _P, None, _I, _I, _I, _I, _P, _P, _P, _P]
 _CM_PEN = _CM[:6] + [_P] + _CM[6:]
 _CM_BATCH = [_P] * 9 + [_I, _I, _I, _P, _P, _P, _P]
+_WIDE = [_P] * 8 + [None, _I, _I, _I, _P]
 _SCREEN = [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
            _P, _P]
 _SIGNATURES = {
@@ -58,6 +60,10 @@ _SIGNATURES = {
     },
     "gram_sweep": {
         "gram_sweep_{dt}": [_P] * 7 + [_I, _I, _P, _P, None, _I, _I, _P],
+    },
+    "cm_wide": {
+        "cm_sweep_wide_ls_{dt}": _WIDE,
+        "cm_sweep_wide_logit_{dt}": _WIDE,
     },
     "chain_suffix": {
         "chain_suffix_sums_{dt}": [_P, _P, _I, _I, _P],

@@ -13,6 +13,10 @@ pen-weighted l1 term in the primal.
 :func:`cm_epochs_ref` is the plain version of K5 ``cm_epochs``, the
 reference's ``kernels/cm/ref.py::cm_epochs_ref`` in torch: residual-form
 least-squares sweeps over every slot, in float32.
+
+:func:`cm_sweep_wide_ref` is the plain version of K7 ``cm_sweep_wide``:
+the compact sweeps of ``core/cm.py::cm_sweeps`` on a transposed design of
+any width, with no tail.
 """
 from __future__ import annotations
 
@@ -64,6 +68,17 @@ def cm_burst_ref(A: Tensor, y: Tensor, beta: Tensor, col_sq: Tensor,
     p_val = torch.sum(loss.value(z, y)) + lam * torch.sum(l1)
     d_val = -torch.sum(loss.conj(-lam * theta, y))
     return beta, z, theta, p_val - d_val
+
+
+def cm_sweep_wide_ref(XT: Tensor, y: Tensor, beta: Tensor, z: Tensor,
+                      col_sq: Tensor, mask: Tensor, order: Tensor, lam,
+                      n_epochs, count, pen: Tensor | None = None, *,
+                      loss_name: str = "least_squares"):
+    """``n_epochs`` sweeps over the first ``count`` slots of ``order`` on
+    the transposed design ``XT`` (k, n) from (beta, z = X beta). Returns
+    (beta (k,), z (n,))."""
+    return cm_sweeps(get_loss(loss_name), XT.T, y, beta, z, mask, lam,
+                     col_sq, order, count, n_epochs, pen)
 
 
 def cm_burst_batch_ref(A: Tensor, Y: Tensor, beta: Tensor, col_sq: Tensor,

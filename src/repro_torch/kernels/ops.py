@@ -15,7 +15,8 @@ from repro_torch.kernels.cm.cm import (CM_SMEM_BUDGET_BYTES, cm_burst,
                                        cm_burst_xt, cm_epochs,
                                        cm_epochs_smem_ok, cm_smem_ok)
 from repro_torch.kernels.cm.ref import (cm_burst_batch_ref, cm_burst_ref,
-                                        cm_epochs_ref)
+                                        cm_epochs_ref, cm_sweep_wide_ref)
+from repro_torch.kernels.cm.wide import cm_sweep_wide, cm_wide_smem_ok
 from repro_torch.kernels.fused.fused import chain_suffix_sums
 from repro_torch.kernels.fused.ref import chain_suffix_sums_ref
 from repro_torch.kernels.gram.gram import (gram_smem_ok, gram_sweep,
@@ -44,7 +45,8 @@ KERNELS = {"screen_fused": screen_fused, "ub_histogram": ub_histogram,
            "screen_fused_batch": screen_fused_batch,
            "ub_histogram_batch": ub_histogram_batch,
            "cm_burst_batch": cm_burst_batch_xt, "cm_epochs": cm_epochs,
-           "gram_sweep": gram_sweep, "gram_sweep_batch": gram_sweep_batch}
+           "gram_sweep": gram_sweep, "gram_sweep_batch": gram_sweep_batch,
+           "cm_sweep_wide": cm_sweep_wide}
 
 
 def on_cuda() -> bool:
@@ -72,5 +74,6 @@ __all__ = ["screen_fused", "screen_scores", "ub_histogram", "cm_burst",
            "cm_epochs_ref", "cm_epochs_smem_ok", "gram_sweep",
            "gram_sweep_batch", "gram_sweep_ref", "gram_sweep_batch_ref",
            "gram_smem_ok", "screen_tail", "screen_tail_batch",
-           "screen_tail_ref", "screen_tail_batch_ref", "on_cuda",
+           "screen_tail_ref", "screen_tail_batch_ref", "cm_sweep_wide",
+           "cm_sweep_wide_ref", "cm_wide_smem_ok", "on_cuda",
            "launch_counts", "reset_launch_counts", "KERNELS"]

@@ -72,8 +72,9 @@ def test_config_and_backend_names():
 
 
 def test_port_imports_no_jax_and_no_reference():
-    """Importing every repro_torch module, the fleet's, CV's, selection's
-    and the new kernels' among them, pulls in neither jax nor repro."""
+    """Importing every repro_torch module, the fleet's, CV's, selection's,
+    the baselines' and the kernels' among them, pulls in neither jax nor
+    repro."""
     src = os.path.join(os.path.dirname(rt.__file__), os.pardir)
     code = (
         "import pkgutil, sys, importlib, repro_torch\n"
@@ -87,12 +88,15 @@ def test_port_imports_no_jax_and_no_reference():
         "         'repro_torch.kernels.screen.screen',\n"
         "         'repro_torch.kernels.cm.cm', 'repro_torch.core.cv',\n"
         "         'repro_torch.core.select', 'repro_torch.kernels.gram.gram',\n"
-        "         'repro_torch.kernels.gram.ref']\n"
+        "         'repro_torch.kernels.gram.ref', 'repro_torch.core.dynamic',\n"
+        "         'repro_torch.core.sequential', 'repro_torch.core.homotopy',\n"
+        "         'repro_torch.kernels.cm.wide']\n"
         "assert all(m in sys.modules for m in fleet), fleet\n"
         "from repro_torch.kernels import ops\n"
         "assert {'screen_fused_batch', 'ub_histogram_batch',\n"
         "        'cm_burst_batch', 'cm_epochs', 'gram_sweep',\n"
-        "        'gram_sweep_batch'} <= set(ops.KERNELS)\n"
+        "        'gram_sweep_batch', 'cm_sweep_wide'} <= set(ops.KERNELS)\n"
+        "assert ops.KERNELS['cm_sweep_wide'].launches == 0\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))"
     )
     env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
