@@ -94,8 +94,10 @@ Phases (each one fails the run by raising):
 18. K7 against its plain version in float64 and float32 (rel 1e-9 and
    1e-3): one epoch from beta = 0 over 20,000 columns of the LS design,
    masked slots, an unpenalized slot, k = 1, one and two slots repeated,
-   n = 2,048 and 2,049, logistic (also with an unpenalized slot), and in
-   float64 5 epochs at the LS design's full width from a warm beta; its
+   n = 2,048 and 2,049, logistic (also with an unpenalized slot), orders
+   of 3-9 slots and n = 1,024, 1,025 and 12,792 (the redesign's
+   boundaries), and in float64 5 epochs at the LS design's full width
+   from a warm beta; its
    device time per launch at 20,000 columns, on 2,000 columns and at full
    width, and microseconds per step;
 19. ``[baselines-ls]``: the paper's baselines on phase 2's problem:
@@ -164,6 +166,10 @@ SELECT_SUBSAMPLES = (16, 0.5)
 # every baseline at eps = 1e-6, on phase 2's full design: the five take
 # about 50 s there (PERF.md, section 4)
 BASE_PATH = (0.95, LS_LAM, 5)
+# K7's short orders (slot counts) at its design's boundaries: the beta of
+# step s + 2 read behind step s's barrier (in hand up to a count of 2), the
+# slot of step s + 5; all shorter than the prefetch warp's 32 records a batch
+WIDE_COUNTS = (3, 4, 5, 6, 8, 9)
 
 
 def nvidia_smi_line() -> str:
@@ -2037,7 +2043,10 @@ def wide_cases(X, y, lam, XL, yL, lamL, dtype):
     alternating and one slot repeated (5 epochs, each step's beta taken
     in hand); n = 2,048 (8 rows a thread in registers) and 2,049 (rows in
     shared memory) on gaussian blocks; logistic on 2,000 columns of its
-    design, also with an unpenalized slot (fused_baseline_cm's sweep)."""
+    design, also with an unpenalized slot (fused_baseline_cm's sweep);
+    short orders of ``WIDE_COUNTS`` slots (7 epochs) and n = 1,024 (4 rows
+    a thread), 1,025 (8) and 12,792 (the largest n the shared-memory gate
+    takes in float64) on gaussian blocks."""
     import torch
     from repro_torch.core.cm import sweep_order
     dev = X.device
@@ -2079,6 +2088,18 @@ def wide_cases(X, y, lam, XL, yL, lamL, dtype):
     add("logistic k=2000", XL2, yL, lamL, 3, loss_name="logistic")
     add("logistic pen-0 slot", XL2, yL, lamL, 3, pen=w,
         loss_name="logistic")
+    # the redesign's boundaries: a short order wrapping past the beta read
+    # two steps ahead and the slot read five ahead, orders shorter than
+    # the 32 records the prefetch warp reads at a time, the
+    # register forms' row limits and the shared-memory gate's edge (f64)
+    for c in WIDE_COUNTS:
+        add(f"count={c}", XT20[:16], y, 0.01 * lam, 7, count=c)
+    for n in (1024, 1025, 12_792):
+        B = torch.randn(n, 64, generator=g, dtype=torch.float64)
+        yy = B[:, :20].sum(1) + torch.randn(n, generator=g,
+                                            dtype=torch.float64)
+        add(f"n={n} k=64", B.T.contiguous().to(dev, dtype), yy.to(dev),
+            0.3 * float((B.T @ yy).abs().max()), 3)
     return out
 
 

@@ -21,10 +21,29 @@ p that keeps the smoke's five runs inside its budget, come from here.
 ``--gaps`` runs the two paths only, after the K7 checks, and prints each
 reduced solve's outer steps, its last gaps and the gap's precision floor,
 as ``scripts/ref_baselines_probe.py --gaps`` does for the reference.
+
+Two source trees are held bit for bit against each other as
+``scripts/cm_probe_torch.py`` does it:
+
+    python3 scripts/baselines_probe_torch.py --src OTHER/src \
+        --save-hashes a.json                                   # another tree
+    python3 scripts/baselines_probe_torch.py --compare-hashes a.json
+
+Every K7 output is fingerprinted (sha256 of its bytes): beta and z at
+every case of ``wide_cases`` and at the three timing shapes (k = 2,000,
+20,000 and the full width, one epoch from 0) in float64 and float32, and
+at the warm full-width case of ``chip_smoke.check_cm_wide_warm`` (5
+epochs from one epoch's beta, float64); and at the largest ``--p`` every
+baseline's betas and its integer outputs (outer steps, coordinate
+updates, K7 launches, survivor history, screened fractions or support
+sizes). ``--compare-hashes`` fails the run when one differs from the
+saved ones. ``--sass DIR`` writes ``cuobjdump -sass`` of ``cm_wide.cu``.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
+import json
 import signal
 import subprocess
 import sys
@@ -87,6 +106,12 @@ def main() -> int:
     ap.add_argument("--gaps", action="store_true",
                     help="the two paths only, with every reduced solve's "
                          "gaps")
+    ap.add_argument("--src", default=str(ROOT / "src"),
+                    help="the source tree whose repro_torch is probed")
+    ap.add_argument("--sass", default=None,
+                    help="write cuobjdump -sass of cm_wide.cu here")
+    ap.add_argument("--save-hashes", default=None)
+    ap.add_argument("--compare-hashes", default=None)
     args = ap.parse_args()
 
     import numpy as np
@@ -94,7 +119,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("baselines_probe_torch: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(Path(args.src).resolve()))
     sys.path.insert(0, str(ROOT))
     import repro_torch as rt
     from chip_smoke import (BASE_PATH, LOGIT_LAM, LS_LAM, N, baseline_runs,
@@ -103,8 +128,8 @@ def main() -> int:
     from repro_torch.kernels import _build, ops
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    print(f"card: {nvidia_smi_line()}; torch {torch.__version__}",
-          flush=True)
+    print(f"card: {nvidia_smi_line()}; torch {torch.__version__}; "
+          f"src {rt.__file__}", flush=True)
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
            str(_build._lib_path("cm_wide")), str(_build.CSRC / "cm_wide.cu")]
@@ -114,7 +139,26 @@ def main() -> int:
           f"{out.stdout}{out.stderr}", flush=True)
     if out.returncode != 0:
         return 1
+    if args.sass:
+        d = Path(args.sass)
+        d.mkdir(parents=True, exist_ok=True)
+        sass = subprocess.run(
+            [str(Path(_build.nvcc()).parent / "cuobjdump"), "-sass",
+             str(_build._lib_path("cm_wide"))], capture_output=True,
+            text=True).stdout
+        (d / "cm_wide.sass").write_text(sass)
+        print(f"[sass cm_wide.cu] {len(sass.splitlines())} lines in {d}",
+              flush=True)
     _build.build()                # the other kernels, outside SAIF's wall
+    hashes = {}
+
+    def fp(tag, outs):
+        for i, t in enumerate(outs):
+            if f"{tag}/{i}" in hashes:
+                raise KeyError(f"fingerprint {tag}/{i} taken twice")
+            hashes[f"{tag}/{i}"] = hashlib.sha256(
+                t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
     dev = torch.device("cuda")
     ls = rt.get_loss("least_squares")
     lg = rt.get_loss("logistic")
@@ -135,6 +179,7 @@ def main() -> int:
                                              dt):
             b1, z1 = ops.cm_sweep_wide(*a, loss_name=loss_name)
             torch.cuda.synchronize()
+            fp(f"k7 {dtype} {name}", (b1, z1))
             b2, z2 = ops.cm_sweep_wide_ref(*a, loss_name=loss_name)
             _, r = errs([(b1, b2), (z1, z2)])
             dead = bool((b1[~a[5]] == 0).all())
@@ -146,22 +191,31 @@ def main() -> int:
             print(f"[k7 {dtype}] disagrees with its plain version",
                   flush=True)
             return 1
-        XT = X.T.contiguous().to(dt)
-        k = XT.shape[0]
-        a = (XT, y.to(dt), torch.zeros(k, dtype=dt, device=dev),
-             torch.zeros(N, dtype=dt, device=dev), (XT * XT).sum(1),
-             torch.ones(k, dtype=torch.bool, device=dev),
-             torch.arange(k, device=dev), LS_LAM * lm, 1, k)
-        ms, call = kernel_ms(lambda: ops.cm_sweep_wide(*a), 3,
-                             "cm_wide_kernel")
-        print(f"[k7 {dtype}] full width n={N} k={k} one epoch from 0: "
-              f"ms={ms:.4f} call_ms={call:.4f} us_per_step="
-              f"{ms * 1e3 / k:.4f}", flush=True)
-        del XT, a
+        for label, k in (("k=2000", 2000), ("k=20000", 20_000),
+                         ("full width", p0)):
+            XT = X[:, :k].T.contiguous().to(dt)
+            a = (XT, y.to(dt), torch.zeros(k, dtype=dt, device=dev),
+                 torch.zeros(N, dtype=dt, device=dev), (XT * XT).sum(1),
+                 torch.ones(k, dtype=torch.bool, device=dev),
+                 torch.arange(k, device=dev), LS_LAM * lm, 1, k)
+            out = ops.cm_sweep_wide(*a)
+            fp(f"k7 {dtype} timing {label}", out)
+            ms, call = kernel_ms(lambda: ops.cm_sweep_wide(*a), 3,
+                                 "cm_wide_kernel")
+            print(f"[k7 {dtype}] {label} n={N} k={k} one epoch from 0: "
+                  f"ms={ms:.4f} call_ms={call:.4f} us_per_step="
+                  f"{ms * 1e3 / k:.4f}", flush=True)
+            if label == "full width" and dtype == "float64":
+                # chip_smoke.check_cm_wide_warm's launch, without its twin
+                warm = (XT, a[1], out[0], XT.T @ out[0]) + a[4:8] + (5, k)
+                fp("k7 float64 timing full width warm 5 epochs",
+                   ops.cm_sweep_wide(*warm))
+                del warm
+            del XT, a, out
 
     if args.gaps:
         print_path_gaps(X, y, lm)
-        return 0
+        return finish(hashes, args)
     for p in sorted(args.p, reverse=True):
         if p != p0:
             Xn, yn = simulation_data(N, p)
@@ -200,6 +254,10 @@ def main() -> int:
             wall = time.perf_counter() - t0
             total += wall
             k7 = ops.launch_counts()["cm_sweep_wide"]
+            if p == p0:
+                fp(f"{name} betas", [beta] + list(betas or []))
+                hashes[f"{name} counts"] = json.dumps(
+                    [outer, updates, k7, summary])
             kkt = float(rt.kkt_residual(ls, X, y, beta, lam)) / lam
             print(f"[{name} p={p}] wall_s={wall:.3f} wall_over_saif="
                   f"{wall / saif_wall:.2f} k7_launches={k7} outer={outer} "
@@ -207,6 +265,21 @@ def main() -> int:
                   f"saif_support={support(beta) == truth} summary={summary}",
                   flush=True)
         print(f"[baselines p={p}] five runs {total:.1f} s", flush=True)
+    return finish(hashes, args)
+
+
+def finish(hashes, args) -> int:
+    """Save or compare the fingerprints; 1 when one differs."""
+    if args.save_hashes:
+        Path(args.save_hashes).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.save_hashes).write_text(json.dumps(hashes, indent=0))
+    if args.compare_hashes:
+        ref = json.loads(Path(args.compare_hashes).read_text())
+        diff = sorted(k for k in ref if hashes.get(k) != ref[k])
+        print(f"[bitwise] {len(ref) - len(diff)} of {len(ref)} outputs "
+              f"equal bit for bit; differing: {diff}", flush=True)
+        if diff:
+            return 1
     return 0
 
 

@@ -35,7 +35,7 @@ _I = ctypes.c_int
 _CM = [_P, _P, _P, _P, _P, _P, None, _I, _I, _I, _I, _P, _P, _P, _P]
 _CM_PEN = _CM[:6] + [_P] + _CM[6:]
 _CM_BATCH = [_P] * 9 + [_I, _I, _I, _P, _P, _P, _P]
-_WIDE = [_P] * 8 + [None, _I, _I, _I, _P]
+_WIDE = [_P] * 9 + [None, _I, _I, _I, _I, _P]
 _SCREEN = [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
            _P, _P]
 _SIGNATURES = {

@@ -9,7 +9,11 @@ baselines (dynamic screening, the sequential path, the homotopy path and
 the unscreened CM) sweep with: K3's sweep (``kernels/cm/cm.py``) without
 K3's tail, on a design of any width, counted in ``cm_sweep_wide.launches``.
 Only the rows of z and y share one CTA's shared memory (past n = 2048),
-so the gate is on n alone.
+so the gate is on n alone (a launch is a cluster of two CTAs: the sweep
+and, on another SM, the warp that prefetches its columns into L2). The
+kernel packs one record a position of the order into a scratch buffer the
+wrapper allocates (``REC_WORDS`` words a record): the order must list
+distinct slots, as ``core/cm.py::sweep_order`` does.
 """
 from __future__ import annotations
 
@@ -30,6 +34,12 @@ def cm_wide_smem_bytes(n: int, itemsize: int) -> int:
     return (2 * n + 2 * _NW) * itemsize
 
 
+# words of the sweep's type in one record of K7's scratch (csrc/cm_wide.cu,
+# Rec): L_j, the threshold, the slot (an int32 in a word) and beta; one
+# record a position of the order, 32 bytes in float64, 16 in float32
+REC_WORDS = 4
+
+
 def cm_wide_smem_ok(n: int, itemsize: int = 8) -> bool:
     """Do a sweep's rows fit one CTA's shared memory? (n <= 12,792 in
     float64, 25,592 in float32.)"""
@@ -45,9 +55,12 @@ def cm_sweep_wide(XT: Tensor, y: Tensor, beta: Tensor, z: Tensor,
     and the model vector ``z`` = X beta (n,), with the squared column
     norms ``col_sq`` (k,), the validity ``mask`` (k,) bool (a masked slot
     steps to 0) and optional per-slot l1 weights ``pen`` (k,), 0 on an
-    unpenalized slot. Returns the updated (beta, z); the inputs are left
-    as they were."""
+    unpenalized slot. ``order[:count]`` lists distinct slots (the kernel
+    carries beta by position; checked on CPU tensors, where it is free).
+    Returns the updated (beta, z); the inputs are left as they were."""
     if XT.device.type == "cpu":
+        if torch.unique(order[:int(count)]).numel() != int(count):
+            raise ValueError("cm_sweep_wide: order[:count] repeats a slot")
         return cm_sweep_wide_ref(XT, y, beta, z, col_sq, mask, order, lam,
                                  n_epochs, count, pen, loss_name=loss_name)
     k, n = XT.shape
@@ -75,12 +88,13 @@ def cm_sweep_wide(XT: Tensor, y: Tensor, beta: Tensor, z: Tensor,
     if pen is not None:
         pen = pen.to(dt).contiguous()
         _require(pen, "pen", dt, (k,), dev)
+    rec = torch.empty((max(count, 1), REC_WORDS), dtype=dt, device=dev)
     dts = "f64" if dt == torch.float64 else "f32"
     fn = getattr(_build.library("cm_wide"),
                  f"cm_sweep_wide_{_LOSS[loss_name]}_{dts}")
     rc = fn(_ptr(XT), _ptr(y), _ptr(beta_out), _ptr(z_out), _ptr(col_sq),
             _ptr(mask), None if pen is None else _ptr(pen), _ptr(order32),
-            float(lam), n_epochs, count, n, _stream())
+            _ptr(rec), float(lam), n_epochs, count, n, k, _stream())
     _build.check(rc, "cm_sweep_wide")
     cm_sweep_wide.launches += 1
     return beta_out, z_out

@@ -5,7 +5,11 @@
 least squares and logistic, with masked slots (beta nonzero on some) and
 per-slot l1 weights, at rtol 1e-10 (the same arithmetic, summed in another
 order); bit for bit the port's own ``cm_sweeps`` loop; the order the
-callers hand it (masked slots at 0 left out); the shared-memory gate."""
+callers hand it (masked slots at 0 left out); the twin at the kernel's
+design boundaries (short orders around its read-ahead distances, the row
+counts where its register forms change; ``chip_smoke.py::wide_cases``
+holds the kernel itself there on the card); an order that repeats a slot
+refused; the shared-memory gate."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -148,3 +152,69 @@ def test_smem_gate_on_n_alone():
     assert cm_wide_smem_ok(12_792, 8) and not cm_wide_smem_ok(12_793, 8)
     assert cm_wide_smem_ok(25_592, 4) and not cm_wide_smem_ok(25_593, 4)
     assert "cm_sweep_wide" in ops.KERNELS
+
+
+def _against_reference_and_loop(X, y, beta, z, mask, lam, loss_name, count,
+                                n_ep):
+    """K7's wrapper on CPU tensors over the first ``count`` slots for
+    ``n_ep`` epochs: against the reference's sweeps of those columns
+    (rtol 1e-10) and bit for bit ``cm_sweeps`` over them."""
+    XT = _t(X.T.copy())
+    cs = torch.sum(XT * XT, dim=1)
+    k = X.shape[1]
+    b, zz = ops.cm_sweep_wide(XT, _t(y), _t(beta), _t(z), cs, _t(mask),
+                              torch.arange(k), lam, n_ep, count,
+                              loss_name=loss_name)
+    jl = j_get_loss(loss_name)
+    bj, zj = jnp.asarray(beta), jnp.asarray(z)
+    for _ in range(n_ep):
+        bj, zj = jcm.cm_epoch(jl, jnp.asarray(X[:, :count]), jnp.asarray(y),
+                              bj[:count], zj, jnp.asarray(mask[:count]), lam)
+        bj = jnp.concatenate([bj, jnp.asarray(beta[count:])])
+    _close(b.numpy(), bj)
+    _close(zz.numpy(), zj)
+    ref = tcm.cm_sweeps(t_get_loss(loss_name), XT.T, _t(y), _t(beta), _t(z),
+                        _t(mask), lam, cs, torch.arange(count), count, n_ep)
+    assert torch.equal(b, ref[0]) and torch.equal(zz, ref[1])
+
+
+@pytest.mark.parametrize("loss_name", ["least_squares", "logistic"])
+@pytest.mark.parametrize("count", [3, 4, 5, 6, 8, 9])
+def test_short_orders(count, loss_name):
+    """The twin on orders of 3-9 slots swept 7 times over: the counts at
+    which the kernel's reads ahead wrap past its own writes (beta two
+    steps ahead, in hand up to a count of 2, the slot five steps ahead);
+    one masked slot with a nonzero beta. The kernel is held at the same
+    counts on the card (``chip_smoke.py::WIDE_COUNTS``)."""
+    X, y, beta, z, mask, _, lam = _design(7 + count, 30, 12, loss_name,
+                                          n_masked=2)
+    _against_reference_and_loop(X, y, beta, z, mask, 0.05 * lam, loss_name,
+                                count, 7)
+
+
+@pytest.mark.parametrize("n", [1024, 1025, 2048, 2049])
+def test_row_boundaries(n):
+    """The twin at the n where the kernel's forms change: 4 rows a thread
+    in registers up to 1,024, 8 up to 2,048, past that z and y in shared
+    memory (the kernel is held at the same n on the card by
+    ``chip_smoke.py::wide_cases``)."""
+    X, y, beta, z, mask, _, lam = _design(n, n, 6, "least_squares",
+                                          n_masked=1)
+    _against_reference_and_loop(X, y, beta, z, mask, lam, "least_squares",
+                                6, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_repeated_slot_refused(dtype):
+    """The kernel carries beta by position, so ``order[:count]`` must list
+    distinct slots: on CPU tensors an order that repeats one is refused
+    (a slot past ``count`` may repeat)."""
+    X, y, beta, z, mask, _, lam = _design(20, 8, 6, "least_squares")
+    XT = _t(X.T.copy()).to(dtype)
+    args = (XT, _t(y).to(dtype), _t(beta).to(dtype), _t(z).to(dtype),
+            torch.sum(XT * XT, dim=1), _t(mask))
+    with pytest.raises(ValueError, match="repeats a slot"):
+        ops.cm_sweep_wide(*args, torch.tensor([0, 3, 0, 5]), lam, 1, 3)
+    b, z1 = ops.cm_sweep_wide(*args, torch.tensor([0, 3, 5, 0]), lam, 1, 3)
+    b2, z2 = ops.cm_sweep_wide(*args, torch.tensor([0, 3, 5, 1]), lam, 1, 3)
+    assert b.dtype == dtype and torch.equal(b, b2) and torch.equal(z1, z2)
