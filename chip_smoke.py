@@ -11,8 +11,9 @@ Phases (each one fails the run by raising):
 2. least squares at full size: the paper's Sec 5.1.1 simulation (X ~
    U[-10, 10], 20% of the betas nonzero in [-1, 1], N(0, 1) noise) at
    n = 1000, p = 100,000, float64, solved three ways — ``auto`` (K1/K2
-   screen + K3 burst), ``inner_backend="gram"`` (the Gram engine on the
-   card) and ``torch``/``torch`` (the plain path, on the card). Each solve
+   screen + the Gram engine's sweep K6, as the reference routes least
+   squares), ``inner_backend="cuda"`` (the K3 burst) and ``torch``/``torch``
+   (the plain path, on the card). Each solve
    must be certified on the card (gap <= eps, KKT residual <= 1e-3 lam) and
    all three must find the same support;
 3. logistic at full size: gaussian design, 40 true features, labels from
@@ -26,11 +27,13 @@ Phases (each one fails the run by raising):
    where the plain version has NaN);
 5. fused least squares: the chain problem of benchmarks/bench_fused.py at
    n = 1000, p = 5,000, float64, at FUSED_LS_LAM lambda_max, through
-   ``saif_fused`` under ``auto`` (K4, K1, K2 and K3-pen) and plain; each
+   ``saif_fused`` under ``auto`` (K4, K1, K2 and K6 with b's weight 0) and
+   plain; each
    certified (gap <= eps and the KKT residual with b's weight 0 <= 1e-3
    lam), one support;
 6. fused logistic on the same design, labels sign(X beta + 0.3 noise), at
-   FUSED_LOGIT_LAM lambda_max, the same two ways and certificates;
+   FUSED_LOGIT_LAM lambda_max, the same two ways (K3-pen) and
+   certificates;
 7. ``fused_path`` over 4 lambdas from 0.7 to 0.3 lambda_max (geometric) on
    phase 5's problem: every point certified, supports growing;
 8. every kernel against its plain version on the card, in float64 and
@@ -49,10 +52,17 @@ Phases (each one fails the run by raising):
    builds them (15 true features in [-1, 1], N(0, 1) noise, a seed per
    response), lambda_b spread geometrically from 0.8 down to 0.3 of each
    problem's lambda_max, through ``fleet_solve`` under ``auto`` (K1b, K2b,
-   K3b and no serial kernel); every problem certified (gap <= eps, KKT
+   K6b and no serial kernel); every problem certified (gap <= eps, KKT
    <= 1e-3 lambda_b) and its row bit for bit the port's serial ``saif``
-   on the card (K1/K2/K3); the fleet's wall against the sum of the 16
-   serial walls, and the fleet profiled;
+   on the card (K1/K2/K6); the fleet's wall against the sum of the 16
+   serial walls, and the fleet profiled; ``[fleet-ls/cuda]`` the same
+   with ``inner_backend="cuda"`` (K3b, rows bitwise their K3 serials);
+   ``[fleet-fast/working|float32|bfloat16]`` the same fleet under
+   ``parity="fast"`` in each screen dtype (K1b in working precision or in
+   its mixed mode, K2b, K6b sweeping each problem's slot range, no K3b):
+   every row certified with the bitwise fleet's support, the wall against
+   the bitwise fleet's, outer steps, launches, escalated rows, host reads
+   per outer step, and each profiled;
 10. the logistic fleet: B = 8 label vectors over phase 3's design (40 true
    features each, a seed per vector), lambda from 0.5 down to 0.2
    lambda_max, the same checks;
@@ -60,7 +70,8 @@ Phases (each one fails the run by raising):
    of phase 9 (its largest and smallest lambda): the kernel fleet's
    support, beta within rtol 1e-6, gap <= eps;
 12. K1b, K2b and K3b against their plain versions at the fleet's shapes
-   (B = 16, n = 1000, p = 100,000, its h and k_max), in float64 and
+   (B = 16, n = 1000, p = 100,000, the h, k_max and final active blocks
+   of ``[fleet-ls/cuda]``, K3b's own fleet), in float64 and
    float32, and each against B launches of its serial kernel (K1, K2,
    K3), bit for bit; K1b and K2b's tail also with per-problem column
    norms (the 16 subsample masks of phase 14), against their twins and
@@ -79,7 +90,9 @@ Phases (each one fails the run by raising):
 14. ``[select]``: ``select_solve`` over the CV grid with 16 half
    subsamples (one weighted fleet, K1b + K2b + K6b), every subsample
    problem certified, the true features' frequencies and the stable
-   support;
+   support; ``[select/fast]`` the same under ``parity="fast"`` with the
+   bf16 screen (the subsample fleet on the lockstep engine, K1b's bf16
+   mode): the bitwise selection's lambda and stable support;
 15. the weighted logistic fleet under ``auto`` raises on the card, naming
    ``inner_backend="torch"``;
 16. ``[cm-epochs]``: ``ops.cm_epochs`` (K5) as a caller drives it, on
@@ -90,7 +103,15 @@ Phases (each one fails the run by raising):
    against its plain version on the LS Gram solve's final carry in float64 and
    float32, and K6b on the CV's 5 fold carries at its last lambda against
    its plain version and bit for bit 5 launches of K6; both sweeps start
-   from beta = 0, as the K3 and K5 checks do;
+   from beta = 0, as the K3 and K5 checks do; K1b (B = 16) and K1 in
+   their mixed mode (bf16 and float32 inputs, float32 sums), at full
+   width and at p = 777, n = 1001: every score within the certified bound
+   gamma_total ||theta|| ||x_i|| of the float64 product and within the
+   float32 sums' bound 2 gamma_n(u_f32) sum_j |theta_j x_ji| of the twin
+   (the same rounded inputs), the tile winners the twin's where they
+   stand clear, timed beside cuBLAS on the same cast inputs; K6b with the identity
+   order on ``[fleet-fast/working]``'s carries (dead slots interleaved, a
+   frozen problem, 1-40 epochs) against its twin;
 18. K7 against its plain version in float64 and float32 (rel 1e-9 and
    1e-3): one epoch from beta = 0 over 20,000 columns of the LS design,
    masked slots, an unpenalized slot, k = 1, one and two slots repeated,
@@ -292,10 +313,20 @@ def device_ms(fn, reps: int, kernel: str) -> float:
     the launches whose name holds ``kernel`` over ``reps`` calls (one
     each; ten at least, as a session may miss one or two), summed and
     divided by their number (the wrapper's other device work, such as a
-    fill or a cast, is left out)."""
+    fill or a cast, is left out). A session that kept under half of the
+    launches is followed by another, three at most, whose kept launches
+    join the first's until they make half of ``reps``."""
     reps = max(reps, 10)
-    ev = [e for e in device_events(fn, reps, (kernel, 1)) if kernel in e.name]
-    return sum(e.device_time_total for e in ev) / len(ev) / 1e3
+    kept = []
+    for _ in range(3):
+        kept += [e.device_time_total for e in device_events(fn, reps)
+                 if kernel in e.name]
+        if 2 * len(kept) >= reps:
+            return sum(kept) / len(kept) / 1e3
+        print(f"[profiler] {len(kept)} launches of {kernel} kept so far of "
+              f"{reps} wanted; again", file=sys.stderr, flush=True)
+    raise RuntimeError(f"the profiler kept {len(kept)} launches of {kernel} "
+                       f"in three sessions of {reps}")
 
 
 def kernel_ms(fn, reps: int, kernel: str):
@@ -948,15 +979,20 @@ def fused_phases():
     Xn, yn = fused_chain_data(N, p)
     X = torch.from_numpy(Xn).to(dev)
     Xt = rt.prepare_fused(X, parent).Xt
-    on = {"screen_fused": True, "ub_histogram": True, "cm_burst": False,
-          "cm_burst_pen": True, "chain_suffix_sums": 1,
-          "screen_fused_batch": False, "ub_histogram_batch": False,
-          "cm_burst_batch": False, "cm_epochs": False, "gram_sweep": False,
-          "gram_sweep_batch": False}
-    off = {k: False for k in on}
+    # logistic: K3-pen; least squares: the Gram sweep K6 with its pen
+    on_logit = {"screen_fused": True, "ub_histogram": True,
+                "cm_burst": False, "cm_burst_pen": True,
+                "chain_suffix_sums": 1, "screen_fused_batch": False,
+                "ub_histogram_batch": False, "cm_burst_batch": False,
+                "cm_epochs": False, "gram_sweep": False,
+                "gram_sweep_batch": False, "screen_fused_mixed": False,
+                "screen_fused_batch_mixed": False}
+    on_ls = {**on_logit, "cm_burst_pen": False, "gram_sweep": True}
+    off = {k: False for k in on_ls}
     out, launches, fused = {}, [], []
     for loss_name, frac, logistic in (("least_squares", FUSED_LS_LAM, False),
                                       ("logistic", FUSED_LOGIT_LAM, True)):
+        on = on_ls if loss_name == "least_squares" else on_logit
         y = torch.from_numpy(fused_chain_data(N, p, logistic=logistic)[1]
                              ).to(dev)
         loss = rt.get_loss(loss_name)
@@ -1003,7 +1039,7 @@ def fused_phases():
             raise RuntimeError("fused-path: a point is not certified")
     print(f"[fused-path] {m} lambdas wall_s={wall:.3f} launches={counts}",
           flush=True)
-    check_launches("fused-path", counts, on)
+    check_launches("fused-path", counts, on_ls)
     if sizes != sorted(sizes):
         raise RuntimeError(f"fused-path: supports shrink down the path: "
                            f"{sizes}")
@@ -1034,11 +1070,13 @@ def fleet_responses(X, b, seed, logistic=False, k=15):
     return torch.stack(ys)
 
 
-def fleet_phase(name, X, Y, fracs, loss_name, serial_expect, fleet_expect):
-    """Solve the fleet under ``auto`` (counted) and certify each problem;
-    solve each problem serially (uncounted) and hold the fleet's row
-    against it bit for bit; print the walls and profile the fleet.
-    Returns (result, lams, launch counts, the fleet's h)."""
+def fleet_phase(name, X, Y, fracs, loss_name, serial_expect, fleet_expect,
+                **over):
+    """Solve the fleet under ``auto`` (or the config overrides ``over``;
+    counted) and certify each problem; solve each problem serially with
+    the same config (uncounted) and hold the fleet's row against it bit
+    for bit; print the walls and profile the fleet. Returns (result,
+    lams, launch counts, the fleet's h, its wall)."""
     import torch
     import repro_torch as rt
     from repro_torch.kernels import ops
@@ -1046,7 +1084,7 @@ def fleet_phase(name, X, Y, fracs, loss_name, serial_expect, fleet_expect):
     loss = rt.get_loss(loss_name)
     lms = [float(rt.lambda_max(loss, X, y)) for y in Y]
     lams = [f * lm for f, lm in zip(fracs, lms)]
-    cfg = rt.SaifConfig(eps=1e-6, loss=loss_name)
+    cfg = rt.SaifConfig(eps=1e-6, loss=loss_name, **over)
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1097,7 +1135,233 @@ def fleet_phase(name, X, Y, fracs, loss_name, serial_expect, fleet_expect):
         (name, lambda: rt.fleet_solve(X, Y, lams, cfg), wall))
     from repro_torch.core.batch import fleet_batch_sizes, prepare_fleet
     _, h = fleet_batch_sizes(prepare_fleet(X, Y, cfg), lams, cfg)
-    return res, lams, counts, h
+    return res, lams, counts, h, wall
+
+
+def fast_fleet_phase(X, Y, lams, screen_dtype, bit, bit_wall, expect):
+    """``[fleet-fast/<screen_dtype>]``: the LS fleet of ``[fleet-ls]``
+    under ``parity="fast"`` (counted): every row certified (gap <= eps,
+    KKT <= 1e-3 lambda over all p) with the support of the bitwise fleet's
+    row (``bit``); its wall against the bitwise fleet's, outer steps,
+    launches, escalated rows and host reads per outer step; profiled
+    later. Returns (result, launch counts, stats)."""
+    import torch
+    import repro_torch as rt
+    from repro_torch.core.batch_fast import solve_fleet_fast
+    from repro_torch.kernels import ops
+
+    name = f"fleet-fast/{screen_dtype}"
+    ls = rt.get_loss("least_squares")
+    cfg = rt.SaifConfig(eps=1e-6, parity="fast", screen_dtype=screen_dtype)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = rt.fleet_solve(X, Y, lams, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    st = dict(solve_fleet_fast.stats)
+    bad, worst_kkt = [], 0.0
+    for i, lam in enumerate(lams):
+        kkt = float(rt.kkt_residual(ls, X, Y[i], res.beta[i], lam))
+        worst_kkt = max(worst_kkt, kkt / lam)
+        if not (float(res.gap[i]) <= cfg.eps and kkt <= 1e-3 * lam
+                and support(res.beta[i]) == support(bit.beta[i])):
+            bad.append(i)
+    print(f"[{name}] B={Y.shape[0]} k_max={res.active_idx.shape[1]} "
+          f"wall_s={wall:.4f} bitwise_fleet_wall_s={bit_wall:.4f} "
+          f"bitwise_over_fast={bit_wall / wall:.2f} outer_per_problem="
+          f"{res.n_outer.tolist()} outer_steps={st['steps']} host_reads="
+          f"{st['host_reads']} host_reads_per_step="
+          f"{st['host_reads'] / max(st['steps'], 1):.2f} screens="
+          f"{st['screens']} rows_screened={st['rows_screened']} "
+          f"escalated_rows={st['escalated_rows']} max_gap="
+          f"{float(res.gap.max()):.3e} max_kkt_over_lam={worst_kkt:.3e} "
+          f"supports_of_bitwise_fleet={not bad} launches={counts}",
+          flush=True)
+    check_launches(name, counts, expect)
+    if bad:
+        raise RuntimeError(f"{name}: rows {bad} not certified or off the "
+                           f"bitwise fleet's support")
+    DEFERRED_PROFILES.append(
+        (name, lambda: rt.fleet_solve(X, Y, lams, cfg), wall,
+         ("screen_fused_kernel", "screen_tail_kernel", "gram_sweep_kernel")))
+    return res, counts, st
+
+
+MIXED = (("bfloat16", "bf16"), ("float32", "f32"))
+
+
+def check_mixed_scans(X, records):
+    """``[kernel screen_fused_batch bf16|f32]`` and ``[kernel screen_fused
+    bf16|f32]``: K1b (B = 16) and K1 in the mixed mode, X cast once, at the
+    smoke's shapes and at p = 777 with n odd. Each score within the
+    certified bound gamma_total ||theta|| ||x_i|| of the float64 product.
+    Kernel and twin multiply the same rounded inputs in float32, so they
+    differ by the float32 sums' order only: each score within twice
+    gamma_n(u_f32) sum_j |theta_j| |x_ji| (the rounded inputs) of the
+    twin's, ub within that plus the epilogue's float32 rounding, and
+    tile-winner ids equal the twin's wherever neighbouring scores stand
+    more than that apart. Timed at full size beside the twin and cuBLAS
+    on the same cast inputs."""
+    import torch
+    from repro_torch.core.duality import (dot_error_gamma,
+                                          mixed_precision_gamma,
+                                          unit_roundoff)
+    from repro_torch.kernels import ops
+
+    dev = X.device
+    g = torch.Generator(device="cpu").manual_seed(21)
+    small = (torch.rand(1001, 777, generator=g, dtype=torch.float64) * 20
+             - 10).to(dev)
+    k1_rows = []
+    for Xs, full in ((X, True), (small, False)):
+        n, p = Xs.shape
+        cn = torch.linalg.vector_norm(Xs, dim=0)
+        for m in (16, 1):
+            Th = (torch.randn(m, n, generator=g, dtype=torch.float64)
+                  / (10 * n ** 0.5)).to(dev)
+            act = (torch.rand(m, p, generator=g) < 0.05).to(dev)
+            r = torch.linspace(1e-3, 1e-2, m, dtype=torch.float64,
+                               device=dev)
+            exact = torch.abs(Th @ Xs)
+            free = ~act
+            h = 32
+            for mode, short in MIXED:
+                dt = getattr(torch, mode)
+                Xc, cn32, r32 = Xs.to(dt), cn.float(), r.float()
+                guard = 1.0 + 8.0 * 2.0 ** -24
+                gam = mixed_precision_gamma(n, dt, torch.float32)
+                bound = (gam * torch.linalg.vector_norm(Th, dim=1)[:, None]
+                         * cn[None, :])
+                # kernel against twin: the float32 sums' bound over the
+                # products of the rounded inputs (exact in float64)
+                u32 = unit_roundoff(torch.float32)
+                pair = (2 * dot_error_gamma(n, u32)
+                        * (Th.to(dt).double().abs() @ Xc.double().abs()))
+                if m > 1:
+                    def call(Xc=Xc, Th=Th, cn32=cn32, act=act, r32=r32,
+                             mode=mode, guard=guard):
+                        return ops.screen_fused_batch(
+                            Xc, Th, cn32, act, r32, h=h, in_dtype=mode,
+                            guard=guard)
+                else:
+                    def call(Xc=Xc, Th=Th, cn32=cn32, act=act, r32=r32,
+                             mode=mode, guard=guard):
+                        return tuple(t[None] for t in ops.screen_fused(
+                            Xc, Th[0], cn32, act[0], r32[0], h=h,
+                            in_dtype=mode, guard=guard))
+
+                def twin(Xc=Xc, Th=Th, cn32=cn32, act=act, r32=r32, dt=dt,
+                         guard=guard):
+                    return ops.screen_fused_batch_ref(
+                        Xc.float(), Th.to(dt).float(), cn32, act, r32, h=h,
+                        guard=guard)
+                out, ref = call(), twin()
+                d_exact = ((out[0].double() - exact).abs() - bound)[free]
+                d_twin = ((out[0] - ref[0]).abs().double() - pair)[free]
+                ub_slack = ((out[1] - ref[1]).abs().double() - guard * pair
+                            - 8 * u32 * ref[1].abs().double())[free]
+                err = float((out[0] - ref[0]).abs()[free].max())
+                err_share = float(((out[0] - ref[0]).abs().double()
+                                   / pair.clamp(min=1e-300))[free].max())
+                # tile winners: the twin's sorted tops, decided where they
+                # stand clear of both neighbours
+                ts = ref[3].double()
+                tol = pair.max(dim=1).values[:, None, None]
+                inf = torch.full_like(ts[..., :1], float("inf"))
+                dif = torch.cat([inf, ts], -1) - torch.cat([ts, -inf], -1)
+                clear = ((dif[..., :-1].abs() > tol)
+                         & (dif[..., 1:].abs() > tol) & torch.isfinite(ts))
+                ids_ok = bool((out[4][clear] == ref[4][clear]).all())
+                ok = (float(d_exact.max()) <= 0 and float(d_twin.max()) <= 0
+                      and float(ub_slack.max()) <= 0 and ids_ok)
+                kname = "screen_fused_batch" if m > 1 else "screen_fused"
+                line = (f"[kernel {kname} {short}] n={n} p={p} m={m} "
+                        f"gamma={gam:.3e} max_abs_err_vs_twin={err:.3e} "
+                        f"score_vs_f64_slack={float(d_exact.max()):.3e} "
+                        f"score_vs_twin_slack={float(d_twin.max()):.3e} "
+                        f"err_over_twin_bound={err_share:.3e} "
+                        f"ub_slack={float(ub_slack.max()):.3e} "
+                        f"ids_ok={ids_ok} (decided {int(clear.sum())} of "
+                        f"{int(torch.isfinite(ts).sum())})")
+                if full:
+                    isz = torch.finfo(dt).bits // 8
+                    ms, call_ms = kernel_ms(call, 20, "screen_fused_kernel")
+                    plain = time_ms(twin, 3)
+                    Thc = Th.to(dt)
+                    lib = time_ms(lambda: torch.abs(Thc @ Xc), 20)
+                    pb = -(-p // 256)
+                    bnd, by = bound_ms(
+                        n * p * isz + m * n * 4 + p * 4 + m * p + 4
+                        + 3 * m * p * 4 + m * pb * 32 * 8 + m * pb * 4,
+                        2 * m * n * p, "float32")
+                    line += (f" ms={ms:.4f} call_ms={call_ms:.4f} "
+                             f"plain_ms={plain:.4f} library_ms(abs(Theta_"
+                             f"{short} @ X_{short}), cuBLAS, {short} out)="
+                             f"{lib:.4f} bound_ms={bnd:.4f} ({by})")
+                    rec = dict(max_abs_err=err, ms=ms, call_ms=call_ms,
+                               plain_ms=plain, bound_ms=bnd, bound_by=by,
+                               library_ms=lib)
+                    if m > 1:
+                        records[f"screen_fused_batch_{short}"].update(rec)
+                    else:
+                        k1_rows.append({"in_dtype": mode, **rec})
+                print(line, flush=True)
+                if not ok:
+                    raise RuntimeError(f"{kname} {mode}: outside the "
+                                       f"certified bound of the twin")
+    # K1's mixed mode is on no path (the serial engine has no screen
+    # dtype): its numbers ride in K1's record
+    records["screen_fused"]["mixed"] = k1_rows
+
+
+def check_gram_lockstep(res, lams, records):
+    """``[kernel gram_sweep_batch lockstep]``: K6b with the identity order
+    over each problem's slots [0, hi) (the fast fleet's sweep) on the final
+    carries of ``[fleet-fast/working]`` from beta = 0, every third live slot
+    masked off (dead slots interleaved), problem 0 frozen (no epoch) and
+    budgets of 1 to 40 epochs; against its twin (rel 1e-12) and timed."""
+    import torch
+    from repro_torch.kernels import ops
+
+    G, rho = res.inner.G.contiguous(), res.inner.rho.contiguous()
+    b, k = rho.shape
+    dev = G.device
+    mask = res.active_mask.clone()
+    mask[:, 1::3] = False
+    beta = torch.zeros_like(rho)
+    order = torch.arange(k, dtype=torch.int32, device=dev).expand(
+        b, -1).contiguous()
+    hi = torch.amax(torch.where(mask, torch.arange(
+        1, k + 1, dtype=torch.int32, device=dev), 0), dim=1)
+    nep = torch.tensor([0] + [1 + (7 * i) % 40 for i in range(1, b)],
+                       dtype=torch.int32, device=dev)
+    lam = torch.tensor(lams, dtype=G.dtype, device=dev)
+    args = (G, rho, beta, mask, lam, order, hi, nep)
+    out = ops.gram_sweep_batch(*args)
+    ref = ops.gram_sweep_batch_ref(*args)
+    err = float((out - ref).abs().max())
+    rel = err / max(float(ref.abs().max()), 1e-300)
+    frozen = bool((out[0] == 0).all())
+    ms, call = kernel_ms(lambda: ops.gram_sweep_batch(*args), 10,
+                         "gram_sweep_kernel")
+    plain = time_ms(lambda: ops.gram_sweep_batch_ref(*args), 1)
+    steps = int((nep.long() * hi.long()).sum())
+    bnd, by = bound_ms(b * (k * k * 8 + 4 * k * 8 + 5 * k),
+                       steps * 2 * k + b * 2 * k * k, "float64")
+    print(f"[kernel gram_sweep_batch lockstep] B={b} k_max={k} hi="
+          f"{hi.tolist()} live={mask.sum(1).tolist()} n_epochs="
+          f"{nep.tolist()} from beta=0 nonzero={(ref != 0).sum(1).tolist()}"
+          f" frozen_kept={frozen} max_abs_err={err:.3e} rel_err={rel:.3e} "
+          f"tol=1e-12 ms={ms:.4f} call_ms={call:.4f} us_per_step="
+          f"{ms * 1e3 / int((nep.long() * hi.long()).max()):.4f} "
+          f"plain_ms={plain:.4f} bound_ms={bnd:.6f} ({by})", flush=True)
+    if not (rel <= 1e-12 and frozen):
+        raise RuntimeError("gram_sweep_batch lockstep disagrees")
+    records["gram_sweep_batch_lockstep"].update(
+        max_abs_err=err, ms=ms, call_ms=call, plain_ms=plain, bound_ms=bnd,
+        bound_by=by, library_ms=None)
 
 
 def plain_fleet_phase(X, Y, lams, kres):
@@ -1630,7 +1894,7 @@ def cv_phase(X, y, fleet_expect, refit_expect):
           f" max_abs_dev={dev:.3e} ok={ok}", flush=True)
     check_launches("cv-ls serial subsample", sub_counts,
                    {"screen_fused": True, "ub_histogram": True,
-                    "cm_burst": True})
+                    "gram_sweep": True, "cm_burst": False})
     if not ok:
         raise RuntimeError("cv-ls: fold 1 differs from its row-subsampled "
                            "serial solve")
@@ -1639,15 +1903,20 @@ def cv_phase(X, y, fleet_expect, refit_expect):
     return cv, lams, {k: counts[k] + refit_counts[k] for k in counts}, lm
 
 
-def select_phase(X, y, lams, lm, true_idx, fleet_expect):
+def select_phase(X, y, lams, lm, true_idx, fleet_expect, tag="select",
+                 bit=None, **over):
     """Phase 14: select_solve (counted), its stability fleet certified row by
-    row (the same fleet once more, uncounted)."""
+    row (the same fleet once more, uncounted); with the config overrides
+    ``over`` (``[select/fast]``) its stable support must equal the bitwise
+    selection's (``bit``). Returns (launch counts, the subsample weights,
+    the report)."""
+    import numpy as np
     import torch
     import repro_torch as rt
     from repro_torch.kernels import ops
 
     ls = rt.get_loss("least_squares")
-    cfg = rt.SaifConfig(eps=1e-6)
+    cfg = rt.SaifConfig(eps=1e-6, **over)
     b, frac = SELECT_SUBSAMPLES
     req = rt.Select(lams=tuple(lams), n_folds=CV_FOLDS, n_subsamples=b,
                     subsample_frac=frac)
@@ -1672,7 +1941,10 @@ def select_phase(X, y, lams, lm, true_idx, fleet_expect):
     gap_r = float(rep.best_result.gap)
     ok = (not bad and (freq == rep.frequencies).all() and gap_r <= cfg.eps
           and kkt_r <= 1e-3 * rep.lam)
-    print(f"[select] B={b} frac={frac} lam_1se/lam_max={rep.lam_1se / lm:.4f}"
+    if bit is not None:
+        ok = ok and (np.array_equal(rep.stable_support, bit.stable_support)
+                     and rep.lam == bit.lam)
+    print(f"[{tag}] B={b} frac={frac} lam_1se/lam_max={rep.lam_1se / lm:.4f}"
           f" lam_min/lam_max={rep.lam_min / lm:.4f} true_feature_freq="
           f"{rep.frequencies[true_idx].tolist()} stable_support="
           f"{rep.stable_support.tolist()} (size {len(rep.stable_support)}, "
@@ -1680,12 +1952,15 @@ def select_phase(X, y, lams, lm, true_idx, fleet_expect):
           f"subsample_outer={fl.n_outer.tolist()} subsample_max_gap="
           f"{float(fl.gap.max()):.3e} refit gap={gap_r:.3e} kkt={kkt_r:.3e} "
           f"kkt_limit={1e-3 * rep.lam:.3e} wall_s={wall:.3f} "
-          f"launches={counts} ok={ok}", flush=True)
-    check_launches("select", counts, fleet_expect)
+          f"launches={counts} ok={ok}"
+          + ("" if bit is None else " (stable support and lambda: the "
+             "bitwise selection's)"), flush=True)
+    check_launches(tag, counts, fleet_expect)
     if not ok:
-        raise RuntimeError(f"select: subsample problems {bad} not certified,"
-                           f" or the refit or frequencies wrong")
-    return counts, W
+        raise RuntimeError(f"{tag}: subsample problems {bad} not certified,"
+                           f" or the refit, frequencies or stable support "
+                           f"wrong")
+    return counts, W, rep
 
 
 def weighted_logistic_phase(XL, yL):
@@ -2223,6 +2498,7 @@ def main() -> int:
     print(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
 
+    t_start = time.perf_counter()
     secs = _build.build()
     print(f"[build] nvcc, {len(_build.SOURCES)} sources in parallel: "
           f"{secs:.1f} s", flush=True)
@@ -2242,19 +2518,29 @@ def main() -> int:
     plain_lasso = {"cm_burst_pen": False, "chain_suffix_sums": False,
                    "screen_fused_batch": False, "ub_histogram_batch": False,
                    "cm_burst_batch": False, "cm_epochs": False,
-                   "gram_sweep_batch": False}
+                   "gram_sweep_batch": False, "screen_fused_mixed": False,
+                   "screen_fused_batch_mixed": False}
     on = {"screen_fused": True, "ub_histogram": True, **plain_lasso}
     ls = rt.get_loss("least_squares")
     lm = float(rt.lambda_max(ls, X, y))
     lam = LS_LAM * lm
     cfg = rt.SaifConfig(eps=1e-6)
+    # least squares under auto takes the Gram engine (K6), as the
+    # reference does; the explicit cuda run keeps K3 measured. One small
+    # solve each first (uncounted): a process's first solve on a path pays
+    # the libraries' loads and the handles' set-up, which would bias the
+    # walls of whichever run came first
+    for inner in ("auto", "cuda"):
+        rt.saif(X[:, :5000].contiguous(), y, lam, rt.SaifConfig(
+            eps=1e-6, inner_backend=inner))
+    torch.cuda.synchronize()
     ls_res, ls_counts = solve_phase(
         "ls", lam, cfg,
         {"auto": {},
-         "gram": {"inner_backend": "gram"},
+         "cuda": {"inner_backend": "cuda"},
          "plain": {"screen_backend": "torch", "inner_backend": "torch"}},
-        {"auto": {**on, "cm_burst": True, "gram_sweep": False},
-         "gram": {**on, "cm_burst": False, "gram_sweep": True},
+        {"auto": {**on, "cm_burst": False, "gram_sweep": True},
+         "cuda": {**on, "cm_burst": True, "gram_sweep": False},
          "plain": {k: False for k in ops.KERNELS}},
         lambda c: rt.saif(X, y, lam, c),
         lambda r: rt.kkt_residual(ls, X, y, r.beta, lam),
@@ -2312,47 +2598,86 @@ def main() -> int:
         "cm_sweep_wide": {"name": "cm_sweep_wide", "route": "cuda",
                           "source": "src/repro_torch/csrc/cm_wide.cu",
                           "replaces": "src/repro/core/cm.py:66"},
+        # K1b's mixed mode (the certified screen of parity="fast"), and K6b
+        # sweeping the fast fleet's slot range in slot order
+        **{f"screen_fused_batch_{short}": {
+            "name": f"screen_fused_batch ({mode} in, float32 sums)",
+            "route": "cuda", "source": "src/repro_torch/csrc/screen.cu",
+            "replaces": "src/repro/kernels/screen/screen.py:394 "
+                        "(in_dtype/acc_dtype)"} for mode, short in MIXED},
+        "gram_sweep_batch_lockstep": {
+            "name": "gram_sweep_batch (lockstep, identity order)",
+            "route": "cuda", "source": "src/repro_torch/csrc/gram_sweep.cu",
+            "replaces": "src/repro/core/batch.py:586"},
     }
 
     k4_launches = transform_phase(X, records)
     fused, fused_counts = fused_phases()
 
     import numpy as np
-    serial_only = {"screen_fused": True, "ub_histogram": True,
-                   "cm_burst": True, "screen_fused_batch": False,
-                   "ub_histogram_batch": False, "cm_burst_batch": False,
-                   "gram_sweep": False, "gram_sweep_batch": False}
-    fleet_only = {"screen_fused": False, "ub_histogram": False,
-                  "cm_burst": False, "cm_burst_pen": False,
-                  "chain_suffix_sums": False, "screen_fused_batch": True,
-                  "ub_histogram_batch": True, "cm_burst_batch": True,
-                  "cm_epochs": False, "gram_sweep": False,
-                  "gram_sweep_batch": False}
-    # weighted least-squares fleets: K1b + K2b + the Gram sweep K6b
-    weighted_only = {**fleet_only, "cm_burst_batch": False,
-                     "gram_sweep_batch": True}
+    # serial solves: K1 + K2 + K6 for least squares (auto), K3 for logistic
+    serial_k3 = {"screen_fused": True, "ub_histogram": True,
+                 "cm_burst": True, "screen_fused_batch": False,
+                 "ub_histogram_batch": False, "cm_burst_batch": False,
+                 "gram_sweep": False, "gram_sweep_batch": False,
+                 "screen_fused_mixed": False,
+                 "screen_fused_batch_mixed": False}
+    serial_ls = {**serial_k3, "cm_burst": False, "gram_sweep": True}
+    fleet_k3 = {"screen_fused": False, "ub_histogram": False,
+                "cm_burst": False, "cm_burst_pen": False,
+                "chain_suffix_sums": False, "screen_fused_batch": True,
+                "ub_histogram_batch": True, "cm_burst_batch": True,
+                "cm_epochs": False, "gram_sweep": False,
+                "gram_sweep_batch": False, "screen_fused_mixed": False,
+                "screen_fused_batch_mixed": False}
+    # least-squares fleets (weighted or not): K1b + K2b + the Gram sweep K6b
+    fleet_ls = {**fleet_k3, "cm_burst_batch": False,
+                "gram_sweep_batch": True}
     Yf = fleet_responses(X, FLEET_LS[2], seed=100)
     fracs = np.geomspace(FLEET_LS[0], FLEET_LS[1], FLEET_LS[2]).tolist()
-    fl_res, fl_lams, fl_counts, fl_h = fleet_phase(
-        "fleet-ls", X, Yf, fracs, "least_squares", serial_only, fleet_only)
+    fl_res, fl_lams, fl_counts, fl_h, fl_wall = fleet_phase(
+        "fleet-ls", X, Yf, fracs, "least_squares", serial_ls, fleet_ls)
+    # the explicit cuda fleet keeps K3b measured, bitwise its K3 serials;
+    # its final active blocks are the K1b/K2b/K3b checks' inputs
+    flc_res, flc_lams, flc_counts, flc_h, _ = fleet_phase(
+        "fleet-ls/cuda", X, Yf, fracs, "least_squares", serial_k3, fleet_k3,
+        inner_backend="cuda")
     YL = fleet_responses(XL, FLEET_LOGIT[2], seed=200, logistic=True, k=40)
     fracsL = np.geomspace(FLEET_LOGIT[0], FLEET_LOGIT[1],
                           FLEET_LOGIT[2]).tolist()
-    _, _, flg_counts, _ = fleet_phase(
-        "fleet-logistic", XL, YL, fracsL, "logistic", serial_only,
-        fleet_only)
+    _, _, flg_counts, _, _ = fleet_phase(
+        "fleet-logistic", XL, YL, fracsL, "logistic", serial_k3, fleet_k3)
     pick = [0, FLEET_LS[2] - 1]
     plain_fleet_phase(X, Yf[pick], [fl_lams[i] for i in pick],
                       fl_res.beta[pick])
 
+    # the fast-parity fleet in each screen dtype (TF32 would break the
+    # float32 sums' rounding bound of the plain products)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("TF32 is on: the certified f32 bound needs it off")
+    fast_k1b = {**fleet_ls, "screen_fused_batch": True,
+                "screen_fused_batch_mixed": False}
+    fast_mixed = {**fleet_ls, "screen_fused_batch_mixed": True}
+    del fast_mixed["screen_fused_batch"]        # escalations run K1b
+    fast = {}
+    for mode in ("working", "float32", "bfloat16"):
+        fast[mode] = fast_fleet_phase(
+            X, Yf, fl_lams, mode, fl_res, fl_wall,
+            fast_k1b if mode == "working" else fast_mixed)
+
     ycv = fleet_responses(X, 1, seed=300)[0]
-    cv, cv_lams, cv_counts, cv_lm = cv_phase(X, ycv, weighted_only,
-                                             serial_only)
-    # select_solve's refit is the serial solve (K1/K2/K3)
-    sel_counts, W_sel = select_phase(
+    cv, cv_lams, cv_counts, cv_lm = cv_phase(X, ycv, fleet_ls, serial_ls)
+    # select_solve's refit is the serial solve (K1/K2/K6)
+    sel_expect = {**fleet_ls, "screen_fused": True, "ub_histogram": True,
+                  "gram_sweep": True}
+    sel_counts, W_sel, sel_rep = select_phase(
+        X, ycv, cv_lams, cv_lm, true_features(args.p, 300), sel_expect)
+    # fast parity: the CV fleets (fast preparation, bitwise engine) run
+    # K1b; the subsample fleet the lockstep engine with K1b's bf16 mode
+    self_counts, _, _ = select_phase(
         X, ycv, cv_lams, cv_lm, true_features(args.p, 300),
-        {**weighted_only, "screen_fused": True, "ub_histogram": True,
-         "cm_burst": True})
+        {**sel_expect, "screen_fused_batch_mixed": True}, tag="select/fast",
+        bit=sel_rep, parity="fast", screen_dtype="bfloat16")
     weighted_logistic_phase(XL, yL)
     k5_counts = cm_epochs_phase(X, y, lam, ls_res["auto"])
 
@@ -2367,28 +2692,40 @@ def main() -> int:
     print(f"[launch-floor] an empty kernel (one CTA of 32 threads): "
           f"device_ms={floor:.5f} call_ms={floor_call:.5f}", flush=True)
     for dtype in ("float64", "float32"):
-        check_kernels(dtype, X, y, lam, h, ls_res["auto"], (XL, yL, lamL),
+        check_kernels(dtype, X, y, lam, h, ls_res["cuda"], (XL, yL, lamL),
                       lg_res["auto"], fused, records)
-        check_fleet_kernels(dtype, X, Yf, fl_lams, fl_h, fl_res,
+        check_fleet_kernels(dtype, X, Yf, flc_lams, flc_h, flc_res,
                             "least_squares", records, Wn=W_sel)
         check_screen_cv_shape(dtype, X, cv, h_cv)
         tie_probe(dtype)
-        check_gram_sweep(dtype, X, y, lam, ls_res["gram"], cv, records)
+        check_gram_sweep(dtype, X, y, lam, ls_res["auto"], cv, records)
+    check_mixed_scans(X, records)
+    check_gram_lockstep(fast["working"][0], fl_lams, records)
     check_cm_epochs(X, y, lam, ls_res["auto"], records)
     check_cm_wide(X, y, lam, XL, yL, lamL, records)
     run_deferred_profiles()
 
     base_counts = baselines_phase(X, y, lam, lm, ls_res["auto"].beta,
                                   WALLS["ls/auto"])
-    runs = [ls_counts["auto"], ls_counts["gram"], lg_counts["auto"],
-            *fused_counts, fl_counts, flg_counts, cv_counts, sel_counts,
-            k5_counts, base_counts]
+    fast_counts = [c for _, c, _ in fast.values()]
+    runs = [ls_counts["auto"], ls_counts["cuda"], lg_counts["auto"],
+            *fused_counts, fl_counts, flc_counts, flg_counts, *fast_counts,
+            cv_counts, sel_counts, self_counts, k5_counts, base_counts]
     for k, rec in records.items():
-        rec["launches"] = sum(c[k] for c in runs) + (
-            k4_launches if k == "chain_suffix_sums" else 0)
+        if k in ops.KERNELS:
+            rec["launches"] = sum(c[k] for c in runs) + (
+                k4_launches if k == "chain_suffix_sums" else 0)
+    records["screen_fused_batch_bf16"]["launches"] = (
+        fast["bfloat16"][1]["screen_fused_batch_mixed"]
+        + self_counts["screen_fused_batch_mixed"])
+    records["screen_fused_batch_f32"]["launches"] = (
+        fast["float32"][1]["screen_fused_batch_mixed"])
+    records["gram_sweep_batch_lockstep"]["launches"] = sum(
+        c["gram_sweep_batch"] for c in fast_counts)
 
     run_deferred_profiles()
 
+    print(f"[smoke] total_s={time.perf_counter() - t_start:.1f}", flush=True)
     print(json.dumps({"kernels": list(records.values())}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -47,8 +47,9 @@ VARIANTS = {
                 (SLAB, "  static constexpr int SLAB = 32 * 1024;\n")],
     "no_copy": [("    if (pn < total) {\n",
                  "    if (false && pn < total) {\n")],
-    "no_fma": [("            acc[j][q] = fma_rn(th.v[q], x.v[j], acc[j][q]);\n",
-                "            if (q == 0) acc[j][q] += x.v[j];\n")],
+    "no_fma": [("            acc[j][q] = fma_rn(th.v[q], to_acc(x.v[j]), "
+                "acc[j][q]);\n",
+                "            if (q == 0) acc[j][q] += to_acc(x.v[j]);\n")],
     "no_sort": [("      for (int q = w; q < nb; q += S::NWARP) {\n",
                  "      for (int q = w; false && q < nb; q += S::NWARP) {\n")],
 }
@@ -101,7 +102,8 @@ def main() -> int:
     X64 = torch.rand(n, p, generator=g, dtype=torch.float64,
                      device=dev) * 20 - 10
     P, I = ctypes.c_void_p, ctypes.c_int
-    sig = [P, P, P, I, P, P, I, I, I, I, I, P, P, P, P, P, P, P]
+    # ..., masked, the ub guard (the sums' type; 1 here), outputs, stream
+    sig = [P, P, P, I, P, P, I, I, I, I, I, None, P, P, P, P, P, P, P]
     record = {}
     outputs = {}
     for name, so in libs.items():
@@ -113,7 +115,10 @@ def main() -> int:
             cn = torch.linalg.vector_norm(X, dim=0)
             for entry, b in (("screen_fused", 1), ("screen_fused_batch", 16)):
                 fn = getattr(lib, f"{entry}_{tag}")
-                fn.argtypes, fn.restype = sig, ctypes.c_int
+                fn.argtypes = [(ctypes.c_double if tag == "f64" else
+                                ctypes.c_float) if a is None else a
+                               for a in sig]
+                fn.restype = ctypes.c_int
                 gg = torch.Generator(device=dev).manual_seed(1)
                 Th = (torch.randn(b, n, generator=gg, dtype=torch.float64,
                                   device=dev) / n).to(dt)
@@ -134,7 +139,7 @@ def main() -> int:
                     def call():
                         rc = fn(P(X.data_ptr()), P(Th.data_ptr()),
                                 P(cn.data_ptr()), 0, P(act.data_ptr()),
-                                P(r.data_ptr()), b, n, p, h, masked,
+                                P(r.data_ptr()), b, n, p, h, masked, 1.0,
                                 *[P(o.data_ptr()) for o in outs], st)
                         if rc != 0:
                             raise RuntimeError(f"{name} {entry}: CUDA "

@@ -1,4 +1,5 @@
-"""SAIF core in torch: the serial solve, the fleet (weighted too), the
+"""SAIF core in torch: the serial solve, the fleet (weighted too; the
+fast-parity lockstep engine with its certified mixed-precision screen), the
 lambda path, fused LASSO, K-fold CV and model selection, the paper's
 baselines (dynamic screening, the sequential path, the strong-rule
 homotopy, the unscreened CM), and their building blocks."""
@@ -7,7 +8,11 @@ from repro_torch.core.batch import (FleetPrep, fleet_solve, prepare_fleet,
 from repro_torch.core.cm import cm_epoch, solve_lasso_cm
 from repro_torch.core.cv import (CVPathResult, cv_solve, kfold_weights,
                                  one_se_lambda)
-from repro_torch.core.duality import dual_point, kkt_residual, lambda_max
+from repro_torch.core.batch_fast import solve_fleet_fast
+from repro_torch.core.duality import (dot_error_gamma, dual_point,
+                                      kkt_residual, lambda_max,
+                                      mixed_precision_gamma, unit_roundoff,
+                                      widened_radius)
 from repro_torch.core.dynamic import DynConfig, DynResult, dynamic_screening
 from repro_torch.core.fused import (FusedDesign, FusedPathResult,
                                     build_schedule, build_tree,
@@ -46,4 +51,6 @@ __all__ = ["saif", "SaifConfig", "SaifResult", "PathState", "prepare_path",
            "stability_frequencies", "dynamic_screening", "DynConfig",
            "DynResult", "sequential_path", "SeqConfig", "homotopy_path",
            "HomotopyConfig", "HomotopyResult", "support_metrics",
-           "solve_lasso_cm", "cm_epoch", "dual_point"]
+           "solve_lasso_cm", "cm_epoch", "dual_point", "solve_fleet_fast",
+           "unit_roundoff", "dot_error_gamma", "mixed_precision_gamma",
+           "widened_radius"]

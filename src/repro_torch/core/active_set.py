@@ -190,3 +190,45 @@ def gather_columns_batch(X: Tensor, asets) -> list:
     """The (n, k_max) active block of each active set, from a shared (n, p)
     design, each its own tensor."""
     return [gather_columns(X, a) for a in asets]
+
+
+# --------------------------------------------------------------------------
+# stacked fleet views (core/batch_fast.py): one ActiveSet whose every field
+# has a leading problem axis B (idx/mask/beta/order (B, k_max), in_active
+# (B, p), overflowed/count (B,) device tensors), the reference's batched
+# ActiveSet. The fast engine updates it with batch-axis ops and no host read.
+# --------------------------------------------------------------------------
+
+def init_active_set_stacked(p: int, k_max: int, init_idx: Tensor, dtype,
+                            init_beta: Tensor, live_mask: Tensor) -> ActiveSet:
+    """Slots-mode :func:`init_active_set` per row of the (B, k_max)
+    buffers, stacked (the reference's ``init_active_set_batch``)."""
+    b = init_idx.shape[0]
+    mask = live_mask.to(torch.bool)
+    idx = torch.where(mask, init_idx.long(), 0)
+    beta = torch.where(mask, init_beta.to(dtype), 0.0)
+    in_active = torch.zeros((b, p), dtype=torch.int32,
+                            device=idx.device).scatter_add_(
+        1, idx, mask.to(torch.int32)) > 0
+    count = mask.sum(dim=1, dtype=torch.int32)
+    order = torch.arange(k_max, device=idx.device).expand(b, -1)
+    return ActiveSet(idx, mask, beta, in_active,
+                     overflowed=torch.zeros(b, dtype=torch.bool,
+                                            device=idx.device),
+                     order=order, count=count)
+
+
+def gather_columns_stacked(X: Tensor, aset: ActiveSet) -> Tensor:
+    """(B, n, k_max) active blocks from a shared (n, p) design, dead slots
+    zeroed (the reference's ``gather_columns_batch``)."""
+    b, k = aset.idx.shape
+    Xa = X.index_select(1, aset.idx.reshape(-1)).reshape(-1, b, k)
+    return torch.where(aset.mask[:, None, :], Xa.permute(1, 0, 2), 0.0)
+
+
+def scatter_beta_stacked(aset: ActiveSet, p: int) -> Tensor:
+    """(B, p) full solutions (the reference's ``scatter_beta_batch``)."""
+    out = torch.zeros((aset.idx.shape[0], p), dtype=aset.beta.dtype,
+                      device=aset.beta.device)
+    return out.scatter_add_(1, aset.idx, torch.where(aset.mask, aset.beta,
+                                                     0.0))

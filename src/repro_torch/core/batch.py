@@ -37,9 +37,12 @@ weighted inner backend and dual tail, and the Thm-2 sequential ball is
 off (it assumes the unweighted null dual). The weighted contract: row b of
 a weighted fleet equals the fleet of one of problem b, bit for bit.
 
-Not ported yet: ``parity="fast"`` (the relaxed lockstep engine, ROADMAP
-A5b) and bucket padding (``pad_mask``, ``pad_fleet_prep``, ROADMAP A6);
-each raises.
+``SaifConfig(parity="fast")`` sends a least-squares fleet to the lockstep
+engine of ``core/batch_fast.py`` (any other loss keeps this engine, as in
+the reference) and, for every loss, prepares the fleet the fast way: c0 as
+one product, the h formula's median on float32 scores. Not ported yet:
+bucket padding (``pad_mask``, ``pad_fleet_prep``, ROADMAP A6), which
+raises.
 """
 from __future__ import annotations
 
@@ -49,6 +52,8 @@ from typing import List, NamedTuple, Optional
 import torch
 
 from repro_torch.core import active_set as aset_lib
+from repro_torch.core.batch_fast import (prepare_fleet_stats_fast,
+                                         solve_fleet_fast)
 from repro_torch.core.inner_backend import (GRAM_CROSSOVER,
                                             cold_inner_carry_batch,
                                             make_batch_inner,
@@ -94,9 +99,9 @@ def prepare_fleet(X, Y, config: SaifConfig = SaifConfig(), weights=None,
     ones. With ``weights`` (B, n) each problem's null gradient is weighted
     and its column norms are sqrt(w_b . X^2), each from its own matvec (a
     (B, n) x (n, p) product may pick another kernel for another B, which
-    would break the fleet-of-one contract)."""
-    if config.parity == "fast":
-        raise _not_ported("parity='fast'", "A5b")
+    would break the fleet-of-one contract). Under ``parity="fast"`` the
+    fleet's c0 is one product and the median is taken on float32 scores
+    (``batch_fast.prepare_fleet_stats_fast``)."""
     dev = resolve_device(device)
     loss = get_loss(config.loss)
     X = as_tensor(X, dev)
@@ -104,16 +109,21 @@ def prepare_fleet(X, Y, config: SaifConfig = SaifConfig(), weights=None,
     if Y.ndim == 1:
         Y = Y[None]
     W = None
-    if weights is None:
-        c0 = [null_gradient(loss, X, y.clone())[1] for y in Y]
-        col_norm = torch.linalg.vector_norm(X, dim=0)
-    else:
+    if weights is not None:
         W = as_tensor(weights, dev, X.dtype)
         if W.ndim == 1:
             W = W[None]
         if W.shape != Y.shape:
             raise ValueError(f"weights must be (B, n) = {tuple(Y.shape)}, "
                              f"got {tuple(W.shape)}")
+    if config.parity == "fast":
+        c0, col_norm, mx, md = prepare_fleet_stats_fast(X, Y, W, loss)
+        return FleetPrep(X=X, Y=Y, c0=c0, col_norm=col_norm, c0_max=mx,
+                         c0_median=md, W=W)
+    if W is None:
+        c0 = [null_gradient(loss, X, y.clone())[1] for y in Y]
+        col_norm = torch.linalg.vector_norm(X, dim=0)
+    else:
         c0 = [torch.abs(X.T @ (w * loss.grad(torch.zeros_like(y), y)))
               for y, w in zip(Y, W)]
         XX = X * X
@@ -168,11 +178,12 @@ def _delta0s(prep: FleetPrep, lams, config: SaifConfig):
 def resolve_batch_inner(config: SaifConfig, n: int, k_max: int, b: int,
                         device, itemsize: int = 8,
                         weighted: bool = False) -> str:
-    """Fleet inner policy: the serial one. On a card ``auto`` runs K3b
-    while one problem's burst fits K3's shared memory (``cm_smem_ok(n,
-    k_max)``): each problem has its own CTA and its own shared memory, so
-    the fleet size ``b`` adds nothing to the gate. Past it, and on the
-    CPU, the serial routing applies.
+    """Fleet inner policy: the serial one. On a card ``auto`` takes the
+    Gram engine (K6b) for least squares under the crossover, as the
+    reference does, and otherwise K3b while one problem's burst fits K3's
+    shared memory (``cm_smem_ok(n, k_max)``): each problem has its own CTA
+    and its own shared memory, so the fleet size ``b`` adds nothing to
+    either gate.
 
     A ``weighted`` fleet keeps the reference's policy: the kernel burst
     refuses sample weights, so ``auto`` on a card takes the Gram engine
@@ -281,7 +292,10 @@ def fleet_solve(X, Y, lams, config: SaifConfig = SaifConfig(), device=None,
     Returns a :class:`~repro_torch.core.saif.SaifResult` whose every field
     has a leading problem axis; row b is bitwise the serial
     ``saif(X, Y[b], lams[b], config)`` (weighted: bitwise the fleet of one
-    of problem b). When any problem's ADD overflows
+    of problem b). Under ``parity="fast"`` a least-squares fleet runs the
+    lockstep engine of ``core/batch_fast.py`` instead: each row has the
+    bitwise engine's support, gap <= eps and a passing KKT residual, not
+    its bits. When any problem's ADD overflows
     the shared capacity, the whole fleet starts over cold at twice the
     capacity from the same initial supports, as the reference does.
     """
@@ -289,8 +303,6 @@ def fleet_solve(X, Y, lams, config: SaifConfig = SaifConfig(), device=None,
         raise NotImplementedError(
             "fleet_solve solves plain-LASSO fleets; the fused unpenalized "
             "slot is serial-only, as in the reference")
-    if config.parity == "fast":
-        raise _not_ported("parity='fast'", "A5b")
     dev = resolve_device(device)
     if prep is None:
         prep = prepare_fleet(X, Y, config, weights=weights, device=dev)
@@ -306,23 +318,37 @@ def fleet_solve(X, Y, lams, config: SaifConfig = SaifConfig(), device=None,
                                   p=p)
     hs, h = fleet_batch_sizes(prep, lam_list, config)
     k_max = config.k_max or default_capacity(h, p)
+    # the lockstep engine: least squares only, as in the reference
+    fast = config.parity == "fast" and config.loss == "least_squares"
     # the cold start is made once, at the first capacity: a regrown fleet
     # restarts from the same (possibly capacity-truncated) supports, as
-    # solve_scalar does, so its problems replay their serial regrowths
-    init = initial_support_batch(prep.c0, hs, k_max, p, prep.X.dtype)
+    # solve_scalar does, so its problems replay their serial regrowths. A
+    # low-precision fast screen also selects the cold start on float32 c0
+    low = fast and config.screen_dtype != "working"
+    init = initial_support_batch(prep.c0.float() if low else prep.c0, hs,
+                                 k_max, p, prep.X.dtype)
     while True:
         pad = k_max - init[0].shape[1]
         init = tuple(torch.nn.functional.pad(t, (0, pad)) for t in init)
-        inner = resolve_batch_inner(config, n, k_max, b, prep.X.device,
-                                    prep.X.element_size(),
-                                    weighted=prep.W is not None)
-        results = _solve_fleet(prep, lam_list, config, hs=hs, h=h,
-                               k_max=k_max, init_idx=init[0],
-                               init_beta=init[1], init_mask=init[2],
-                               inner=inner, screen=screen, use_seq=use_seq,
-                               rule=rule)
-        if not any(r.overflowed for r in results) or k_max >= p:
-            return stack_results(results)
+        if fast:
+            res = solve_fleet_fast(
+                prep, lam_list, config, hs=hs, h=h, k_max=k_max,
+                init_idx=init[0], init_beta=init[1], init_mask=init[2],
+                use_seq=use_seq, rule=rule,
+                delta0=_delta0s(prep, lam_list, config))
+            if not bool(res.overflowed.any()) or k_max >= p:
+                return res
+        else:
+            inner = resolve_batch_inner(config, n, k_max, b, prep.X.device,
+                                        prep.X.element_size(),
+                                        weighted=prep.W is not None)
+            results = _solve_fleet(prep, lam_list, config, hs=hs, h=h,
+                                   k_max=k_max, init_idx=init[0],
+                                   init_beta=init[1], init_mask=init[2],
+                                   inner=inner, screen=screen,
+                                   use_seq=use_seq, rule=rule)
+            if not any(r.overflowed for r in results) or k_max >= p:
+                return stack_results(results)
         k_max = min(2 * k_max, p)
 
 

@@ -6,12 +6,17 @@
   * the sequential-style ball from lambda_max(t)                     (Thm 2)
   * the covering ball of the intersection of two balls               (Eq. 12)
   * the post-hoc KKT residual, lambda_max and the null-model gradient
+  * the certified rounding bounds of a mixed-precision screen (the
+    reference's DESIGN.md §11): a gap-safe ball widened by a bound on the
+    float error of its correlations is still safe
 
 Every function works on a sub-problem given by an explicit design block
 ``Xa`` (n x k, the gathered active columns). An unpenalized coordinate
 (fused LASSO's ``b``, Thm 7) enters through ``pen`` (per-column l1 weight,
 0 on it) and ``x_unpen`` (its column): its dual constraint is the equality
 x_b^T theta = 0, and :func:`polish_unpen` drives b to stationarity.
+Without an unpenalized coordinate, the dual point, the gap and the balls
+also take a stack of problems (the fast fleet's; see ``losses``).
 """
 from __future__ import annotations
 
@@ -19,7 +24,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.losses import Loss
+from repro_torch.core.losses import Loss, dot_last, mv_last, per_problem
 
 Tensor = torch.Tensor
 
@@ -53,23 +58,24 @@ def feasible_dual(loss: Loss, X_for_constraints: Tensor, y: Tensor,
         sq_b = torch.sum(x_unpen * x_unpen)
         hat_theta = hat_theta - x_unpen * (
             torch.dot(x_unpen, hat_theta) / torch.clamp(sq_b, min=1e-30))
-    corr = X_for_constraints.T @ hat_theta
+    corr = mv_last(X_for_constraints.mT, hat_theta)
     if mask is not None:
         corr = torch.where(mask, corr, 0.0)
     if pen is not None:
         corr = corr * pen
-    max_corr = torch.max(torch.abs(corr))
+    max_corr = torch.amax(torch.abs(corr), dim=-1)
     denom = torch.clamp(max_corr, min=1.0)
     bound = 1.0 / torch.clamp(max_corr, min=1e-30)
 
     if loss.name == "least_squares":
-        sq = torch.sum(hat_theta * hat_theta)
-        tau_star = torch.dot(y, hat_theta) / (lam * torch.clamp(sq, min=1e-30))
+        sq = torch.sum(hat_theta * hat_theta, dim=-1)
+        tau_star = dot_last(y, hat_theta) / (lam * torch.clamp(sq, min=1e-30))
         tau = torch.minimum(torch.maximum(tau_star, -bound), bound)
         tau = torch.where(torch.isfinite(tau), tau, 1.0 / denom)
-        return tau * hat_theta
-    theta = hat_theta / denom
-    return -loss.dual_clip(-lam * theta, y) / lam
+        return per_problem(tau) * hat_theta
+    theta = hat_theta / per_problem(denom)
+    lam_c = per_problem(lam)
+    return -loss.dual_clip(-lam_c * theta, y) / lam_c
 
 
 def duality_gap(loss: Loss, Xa: Tensor, y: Tensor, beta: Tensor,
@@ -108,33 +114,35 @@ def sequential_ball(loss: Loss, y: Tensor, theta0: Tensor, lam0: Tensor,
                               + (lam - lam0) <f*'(-lam0 theta0), theta0> ].
     """
     alpha = loss.smoothness
-    u0 = -lam0 * theta0
+    l0, lc = per_problem(lam0), per_problem(lam)
+    u0 = -l0 * theta0
     fstar_grad = loss.conj_grad(u0, y)
-    term = (torch.sum(loss.conj(-(lam * lam / lam0) * theta0, y))
-            - torch.sum(loss.conj(u0, y))
-            + (lam - lam0) * torch.dot(fstar_grad, theta0))
+    term = (torch.sum(loss.conj(-(lc * lc / l0) * theta0, y), dim=-1)
+            - torch.sum(loss.conj(u0, y), dim=-1)
+            + (lam - lam0) * dot_last(fstar_grad, theta0))
     r2 = torch.clamp(2.0 * alpha / (lam * lam) * term, min=0.0)
-    return Ball(center=(lam0 / lam) * theta0, radius=torch.sqrt(r2))
+    return Ball(center=(l0 / lc) * theta0, radius=torch.sqrt(r2))
 
 
 def intersect_balls(b1: Ball, b2: Ball) -> Ball:
     """Smallest ball covering B1 ∩ B2 (paper Eq. 12), with the reference's
     signed radical-plane form and its fallback to the smaller input ball."""
-    d = torch.linalg.vector_norm(b1.center - b2.center)
+    d = torch.linalg.vector_norm(b1.center - b2.center, dim=-1)
     r1, r2 = b1.radius, b2.radius
     safe_d = torch.clamp(d, min=1e-30)
     d1 = (d * d + r1 * r1 - r2 * r2) / (2.0 * safe_d)
     rt = torch.sqrt(torch.clamp(r1 * r1 - d1 * d1, min=0.0))
-    center_t = (1.0 - d1 / safe_d) * b1.center + (d1 / safe_d) * b2.center
+    center_t = (per_problem(1.0 - d1 / safe_d) * b1.center
+                + per_problem(d1 / safe_d) * b2.center)
 
     intersects = (d <= r1 + r2) & (d >= torch.abs(r1 - r2))
     between = (d1 >= 0.0) & (d1 <= d)
     use_lens = intersects & between & (rt < torch.minimum(r1, r2))
 
     small_is_1 = r1 <= r2
-    fallback_c = torch.where(small_is_1, b1.center, b2.center)
+    fallback_c = torch.where(per_problem(small_is_1), b1.center, b2.center)
     fallback_r = torch.minimum(r1, r2)
-    center = torch.where(use_lens, center_t, fallback_c)
+    center = torch.where(per_problem(use_lens), center_t, fallback_c)
     radius = torch.where(use_lens, rt, fallback_r)
     return Ball(center=center, radius=radius)
 
@@ -209,3 +217,50 @@ def null_gradient(loss: Loss, X: Tensor, y: Tensor,
     c0 = torch.abs(X.T @ g0)
     c0[unpen_idx] = 0.0
     return g0, c0, b0
+
+
+# ---------------------------------------------------------------------------
+# certified mixed-precision screening: rigorous rounding-error bounds (port
+# of repro/core/duality.py:244-306). Every bound is the reference's float.
+# ---------------------------------------------------------------------------
+
+def unit_roundoff(dtype) -> float:
+    """u = eps/2 for the dtype (a torch dtype or its name):
+    |fl(x op y) - (x op y)| <= u |x op y|."""
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype)
+    return float(torch.finfo(dtype).eps) / 2.0
+
+
+def dot_error_gamma(n: int, u: float) -> float:
+    """gamma_n = n u / (1 - n u) (Higham, ASNA Lemma 3.1): a length-n inner
+    product in precision u, in any summation order, is within gamma_n
+    |x|.|y| <= gamma_n ||x|| ||y|| of the exact one. +inf when n u >= 1
+    (the bound is vacuous)."""
+    nu = float(n) * u
+    if nu >= 1.0:
+        return float("inf")
+    return nu / (1.0 - nu)
+
+
+def mixed_precision_gamma(n: int, in_dtype, acc_dtype) -> float:
+    """Forward-error factor of a dot with inputs rounded to ``in_dtype``
+    and sums in ``acc_dtype``: |fl(x.y) - x.y| <= gamma_total ||x|| ||y||,
+    gamma_total = (1 + u_in)^2 (1 + gamma_n(u_acc)) - 1 (a re-associated
+    working-precision contraction with in = acc)."""
+    u_in = unit_roundoff(in_dtype)
+    u_acc = unit_roundoff(acc_dtype)
+    return (1.0 + u_in) ** 2 * (1.0 + dot_error_gamma(n, u_acc)) - 1.0
+
+
+def widened_radius(r, theta: Tensor, gamma: float):
+    """Safe-ball radius widened to absorb the screening dot's rounding:
+    r' = r + gamma ||theta||_2 (the rules multiply the radius by each
+    column's norm), with the computed norm inflated by 1 + 2
+    gamma_{n+2}(u_work) so that r' bounds the true widening. ``theta``
+    (..., n) is the ball center; r broadcasts."""
+    n = theta.shape[-1]
+    u_w = unit_roundoff(theta.dtype)
+    slack = 1.0 + 2.0 * dot_error_gamma(n + 2, u_w)
+    norm = torch.sqrt(torch.sum(theta * theta, dim=-1))
+    return r + gamma * slack * norm

@@ -48,7 +48,7 @@ from repro_torch.core import active_set as aset_lib
 from repro_torch.core.active_set import ActiveSet
 from repro_torch.core.cm import cm_epochs_compact
 from repro_torch.core.duality import duality_gap, feasible_dual, polish_unpen
-from repro_torch.core.losses import Loss
+from repro_torch.core.losses import Loss, mv_last, per_problem
 
 Tensor = torch.Tensor
 
@@ -100,23 +100,25 @@ def _dual_and_gap(loss: Loss, Xa, y, beta, z, mask, lam, pen=None,
     scaling and the constraint correlations against the shared Xa equal
     their row-subsampled counterparts exactly; the general-loss dom-f*
     clamp can move an exact 0 off 0, so theta is re-zeroed on the
-    weight-0 rows after it."""
+    weight-0 rows after it. Without ``pen``/``x_unpen`` it also takes a
+    stack of problems, one a row (the fast fleet's)."""
+    lam_c = per_problem(lam)
     if sample_w is None:
-        hat = -loss.grad(z, y) / lam
+        hat = -loss.grad(z, y) / lam_c
         theta = feasible_dual(loss, Xa, y, hat, lam, mask, pen=pen,
                               x_unpen=x_unpen)
         gap = duality_gap(loss, Xa, y, beta, theta, lam, mask, pen=pen)
         return theta, gap
-    hat = -(sample_w * loss.grad(z, y)) / lam
+    hat = -(sample_w * loss.grad(z, y)) / lam_c
     theta = feasible_dual(loss, Xa, y, hat, lam, mask, pen=pen,
                           x_unpen=x_unpen)
     if loss.name != "least_squares":
         theta = torch.where(sample_w > 0, theta, 0.0)
     beta_m = torch.where(mask, beta, 0.0) if mask is not None else beta
     l1 = torch.abs(beta_m) if pen is None else pen * torch.abs(beta_m)
-    p_val = (torch.sum(sample_w * loss.value(Xa @ beta_m, y))
-             + lam * torch.sum(l1))
-    d_val = -torch.sum(sample_w * loss.conj(-lam * theta, y))
+    p_val = (torch.sum(sample_w * loss.value(mv_last(Xa, beta_m), y), dim=-1)
+             + lam * torch.sum(l1, dim=-1))
+    d_val = -torch.sum(sample_w * loss.conj(-lam_c * theta, y), dim=-1)
     return theta, p_val - d_val
 
 
@@ -178,7 +180,14 @@ def make_inner_gram(loss: Loss, X: Tensor, y: Tensor, h: int,
     into the carry (G = Xa^T diag(w) Xa, rho = Xa^T diag(w) y): only the
     carry builds and the dual tail see it. The sweep is
     :func:`~repro_torch.kernels.gram.gram.gram_sweep`: its plain loop on
-    the CPU, kernel K6 on the card."""
+    the CPU, kernel K6 on the card.
+
+    Every product runs on the live slots alone (:func:`_live`), so its
+    shapes, and on a card its summation order, do not depend on the
+    capacity: a fleet row is its serial solve bit for bit whatever the two
+    capacities. Entries of G off the live block are zero or stale (finite:
+    products of finite columns); the sweep reads none of them through a
+    live term."""
     from repro_torch.kernels.gram.gram import gram_sweep
 
     if loss.name != "least_squares":
@@ -191,7 +200,14 @@ def make_inner_gram(loss: Loss, X: Tensor, y: Tensor, h: int,
         return cols if sample_w is None else sample_w[:, None] * cols
 
     def _rebuild(aset, Xa):
-        return InnerCarry(G=Xa.T @ _wgt(Xa), rho=_wgt(Xa).T @ y,
+        live = _live(aset)
+        Xl = Xa[:, live]
+        k = aset.mask.shape[0]
+        G = Xa.new_zeros((k, k))
+        G[live[:, None], live[None, :]] = Xl.T @ _wgt(Xl)
+        rho = Xa.new_zeros(k)
+        rho[live] = _wgt(Xl).T @ y
+        return InnerCarry(G=G, rho=rho,
                           gidx=torch.where(aset.mask, aset.idx, -1))
 
     def init(aset, carry, Xa):
@@ -212,9 +228,11 @@ def make_inner_gram(loss: Loss, X: Tensor, y: Tensor, h: int,
             return carry._replace(gidx=gidx)
         ids = aset.idx[slots]
         cols = _wgt(X[:, ids])
+        live = _live(aset)
+        Xl = Xa[:, live]
         G = carry.G.clone()
-        G[:, slots] = Xa.T @ cols
-        G[slots, :] = cols.T @ Xa
+        G[live[:, None], slots[None, :]] = Xl.T @ cols
+        G[slots[:, None], live[None, :]] = cols.T @ Xl
         rho = carry.rho.clone()
         rho[slots] = cols.T @ y
         gidx = gidx.clone()
@@ -226,7 +244,7 @@ def make_inner_gram(loss: Loss, X: Tensor, y: Tensor, h: int,
         beta = gram_sweep(carry.G, carry.rho, aset.beta, aset.mask, lam,
                           aset.order, aset.count, n_ep,
                           smoothness=loss.smoothness, pen=pen)
-        return _gram_tail(loss, Xa, y, aset.mask, lam, beta, pen, x_unpen,
+        return _gram_tail(loss, Xa, y, _live(aset), lam, beta, pen, x_unpen,
                           sample_w)
 
     return InnerBackend(name="gram", init=init, refresh=refresh, run=run)
@@ -237,13 +255,26 @@ def make_inner_gram(loss: Loss, X: Tensor, y: Tensor, h: int,
 make_inner_gram.rebuilds = 0
 
 
-def _gram_tail(loss, Xa, y, mask, lam, beta, pen=None, x_unpen=None,
+def _live(aset: ActiveSet) -> Tensor:
+    """The live slots of a serial active set in sweep order
+    (``order[:count]``)."""
+    return aset.order[:aset.count]
+
+
+def _gram_tail(loss, Xa, y, live, lam, beta, pen=None, x_unpen=None,
                sample_w=None) -> InnerOut:
-    """The Gram backend's post-sweep tail: z once per burst (its only
-    O(n k) term), the dual point and the gap. A fleet whose sweeps ran in
-    one K6b launch calls it per problem, as the serial burst does."""
-    z = Xa @ beta
-    theta, gap = _dual_and_gap(loss, Xa, y, beta, z, mask, lam, pen,
+    """The Gram backend's post-sweep tail on the ``live`` slots (see
+    :func:`_live`): z once per burst (its only O(n k) term), the dual
+    point and the gap. A fleet whose sweeps ran in one K6b launch calls it
+    per problem, as the serial burst does."""
+    if live.numel() == 0:       # no live slot: one zero column stands in
+        Xa, bl = Xa.new_zeros((Xa.shape[0], 1)), beta.new_zeros(1)
+        pen = None if pen is None else pen[:1]
+    else:
+        Xa, bl = Xa[:, live], beta[live]
+        pen = None if pen is None else pen[live]
+    z = Xa @ bl
+    theta, gap = _dual_and_gap(loss, Xa, y, bl, z, None, lam, pen,
                                x_unpen, sample_w)
     return InnerOut(beta=beta, z=z, theta=theta, gap=gap)
 
@@ -381,7 +412,7 @@ def make_batch_inner_gram(loss: Loss, X: Tensor, Y, hs,
             torch.stack([a.order for a in asets]), meta[1], meta[0],
             smoothness=loss.smoothness)
         # each problem's own contiguous tensors, for its serial tail
-        return [_gram_tail(loss, Xa, q.y, q.aset.mask, q.lam,
+        return [_gram_tail(loss, Xa, q.y, _live(q.aset), q.lam,
                            beta[j].clone(), sample_w=q.w)
                 for j, (q, Xa) in enumerate(zip(probs, Xas))], Xas
 
@@ -442,36 +473,36 @@ def make_batch_inner(name: str, loss: Loss, X: Tensor, Y, col_norm: Tensor,
 
 
 # n/k_max crossover of the auto policy, the reference's: the gram step is an
-# O(k_max) axpy against ~3 O(n) passes of the residual step. It decides only
-# where the Gram sweep competes with a plain loop: on the CPU, and on the card
-# past K3's shared-memory gate.
+# O(k_max) axpy against ~3 O(n) passes of the residual step. On the card too
+# least squares takes the Gram engine (K6) under it, as the reference does on
+# every backend.
 GRAM_CROSSOVER = 4.0
 
 
 def resolve_inner_backend(name: str, loss_name: str, n: int, k_max: int,
                           device: torch.device, itemsize: int = 8,
                           unpen: bool = False) -> str:
-    """Inner-backend policy: an explicit name wins. ``auto`` on a CUDA
-    device runs the K3 kernel while the burst fits its shared memory
-    (``cm_smem_ok``; ``unpen``: with the unpenalized slot's weights), for
-    least squares too; past that gate least squares takes the Gram engine
-    (kernel K6) while GRAM_CROSSOVER * n >= k_max. On the CPU ``auto``
-    keeps the reference's choice: the Gram engine for least squares under
-    the same crossover, else the plain path. A burst that neither fits K3
-    nor (least squares) the crossover raises on a CUDA device, under
+    """Inner-backend policy: an explicit name wins. ``auto`` takes the
+    reference's choice first: the Gram engine for least squares while
+    GRAM_CROSSOVER * n >= k_max (on a CUDA device, kernel K6, which also
+    needs its shared memory, ``gram_smem_ok``; the fused solve's
+    unpenalized slot rides in K6's ``pen``). Otherwise, on a CUDA device,
+    the K3 kernel while the burst fits its shared memory (``cm_smem_ok``;
+    ``unpen``: with the unpenalized slot's weights), and on the CPU the
+    plain path. A burst that fits neither raises on a CUDA device, under
     ``auto`` as under ``cuda``: the plain path there is a host loop that
-    the caller must ask for by name. On the card the Gram engine also
-    needs K6's shared memory (``gram_smem_ok``), else it raises."""
+    the caller must ask for by name."""
     from repro_torch.kernels.cm.cm import cm_smem_ok
     from repro_torch.kernels.gram.gram import gram_smem_ok
 
     ls = loss_name == "least_squares"
     on_card = torch.device(device).type == "cuda"
     if name == "auto":
+        gram = ls and GRAM_CROSSOVER * n >= k_max
         if not on_card:
-            return "gram" if ls and GRAM_CROSSOVER * n >= k_max else "torch"
-        name = ("gram" if ls and not cm_smem_ok(n, k_max, itemsize, unpen)
-                and GRAM_CROSSOVER * n >= k_max else "cuda")
+            return "gram" if gram else "torch"
+        name = ("gram" if gram and gram_smem_ok(k_max, itemsize)
+                else "cuda")
     if name not in ("torch", "gram", "cuda"):
         raise ValueError(f"unknown inner backend {name!r}")
     if name == "gram" and not ls:

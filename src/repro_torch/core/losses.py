@@ -16,6 +16,11 @@ Each loss exposes the pieces the SAIF machinery needs:
 
 The formulas are the reference's term for term, so the two packages agree
 up to the order of reductions.
+
+The objectives, and the dual helpers built on them, also take a stack of
+problems, one a row: vectors (B, n), designs (B, n, k) and per-problem
+scalars (B,). One problem runs the same operations as before the stack
+existed, so serial results keep their bits.
 """
 from __future__ import annotations
 
@@ -25,6 +30,22 @@ from typing import Callable
 import torch
 
 Tensor = torch.Tensor
+
+
+def mv_last(A: Tensor, v: Tensor) -> Tensor:
+    """A v: (n, k) by (k,), or a stack (B, n, k) by (B, k)."""
+    return A @ v if A.ndim == 2 else (A @ v[..., None])[..., 0]
+
+
+def dot_last(a: Tensor, b: Tensor) -> Tensor:
+    """The inner product over the last axis (a stack: one a row)."""
+    return torch.dot(a, b) if a.ndim == 1 else torch.sum(a * b, dim=-1)
+
+
+def per_problem(s):
+    """A per-problem scalar, shaped to scale (..., n) vectors: a (B,)
+    stack gains an axis; a float or a 0-d tensor is returned as is."""
+    return s[..., None] if torch.is_tensor(s) and s.ndim else s
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,13 +65,14 @@ class Loss:
                          lam, weights: Tensor | None = None) -> Tensor:
         """P(beta) = sum_j f(x_j. beta, y_j) + lam sum_i w_i |beta_i|;
         ``weights`` (None = all 1) is 0 on an unpenalized coordinate."""
-        z = X @ beta
+        z = mv_last(X, beta)
         l1 = torch.abs(beta) if weights is None else weights * torch.abs(beta)
-        return torch.sum(self.value(z, y)) + lam * torch.sum(l1)
+        return (torch.sum(self.value(z, y), dim=-1)
+                + lam * torch.sum(l1, dim=-1))
 
     def dual_objective(self, y: Tensor, theta: Tensor, lam) -> Tensor:
         """D(theta) = -sum_j f*(-lam theta_j, y_j)   (paper Eq. 2)."""
-        return -torch.sum(self.conj(-lam * theta, y))
+        return -torch.sum(self.conj(-per_problem(lam) * theta, y), dim=-1)
 
 
 # --------------------------------------------------------------------------

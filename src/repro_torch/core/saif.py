@@ -35,7 +35,7 @@ from repro_torch.core.duality import (gap_ball, gap_precision_floor,
 from repro_torch.core.inner_backend import (InnerCarry, _dual_and_gap,
                                             cold_inner_carry, make_inner,
                                             resolve_inner_backend)
-from repro_torch.core.losses import get_loss
+from repro_torch.core.losses import get_loss, mv_last, per_problem
 from repro_torch.core.screen_backend import (BatchScreenFn, ScreenFn,
                                              ScreenRule, make_screen_cuda,
                                              make_screen_torch,
@@ -64,14 +64,28 @@ class SaifConfig:
     #   penalty (fused LASSO's always-resident b slot); None = plain LASSO
     screen_rule: str = "saif"     # "saif" | "gap_safe" | "hybrid"
     parity: str = "bitwise"       # fleets: "bitwise" (each problem is its
-    #   serial solve, bit for bit) | "fast" (the relaxed lockstep engine,
-    #   not ported yet)
+    #   serial solve, bit for bit) | "fast" (least squares: the lockstep
+    #   engine of core/batch_fast.py; it may re-associate, every screening
+    #   decision is widened by a certified rounding bound and every row
+    #   ends certified in working precision)
+    screen_dtype: str = "working"  # "working" | "float32" | "bfloat16": the
+    #   fast fleet screen's input type (f32 sums, radius widened by the
+    #   certified error bound); anything but "working" needs parity="fast"
 
     def __post_init__(self):
-        resolve_screen_rule(self.screen_rule)   # fail fast on unknown names
         if self.parity not in ("bitwise", "fast"):
             raise ValueError(
                 f"parity must be 'bitwise' or 'fast', got {self.parity!r}")
+        if self.screen_dtype not in ("working", "float32", "bfloat16"):
+            raise ValueError(
+                "screen_dtype must be 'working', 'float32' or 'bfloat16', "
+                f"got {self.screen_dtype!r}")
+        if self.screen_dtype != "working" and self.parity != "fast":
+            raise ValueError(
+                "screen_dtype != 'working' is a fast-parity feature: "
+                "low-precision screening deviates from the bitwise serial "
+                "float path; set parity='fast' to opt in")
+        resolve_screen_rule(self.screen_rule)   # fail fast on unknown names
 
 
 class SaifResult(NamedTuple):
@@ -181,18 +195,25 @@ def newton_polish(loss, carry: InnerCarry, aset, Xa, y, lam, beta, theta,
     """The hybrid rule's working-set Newton polish: one masked solve of
     G b = rho - lam*sign on the CM iterate's support, kept only if its
     certified gap beats the CM iterate's (a weighted problem's carry and
-    gap are weighted)."""
+    gap are weighted). It runs on the live slots (``order[:count]``), as
+    the Gram engine's products do, so no shape depends on the capacity."""
     dt = Xa.dtype
-    m = aset.mask & (beta != 0.0)
+    live = aset.order[:aset.count]
+    if live.numel() == 0:                   # nothing to polish
+        return beta, theta, gap
+    bl = beta[live]
+    m = aset.mask[live] & (bl != 0.0)
     mf = m.to(dt)
-    Gm = carry.G * (mf[:, None] * mf[None, :]) + torch.diag(1.0 - mf)
-    rhs = (carry.rho - lam * torch.sign(beta)) * mf
+    Gm = (carry.G[live[:, None], live[None, :]] * (mf[:, None] * mf[None, :])
+          + torch.diag(1.0 - mf))
+    rhs = (carry.rho[live] - lam * torch.sign(bl)) * mf
     # solve_ex: a singular system yields junk, which the gap rejects
-    b_n = torch.where(m, torch.linalg.solve_ex(Gm, rhs)[0], 0.0)
-    th_n, gap_n = _dual_and_gap(loss, Xa, y, b_n, Xa @ b_n, m, lam,
+    b_l = torch.where(m, torch.linalg.solve_ex(Gm, rhs)[0], 0.0)
+    Xl = Xa[:, live]
+    th_n, gap_n = _dual_and_gap(loss, Xl, y, b_l, Xl @ b_l, m, lam,
                                 sample_w=sample_w)
     if bool(gap_n < gap):                          # NaN/junk reads False
-        return b_n, th_n, gap_n
+        return torch.zeros_like(beta).index_copy(0, live, b_l), th_n, gap_n
     return beta, theta, gap
 
 
@@ -201,13 +222,17 @@ def certify(loss, y, g0, theta, gap, lam, delta, aset, c0, use_seq_ball,
     """The ball region around the backend's dual point (Thm 2 / Eq. 12),
     radius floored at the gap's own arithmetic precision. Returns its
     center, the ADD-side radius (delta shrinks it for the ball rules; the
-    point bound screens at 0) and the full gap-safe radius DEL keeps."""
+    point bound screens at 0) and the full gap-safe radius DEL keeps.
+    A stack of problems, one a row, works too (the fast fleet's)."""
     ball = gap_ball(loss, theta, gap, lam,
                     floor=gap_precision_floor(theta, lam))
     if use_seq_ball:
-        c0_active = torch.where(aset.mask, c0[aset.idx], -torch.inf)
-        lam0t = torch.maximum(torch.max(c0_active), lam * (1 + 1e-12))
-        b_seq = sequential_ball(loss, y, -g0 / lam0t, lam0t, lam)
+        c0_active = torch.where(aset.mask, torch.gather(c0, -1, aset.idx),
+                                -torch.inf)
+        lam0t = torch.maximum(torch.amax(c0_active, dim=-1),
+                              lam * (1 + 1e-12))
+        b_seq = sequential_ball(loss, y, -g0 / per_problem(lam0t), lam0t,
+                                lam)
         ball = intersect_balls(b_seq, ball)
     if screen_rule.add_bound == "point":
         r_eff = torch.zeros_like(ball.radius)
@@ -217,10 +242,12 @@ def certify(loss, y, g0, theta, gap, lam, delta, aset, c0, use_seq_ball,
 
 
 def del_mask(aset, Xa, theta_c, r_del, col_norm, unpen_idx: int = -1):
-    """DEL: the gap-safe rule on the sub-problem's live slots."""
-    corr_act = torch.abs(Xa.T @ theta_c)
-    norm_act = torch.where(aset.mask, col_norm[aset.idx], 0.0)
-    drop = aset.mask & (corr_act + norm_act * r_del < 1.0)
+    """DEL: the gap-safe rule on the sub-problem's live slots (or on a
+    stack of problems' slots, one a row, with (B, p) norms)."""
+    corr_act = torch.abs(mv_last(Xa.mT, theta_c))
+    norm_act = torch.where(aset.mask, torch.gather(col_norm, -1, aset.idx),
+                           0.0)
+    drop = aset.mask & (corr_act + norm_act * per_problem(r_del) < 1.0)
     if unpen_idx >= 0:
         # the unpenalized slot's dual constraint is an equality: the < 1
         # DEL rule never applies to it

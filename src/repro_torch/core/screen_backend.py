@@ -17,6 +17,9 @@ as one :class:`ScreenOut`. Two backends:
 Both give the same candidates and the same integer counts: top-h ties go
 to the lowest feature id (``jax.lax.top_k``'s order), which ``torch.topk``
 does not promise, so every top-h here is a stable sort.
+
+The fast fleet (``parity="fast"``) screens through
+:func:`make_batch_screen_fast`, the certified mixed-precision screen.
 """
 from __future__ import annotations
 
@@ -24,6 +27,8 @@ from typing import Callable, List, NamedTuple, Optional, Sequence
 
 import torch
 
+from repro_torch.core.duality import (mixed_precision_gamma, unit_roundoff,
+                                      widened_radius)
 # the rule/backend seam: re-exported so rule consumers import one module
 from repro_torch.core.screen_rule import (SCREEN_RULES,  # noqa: F401
                                           ScreenRule, resolve_screen_rule)
@@ -228,37 +233,143 @@ def make_batch_screen_distinct(Xs: Tensor, col_norm: Tensor,
     return screen
 
 
-def make_batch_screen_cuda(X: Tensor, col_norm: Tensor,
-                           h: int) -> BatchScreenFn:
-    """Kernel fleet screen: K1b scans the shared X once for every problem
-    whose ``do`` is set (with the shared norms, or each problem's own row
-    of a (B, p) matrix), each problem's (p/BP) h tile winners merge into
-    its top-h, and K2b computes the rest of every problem's screen in one
-    launch (``screen_tail_batch``; the reference's ``pallas``)."""
+def _kernel_screen(X: Tensor, Theta: Tensor, col_norm: Tensor,
+                   in_active: Tensor, r: Tensor, h: int, plain: bool = False,
+                   **mode):
+    """K1b scans the shared X for the m problems of Theta (m, n) (``mode``:
+    its ``in_dtype`` / ``guard``; col_norm and r then in the sums' type),
+    each problem's (p/BP) h tile winners merge into its top-h, and K2b
+    computes the rest of every problem's screen in one launch
+    (``screen_tail_batch``). ``plain``: the kernels' plain versions, on
+    any device (X then already in the sums' type). Returns the batched
+    ScreenOut and the masked scores (m, p)."""
+    from repro_torch.kernels.screen.ref import (screen_fused_batch_ref,
+                                                screen_tail_batch_ref)
     from repro_torch.kernels.screen.screen import (screen_fused_batch,
                                                    screen_tail_batch)
+    m = Theta.shape[0]
+    if plain:
+        in_dt = mode.get("in_dtype", Theta.dtype)
+        screen_tail_batch = screen_tail_batch_ref
+        score, ub, _, tops, topi, tmax = screen_fused_batch_ref(
+            X, Theta.to(in_dt).to(X.dtype), col_norm, in_active, r, h=h,
+            guard=mode.get("guard", 1.0))
+    else:
+        score, ub, _, tops, topi, tmax = screen_fused_batch(
+            X, Theta, col_norm, in_active, r, h=h, **mode)
+    # merge each problem's tile winners: O((p/BP) h) candidates
+    vals, pos = torch.sort(tops.reshape(m, -1), dim=1, descending=True,
+                           stable=True)
+    cand_score = vals[:, :h]
+    cand_idx = torch.gather(topi.reshape(m, -1), 1, pos[:, :h]).long()
+    max_ub, cand_lb, cand_ge, n_surv = screen_tail_batch(
+        ub, tmax, cand_score, cand_idx, col_norm, r)
+    return ScreenOut(max_ub=max_ub, cand_score=cand_score, cand_idx=cand_idx,
+                     cand_lb=cand_lb, cand_ge=cand_ge, n_surv=n_surv), score
 
+
+def make_batch_screen_cuda(X: Tensor, col_norm: Tensor,
+                           h: int) -> BatchScreenFn:
+    """Kernel fleet screen: :func:`_kernel_screen` for every problem whose
+    ``do`` is set (with the shared norms, or each problem's own row of a
+    (B, p) matrix; the reference's ``pallas``)."""
     skip = _skip_screen_out(h, X.dtype, X.device)
 
     def screen(thetas, rs, in_actives, do):
         sel = [i for i, d in enumerate(do) if d]
-        m = len(sel)
-        r = torch.stack([rs[i] for i in sel])
-        cn = col_norm if col_norm.ndim == 1 else col_norm[sel]
-        _, ub, _, tops, topi, tmax = screen_fused_batch(
-            X, torch.stack([thetas[i] for i in sel]), cn,
-            torch.stack([in_actives[i] for i in sel]), r, h=h)
-        # merge each problem's tile winners: O((p/BP) h) candidates
-        vals, pos = torch.sort(tops.reshape(m, -1), dim=1, descending=True,
-                               stable=True)
-        cand_score = vals[:, :h]
-        cand_idx = torch.gather(topi.reshape(m, -1), 1, pos[:, :h]).long()
-        max_ub, cand_lb, cand_ge, n_surv = screen_tail_batch(
-            ub, tmax, cand_score, cand_idx, cn, r)
-        out = ScreenOut(max_ub=max_ub, cand_score=cand_score,
-                        cand_idx=cand_idx, cand_lb=cand_lb, cand_ge=cand_ge,
-                        n_surv=n_surv)
+        out, _ = _kernel_screen(
+            X, torch.stack([thetas[i] for i in sel]),
+            col_norm if col_norm.ndim == 1 else col_norm[sel],
+            torch.stack([in_actives[i] for i in sel]),
+            torch.stack([rs[i] for i in sel]), h)
         return _rows(out, do, skip)
+    return screen
+
+
+def make_batch_screen_fast(X: Tensor, col_norm: Tensor, h: int,
+                           screen_dtype: str = "working",
+                           plain: bool = False):
+    """Certified mixed-precision fleet screen (``parity="fast"``; port of
+    ``repro/core/screen_backend.py:330-427``).
+
+    Returns ``screen(Theta (B, n), r (B,), in_active (B, p), do (B,) bool)
+    -> ScreenOut`` with a leading B on every field, all in X's (working)
+    dtype. Every row is scanned once with X and theta rounded to
+    ``screen_dtype`` ("working" | "float32" | "bfloat16") and summed in
+    float32 (working: in X's dtype). Safety: the radius is widened by the
+    certified bound gamma_total ||theta|| of that dot
+    (:func:`~repro_torch.core.duality.widened_radius`) before any bound is
+    formed, and ub by the scalar guard (1 + 8 u_acc) that covers the
+    bound pipeline's own roundings, so a feature this screen rules out the
+    exact screen rules out too. Candidate selection is heuristic-grade and
+    runs on the low-precision scores.
+
+    A low-precision pass can leave a row's ADD stop undecidable: its ub
+    refuses max ub < 1 while the anti-conservative bound, (1 - 8 u_acc)
+    at the radius narrowed by the same widening, says the exact screen
+    would stop. Such rows of ``do`` re-screen in working precision at the
+    working-gamma radius (one host read decides); the others keep the
+    cheap pass, cast to the working dtype.
+
+    On a card the pass is K1b in its mixed mode over X cast once here
+    (working mode: K1b on X itself), the guard in K1b's epilogue, then
+    the tile merge and K2b's tail in float32; an escalation runs K1b and
+    K2b in working precision on the undecidable rows only (its selection
+    in working precision too, which the contract allows). On the CPU the
+    same steps run the kernels' plain versions; ``plain`` takes them on a
+    card too (the explicit ``screen_backend="torch"``).
+    ``screen.escalated`` counts the escalated rows since the screen was
+    made, ``screen.last_escalated`` lists those of the last call.
+    """
+    n = X.shape[0]
+    work = X.dtype
+    low = screen_dtype != "working"
+    in_dt = getattr(torch, screen_dtype) if low else work
+    acc = torch.promote_types(torch.float32, in_dt) if low else work
+    gamma = mixed_precision_gamma(n, in_dt, acc)
+    gamma_work = mixed_precision_gamma(n, work, work)
+    u_acc = unit_roundoff(acc)
+    one_plus, one_minus = 1.0 + 8.0 * u_acc, 1.0 - 8.0 * u_acc
+    # cast once: the design in the input type (freed with the screen; the
+    # plain path holds its values in the sums' type), the norms in the sums'
+    # type
+    plain = plain or X.device.type == "cpu"
+    Xc = X.to(in_dt).to(acc) if low and plain else X.to(in_dt) if low else X
+    cn = col_norm.to(acc)
+    mode = {"in_dtype": in_dt, "guard": one_plus} if low else {
+        "guard": one_plus}
+
+    def screen(Theta, r, in_active, do):
+        r_wide = widened_radius(r, Theta, gamma)
+        out, masked = _kernel_screen(Xc, Theta, cn, in_active, r_wide.to(acc),
+                                     h, plain, **mode)
+        if not low:
+            return out
+        widen = (r_wide - r).to(acc)
+        r_lo = r_wide.to(acc) - 2.0 * widen
+        cn_b = fleet_col_norms(cn, Theta.shape[0])
+        ub_lo = torch.amax((masked + cn_b * r_lo[:, None]) * one_minus,
+                           dim=1)
+        undec = do & (out.max_ub >= 1.0) & (ub_lo < 1.0)
+        flags = undec.tolist()
+        out = out._replace(max_ub=out.max_ub.to(work),
+                           cand_score=out.cand_score.to(work),
+                           cand_lb=out.cand_lb.to(work))
+        esc = screen.last_escalated = [i for i, u in enumerate(flags) if u]
+        if not esc:
+            return out
+        screen.escalated += len(esc)
+        rows = torch.tensor(esc, device=X.device)
+        th = Theta[rows]
+        hot, _ = _kernel_screen(
+            X, th, col_norm if col_norm.ndim == 1 else col_norm[rows],
+            in_active[rows], widened_radius(r[rows], th, gamma_work), h,
+            plain)
+        return ScreenOut(*[f.index_copy(0, rows, g)
+                           for f, g in zip(out, hot)])
+
+    screen.escalated = 0
+    screen.last_escalated = []
     return screen
 
 

@@ -11,6 +11,15 @@
 //    and per tile of BP = 256 columns its top-h_tile (score, global id) in
 //    the order of a stable descending sort of (score, lane), and its max ub.
 //    K1 is the BB = 1 instance of one template, K1b the BB = 16 instance.
+//    The mixed mode (the Pallas kernels' in_dtype / acc_dtype, the certified
+//    mixed-precision screen of parity="fast") is the instance TI = bf16 (or
+//    float, X cast by the caller), TA = float: X is read in TI and each
+//    element is widened to TA before its fma; Theta arrives in TA holding
+//    values the caller rounded to TI, so every product is exact in float
+//    and only the row-order float sum rounds. col_norm, r, the outputs and
+//    the epilogue are in TA; ub (and the tile max) is multiplied by the
+//    caller's `guard` (1 + 8 u_acc; 1 leaves the working mode's bits).
+//    Bound in that mode: n*p*sizeof(TI) bytes a chunk.
 //    Bound on this card: bytes, X read once per chunk of BB = 16 problems,
 //    n*p*itemsize at 3.35 TB/s. The 2*n*p*16 flops of a chunk fit in under
 //    half that time on the f64 CUDA cores; a tensor-core product would not
@@ -75,6 +84,7 @@
 //    K2b is the same kernel over m problems (ub (m, p); col_norm shared or
 //    per problem), one cluster each. Bound: m*p*itemsize bytes.
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -99,6 +109,10 @@ __device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(
 // both go through it, so their sums agree bit for bit.
 __device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
 __device__ __forceinline__ double fma_rn(double a, double b, double c) { return __fma_rn(a, b, c); }
+// An X element in the accumulator's type (exact: bf16 -> float widens).
+__device__ __forceinline__ float to_acc(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_acc(float v) { return v; }
+__device__ __forceinline__ double to_acc(double v) { return v; }
 
 // The BB Theta values of one row of a chunk, read from shared memory in
 // 16-byte loads (one broadcast per load) instead of one load per problem.
@@ -110,7 +124,8 @@ struct __align__(16) ThetaRow {
 constexpr int SMEM_BUDGET = 220 * 1024;   // of the 228 KB of an SM
 constexpr int SORT_PER_LANE = BP / 32;    // (key, lane) pairs a lane sorts
 
-// Geometry and shared memory of the scan instance (T, BB). A thread owns
+// Geometry and shared memory of the scan instance (TI, TA, BB): X in TI,
+// the sums and everything else in TA (T below). A thread owns
 // COLS neighbouring columns of the tile and QB of the chunk's BB problems
 // (GROUPS groups of TPG threads split the problems), so that one shared
 // load of a Theta value feeds COLS fmas and one load of X feeds QB. Shared
@@ -119,7 +134,7 @@ constexpr int SORT_PER_LANE = BP / 32;    // (key, lane) pairs a lane sorts
 // per problem the tile's masked scores, each row padded by one element per
 // 8 so that a lane's 8 consecutive pairs load without bank conflicts, and
 // its per-warp maxima of ub.
-template <typename T, int BB>
+template <typename TI, typename T, int BB>
 struct Scan {
   // K1b: 2 columns x 16 problems a thread in float64; in float32 2 x 8,
   // twice the threads, measured faster
@@ -132,11 +147,11 @@ struct Scan {
   static constexpr int GWARP = TPG / 32;            // warps of a group
   static constexpr int CTAS = 3;                    // per SM
   static constexpr int SLAB = BB >= 16 ? 8 * 1024 : 16 * 1024;   // X bytes
-  static constexpr int ROWS = SLAB / (BP * (int)sizeof(T));
+  static constexpr int ROWS = SLAB / (BP * (int)sizeof(TI));
   static constexpr int EPAD = BP + BP / SORT_PER_LANE;
   static constexpr size_t EPI_BYTES =
       (size_t)BB * (EPAD + GWARP) * sizeof(T);
-  static constexpr size_t X_STAGE = (size_t)ROWS * BP * sizeof(T);
+  static constexpr size_t X_STAGE = (size_t)ROWS * BP * sizeof(TI);
   static constexpr size_t TH_STAGE = (size_t)ROWS * sizeof(ThetaRow<T, BB>);
   static constexpr int STAGES =
       (int)((SMEM_BUDGET / CTAS - EPI_BYTES) / (X_STAGE + TH_STAGE));
@@ -162,6 +177,19 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src,
   asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s),
                "l"(src), "n"(N), "r"(ok ? N : 0)
                : "memory");
+}
+// One element of X into shared memory: cp.async where the element is 4 or
+// 8 bytes, a plain load and store for a 2-byte bf16 (cp.async has no
+// 2-byte copy; the slab's barrier orders the store like the copies).
+template <typename TI>
+__device__ __forceinline__ void copy_elem(TI* dst, const TI* src, bool ok) {
+  if constexpr (sizeof(TI) >= 4) {
+    cp_async<sizeof(TI)>(dst, src, ok);
+  } else {
+    *reinterpret_cast<unsigned short*>(dst) =
+        ok ? *reinterpret_cast<const unsigned short*>(src)
+           : (unsigned short)0;
+  }
 }
 // cp.async of 16 bytes past L1; with ok false the 16 bytes are zero-filled.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -275,20 +303,22 @@ __device__ __forceinline__ void tile_top(const T* key_s, const T* umax_s,
 // CTAs running at one time share X tiles in L2 when m > BB. Item (tile,
 // chunk) scans columns [tile*BP, tile*BP + BP) for problems
 // [chunk*BB, chunk*BB + nb) of the m.
-template <typename T, int BB>
-__global__ void __launch_bounds__(Scan<T, BB>::THREADS, Scan<T, BB>::CTAS)
-screen_fused_kernel(const T* __restrict__ X, const T* __restrict__ Theta,
+template <typename TI, typename T, int BB>
+__global__ void __launch_bounds__(Scan<TI, T, BB>::THREADS,
+                                  Scan<TI, T, BB>::CTAS)
+screen_fused_kernel(const TI* __restrict__ X, const T* __restrict__ Theta,
                     const T* __restrict__ col_norm, int cn_stride,
                     const uint8_t* __restrict__ active,
                     const T* __restrict__ r, int m, int n, int p, int h_tile,
-                    int masked, T* __restrict__ score, T* __restrict__ ub,
-                    T* __restrict__ lb, T* __restrict__ tops,
-                    int* __restrict__ topi, T* __restrict__ tmax) {
-  using S = Scan<T, BB>;
+                    int masked, T guard, T* __restrict__ score,
+                    T* __restrict__ ub, T* __restrict__ lb,
+                    T* __restrict__ tops, int* __restrict__ topi,
+                    T* __restrict__ tmax) {
+  using S = Scan<TI, T, BB>;
   constexpr int ROWS = S::ROWS, QB = S::QB, COLS = S::COLS;
   constexpr int STAGES = S::STAGES;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* xs = reinterpret_cast<T*>(smem);
+  TI* xs = reinterpret_cast<TI*>(smem);
   ThetaRow<T, BB>* ths =
       reinterpret_cast<ThetaRow<T, BB>*>(smem + STAGES * S::X_STAGE);
   T* key_s = reinterpret_cast<T*>(smem + STAGES * (S::X_STAGE + S::TH_STAGE));
@@ -316,13 +346,13 @@ screen_fused_kernel(const T* __restrict__ X, const T* __restrict__ Theta,
       const int nb = min(BB, m - q0);
       // 16-byte copies where a row's vector is aligned and inside p (all
       // of them when p*itemsize is a multiple of 16), else element copies
-      constexpr int VEC = 16 / sizeof(T), VPR = BP / VEC;
+      constexpr int VEC = 16 / sizeof(TI), VPR = BP / VEC;
 #pragma unroll
       for (int k = 0; k < ROWS * VPR / S::THREADS; ++k) {
         const int e = t + k * S::THREADS;
         const int i = e / VPR, c = tile * BP + (e % VPR) * VEC;
-        T* dst = xs + (size_t)p_stage * ROWS * BP + i * BP + (e % VPR) * VEC;
-        const T* src = X + (size_t)(p_row0 + i) * p + c;
+        TI* dst = xs + (size_t)p_stage * ROWS * BP + i * BP + (e % VPR) * VEC;
+        const TI* src = X + (size_t)(p_row0 + i) * p + c;
         if (p_row0 + i >= n) {            // zeros: fma(0, 0, acc) == acc
           cp_async16(dst, X, false);
         } else if (c + VEC <= p && ((uintptr_t)src & 15) == 0) {
@@ -330,7 +360,7 @@ screen_fused_kernel(const T* __restrict__ X, const T* __restrict__ Theta,
         } else {
 #pragma unroll
           for (int j = 0; j < VEC; ++j)
-            cp_async<sizeof(T)>(dst + j, c + j < p ? src + j : X, c + j < p);
+            copy_elem(dst + j, c + j < p ? src + j : X, c + j < p);
         }
       }
       for (int e = t; e < ROWS * BB; e += S::THREADS) {   // rows fastest
@@ -370,13 +400,13 @@ screen_fused_kernel(const T* __restrict__ X, const T* __restrict__ Theta,
       cp_async_wait<STAGES - 2>();        // this slab has landed (own copies)
       __syncthreads();                    // everyone's; the last stage is free
       fetch();
-      const T* xr = xs + (size_t)stage * ROWS * BP + c0;
+      const TI* xr = xs + (size_t)stage * ROWS * BP + c0;
       const ThetaRow<T, BB>* tr = ths + stage * ROWS;
       stage = stage + 1 == STAGES ? 0 : stage + 1;
 #pragma unroll
       for (int i = 0; i < ROWS; ++i) {
         // one load of X feeds QB problems, one of Theta COLS columns
-        const Vec<T, COLS> x = *reinterpret_cast<const Vec<T, COLS>*>(
+        const Vec<TI, COLS> x = *reinterpret_cast<const Vec<TI, COLS>*>(
             xr + i * BP);
         const Vec<T, QB> th =
             reinterpret_cast<const Vec<T, QB>*>(tr[i].v)[g];
@@ -384,7 +414,7 @@ screen_fused_kernel(const T* __restrict__ X, const T* __restrict__ Theta,
         for (int q = 0; q < QB; ++q)
 #pragma unroll
           for (int j = 0; j < COLS; ++j)
-            acc[j][q] = fma_rn(th.v[q], x.v[j], acc[j][q]);
+            acc[j][q] = fma_rn(th.v[q], to_acc(x.v[j]), acc[j][q]);
       }
     }
 
@@ -415,7 +445,8 @@ screen_fused_kernel(const T* __restrict__ X, const T* __restrict__ Theta,
           }
           const bool act = !in || active[at] != 0;
           const T ms = act ? -pos_inf<T>() : sc;
-          const T u = add_rn(ms, nr);
+          T u = add_rn(ms, nr);
+          if (guard != T(1)) u = mul_rn(u, guard);
           if (in) {
             score[at] = ms;
             ub[at] = u;
@@ -717,15 +748,17 @@ screen_tail_kernel(const T* __restrict__ ub, int p, int h,
 
 __global__ void empty_kernel() {}
 
-template <typename T, int BB>
+template <typename TI, typename T, int BB>
 int launch_screen(const void* X, const void* Theta, const void* col_norm,
                   int cn_stride, const void* active, const void* r, int m,
-                  int n, int p, int h_tile, int masked, void* score, void* ub,
-                  void* lb, void* tops, void* topi, void* tmax, void* stream) {
-  const size_t smem = Scan<T, BB>::SMEM;
+                  int n, int p, int h_tile, int masked, T guard, void* score,
+                  void* ub, void* lb, void* tops, void* topi, void* tmax,
+                  void* stream) {
+  using S = Scan<TI, T, BB>;
+  const size_t smem = S::SMEM;
   cudaError_t e = cudaFuncSetAttribute(
-      screen_fused_kernel<T, BB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      screen_fused_kernel<TI, T, BB>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   int dev = 0, sms = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
@@ -733,18 +766,17 @@ int launch_screen(const void* X, const void* Theta, const void* col_norm,
   if (e != cudaSuccess) return (int)e;
   int per_sm = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, screen_fused_kernel<T, BB>, Scan<T, BB>::THREADS, smem);
+      &per_sm, screen_fused_kernel<TI, T, BB>, S::THREADS, smem);
   if (e != cudaSuccess) return (int)e;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const int items = ((p + BP - 1) / BP) * ((m + BB - 1) / BB);
   if (items == 0) return (int)cudaSuccess;
   const int grid = items < sms * per_sm ? items : sms * per_sm;
-  screen_fused_kernel<T, BB>
-      <<<grid, Scan<T, BB>::THREADS, smem,
-         (cudaStream_t)stream>>>(
-          (const T*)X, (const T*)Theta, (const T*)col_norm, cn_stride,
-          (const uint8_t*)active, (const T*)r, m, n, p, h_tile, masked,
-          (T*)score, (T*)ub, (T*)lb, (T*)tops, (int*)topi, (T*)tmax);
+  screen_fused_kernel<TI, T, BB><<<grid, S::THREADS, smem,
+                                   (cudaStream_t)stream>>>(
+      (const TI*)X, (const T*)Theta, (const T*)col_norm, cn_stride,
+      (const uint8_t*)active, (const T*)r, m, n, p, h_tile, masked, guard,
+      (T*)score, (T*)ub, (T*)lb, (T*)tops, (int*)topi, (T*)tmax);
   return (int)cudaGetLastError();
 }
 
@@ -800,21 +832,25 @@ int launch_tail(const void* ub, int m, int p, int h, const void* lb_sorted,
 
 extern "C" {
 
-// K1 (BB = 1, m = 1) and K1b (BB = 16): the same kernel and arguments.
-#define SCREEN_ENTRY(NAME, T, BB)                                              \
+// K1 (BB = 1, m = 1) and K1b (BB = 16): the same kernel and arguments; X in
+// TI, everything else in T. The _bf16 entries are the mixed mode with bf16
+// X (the float mixed mode is the _f32 entry on an X cast to float).
+#define SCREEN_ENTRY(NAME, TI, T, BB)                                          \
   int NAME(const void* X, const void* Theta, const void* col_norm,            \
            int cn_stride, const void* active, const void* r, int m, int n,    \
-           int p, int h_tile, int masked, void* score, void* ub, void* lb,    \
-           void* tops, void* topi, void* tmax, void* stream) {                \
-    return launch_screen<T, BB>(X, Theta, col_norm, cn_stride, active, r, m,  \
-                                n, p, h_tile, masked, score, ub, lb, tops,    \
-                                topi, tmax, stream);                          \
+           int p, int h_tile, int masked, T guard, void* score, void* ub,     \
+           void* lb, void* tops, void* topi, void* tmax, void* stream) {      \
+    return launch_screen<TI, T, BB>(X, Theta, col_norm, cn_stride, active, r, \
+                                    m, n, p, h_tile, masked, guard, score,    \
+                                    ub, lb, tops, topi, tmax, stream);        \
   }
 
-SCREEN_ENTRY(screen_fused_f32, float, 1)
-SCREEN_ENTRY(screen_fused_f64, double, 1)
-SCREEN_ENTRY(screen_fused_batch_f32, float, 16)
-SCREEN_ENTRY(screen_fused_batch_f64, double, 16)
+SCREEN_ENTRY(screen_fused_f32, float, float, 1)
+SCREEN_ENTRY(screen_fused_f64, double, double, 1)
+SCREEN_ENTRY(screen_fused_bf16, __nv_bfloat16, float, 1)
+SCREEN_ENTRY(screen_fused_batch_f32, float, float, 16)
+SCREEN_ENTRY(screen_fused_batch_f64, double, double, 16)
+SCREEN_ENTRY(screen_fused_batch_bf16, __nv_bfloat16, float, 16)
 
 // K2 and K2b, the histogram entry: hist (m, h+1) of ub (m, p) against
 // lb_sorted (m, h)

@@ -36,12 +36,15 @@ _CM = [_P, _P, _P, _P, _P, _P, None, _I, _I, _I, _I, _P, _P, _P, _P]
 _CM_PEN = _CM[:6] + [_P] + _CM[6:]
 _CM_BATCH = [_P] * 9 + [_I, _I, _I, _P, _P, _P, _P]
 _WIDE = [_P] * 9 + [None, _I, _I, _I, _I, _P]
-_SCREEN = [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-           _P, _P]
+# the scan: ..., masked, the ub guard (a float of the sums' type), outputs
+_SCREEN = [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, None, _P, _P, _P, _P,
+           _P, _P, _P]
 _SIGNATURES = {
     "screen": {
         "screen_fused_{dt}": _SCREEN,
         "screen_fused_batch_{dt}": _SCREEN,
+        "screen_fused_bf16": _SCREEN,        # bf16 X, float sums
+        "screen_fused_batch_bf16": _SCREEN,
         "ub_histogram_{dt}": [_P, _P, _I, _I, _I, _P, _P],
         "screen_tail_{dt}": [_P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I,
                              _P, _P, _P, _P, _P],

@@ -46,7 +46,10 @@ KERNELS = {"screen_fused": screen_fused, "ub_histogram": ub_histogram,
            "ub_histogram_batch": ub_histogram_batch,
            "cm_burst_batch": cm_burst_batch_xt, "cm_epochs": cm_epochs,
            "gram_sweep": gram_sweep, "gram_sweep_batch": gram_sweep_batch,
-           "cm_sweep_wide": cm_sweep_wide}
+           "cm_sweep_wide": cm_sweep_wide,
+           # K1 / K1b in the mixed mode (in_dtype / acc_dtype given)
+           "screen_fused_mixed": screen_fused.mixed,
+           "screen_fused_batch_mixed": screen_fused_batch.mixed}
 
 
 def on_cuda() -> bool:

@@ -22,19 +22,24 @@ def screen_scores_ref(X: Tensor, theta: Tensor, col_norm: Tensor, r):
 
 
 def screen_fused_ref(X: Tensor, theta: Tensor, col_norm: Tensor,
-                     active: Tensor, r, *, h: int):
+                     active: Tensor, r, *, h: int, guard: float = 1.0):
     """The fused ADD-phase scan, tile for tile as the kernel lays it out.
 
     Returns (score, ub, lb) (p,) with active features masked to
     score = ub = -inf and lb = +inf; per BP-column tile its top
     ``min(h, BP)`` (score, global id) with ties to the lowest lane, padding
-    lanes counting as active; and per tile the max ub.
+    lanes counting as active; and per tile the max ub. ``guard``
+    multiplies ub (and so the tile maxima). The mixed mode reaches it with
+    X and theta already rounded to the input type and held in the sums'
+    type.
     """
     p = X.shape[1]
     score = torch.abs(theta @ X)
     nr = col_norm * r
     masked = torch.where(active, -torch.inf, score)
     ub = masked + nr
+    if guard != 1.0:
+        ub = ub * guard
     lb = torch.abs(masked - nr)
     p_blocks = -(-p // BP)
     pad = p_blocks * BP - p
@@ -50,13 +55,13 @@ def screen_fused_ref(X: Tensor, theta: Tensor, col_norm: Tensor,
 
 
 def screen_fused_batch_ref(X: Tensor, Theta: Tensor, col_norm: Tensor,
-                           active: Tensor, r, *, h: int):
+                           active: Tensor, r, *, h: int, guard: float = 1.0):
     """:func:`screen_fused_ref` per row of Theta (m, n), stacked; col_norm
     (p,) shared or (m, p), active (m, p), r (m,). Each row works on its own
     copy of its theta, as a serial scan would."""
     outs = [screen_fused_ref(
         X, Theta[b].clone(), col_norm if col_norm.ndim == 1 else col_norm[b],
-        active[b], r[b], h=h) for b in range(Theta.shape[0])]
+        active[b], r[b], h=h, guard=guard) for b in range(Theta.shape[0])]
     return tuple(torch.stack(t) for t in zip(*outs))
 
 

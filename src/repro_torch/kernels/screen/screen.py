@@ -8,15 +8,18 @@ CUDA tensors it launches the kernel or raises. Each wrapper counts its
 launches in its ``launches`` attribute.
 
 K1 replaces ``repro/kernels/screen/screen.py:271 screen_fused_pallas``
-(and, unmasked, ``:124 screen_scores_pallas``); K2 replaces
+(and, unmasked, ``:124 screen_scores_pallas``), its ``in_dtype`` /
+``acc_dtype`` mode included; K2 replaces
 ``:512 ub_histogram_pallas`` and, in its tail entry, the code around
 it in one screen (``repro/core/screen_backend.py:146-168``); K1b replaces
 ``:394 screen_fused_batch_pallas`` and K2b ``:562
-ub_histogram_batch_pallas``.
+ub_histogram_batch_pallas``. The mixed mode's launches count apart, in
+``screen_fused.mixed.launches`` and ``screen_fused_batch.mixed.launches``.
 """
 from __future__ import annotations
 
 import ctypes
+import types
 
 import torch
 
@@ -55,15 +58,53 @@ def _require(t: Tensor, what: str, dtype, shape, device) -> None:
         raise ValueError(f"{what} must be contiguous")
 
 
-def _scan(entry, X, Theta, col_norm, active, r, h_tile, masked):
+# (X's type, the sums' type) -> the kernel instance
+_SCAN_INSTANCES = {(torch.float32, torch.float32): "f32",
+                   (torch.float64, torch.float64): "f64",
+                   (torch.bfloat16, torch.float32): "bf16"}
+
+
+def screen_dtypes(X: Tensor, in_dtype=None, acc_dtype=None):
+    """The scan's (input, accumulator) dtypes, as the reference's
+    ``_screen_dtypes`` resolves them: X and theta are rounded to
+    ``in_dtype`` (default X's), the sums and every output are in
+    ``acc_dtype`` (default: float32 or the input type, the wider). Names
+    ("bfloat16") or torch dtypes."""
+    def dtype(d):
+        return getattr(torch, d) if isinstance(d, str) else d
+    dt_in = X.dtype if in_dtype is None else dtype(in_dtype)
+    dt_acc = (torch.promote_types(torch.float32, dt_in) if acc_dtype is None
+              else dtype(acc_dtype))
+    return dt_in, dt_acc
+
+
+def _scan_args(X, Theta, col_norm, r, in_dtype, acc_dtype):
+    """X in the input type (cast here unless the caller cast it once),
+    Theta rounded to the input type and held in the sums' type (exactly),
+    col_norm and r in the sums' type."""
+    dt_in, dt_acc = screen_dtypes(X, in_dtype, acc_dtype)
+    if X.dtype != dt_in:
+        X = X.to(dt_in)
+    Theta = Theta.to(dt_in).to(dt_acc)
+    if isinstance(r, Tensor):
+        r = r.to(dt_acc)
+    return X, Theta, col_norm.to(dt_acc), r, dt_acc
+
+
+def _scan(entry, X, Theta, col_norm, active, r, h_tile, masked, dt=None,
+          guard=1.0):
     """Launch the scan kernel ``entry`` (K1 or K1b) on the m problems of
-    Theta (m, n); returns the (m, ...) outputs."""
+    Theta (m, n) (X in its input type, the rest in the sums' type ``dt``,
+    by default X's); returns the (m, ...) outputs."""
     n, p = X.shape
+    dt = X.dtype if dt is None else dt
     m = Theta.shape[0]
-    dt, dev = X.dtype, X.device
-    if dt not in _FLOATS:
-        raise ValueError(f"X has dtype {dt}; the kernel takes float32/64")
-    _require(X, "X", dt, (n, p), dev)
+    dev = X.device
+    inst = _SCAN_INSTANCES.get((X.dtype, dt))
+    if inst is None:
+        raise ValueError(f"no scan kernel for X in {X.dtype} summed in {dt}"
+                         f" (float32, float64, bfloat16 into float32)")
+    _require(X, "X", X.dtype, (n, p), dev)
     _require(Theta, "Theta", dt, (m, n), dev)
     if col_norm.ndim == 1:
         _require(col_norm, "col_norm", dt, (p,), dev)
@@ -82,19 +123,26 @@ def _scan(entry, X, Theta, col_norm, active, r, h_tile, masked):
     tops = torch.empty((m, p_blocks, h_tile), dtype=dt, device=dev)
     topi = torch.empty((m, p_blocks, h_tile), dtype=torch.int32, device=dev)
     tmax = torch.empty((m, p_blocks), dtype=dt, device=dev)
-    fn = getattr(_build.library("screen"),
-                 f"{entry}_{'f64' if dt == torch.float64 else 'f32'}")
+    fn = getattr(_build.library("screen"), f"{entry}_{inst}")
     rc = fn(_ptr(X), _ptr(Theta), _ptr(col_norm),
             p if col_norm.ndim == 2 else 0,
             _ptr(active) if active is not None else None, _ptr(r), m, n, p,
-            h_tile, int(masked), _ptr(score), _ptr(ub), _ptr(lb), _ptr(tops),
-            _ptr(topi), _ptr(tmax), _stream())
+            h_tile, int(masked), float(guard), _ptr(score), _ptr(ub),
+            _ptr(lb), _ptr(tops), _ptr(topi), _ptr(tmax), _stream())
     _build.check(rc, entry)
     return score, ub, lb, tops, topi, tmax
 
 
+def _count(wrapper, mixed: bool) -> None:
+    if mixed:
+        wrapper.mixed.launches += 1
+    else:
+        wrapper.launches += 1
+
+
 def screen_fused(X: Tensor, theta: Tensor, col_norm: Tensor, active: Tensor,
-                 r, *, h: int):
+                 r, *, h: int, in_dtype=None, acc_dtype=None,
+                 guard: float = 1.0):
     """Fused ADD-phase scan (K1).
 
     Args: X (n, p) row-major, theta (n,), col_norm (p,), active (p,) bool
@@ -104,36 +152,50 @@ def screen_fused(X: Tensor, theta: Tensor, col_norm: Tensor, active: Tensor,
     the first entries of a stable descending sort of (masked score, lane),
     so ties go to the lowest lane; and per tile the max ub.
 
+    ``in_dtype`` / ``acc_dtype`` (see :func:`screen_dtypes`) ask for the
+    mixed mode: X and theta rounded to ``in_dtype`` ("bfloat16" or
+    "float32"; pass X already cast to skip a cast per call), sums and
+    outputs in ``acc_dtype`` (float32). ``guard`` multiplies ub and the
+    tile maxima (the certified screen's 1 + 8 u_acc).
+
     On the card each score is one fma chain over the rows in order (the
     same bits as every problem of K1b); persistent CTAs stream X through
     shared memory, and one warp sorts each tile's 256 scores.
     """
+    X, theta, col_norm, r, dt = _scan_args(X, theta, col_norm, r, in_dtype,
+                                           acc_dtype)
     if X.device.type == "cpu":
-        return screen_fused_ref(X, theta, col_norm, active, r, h=h)
+        return screen_fused_ref(X.to(dt), theta, col_norm, active, r, h=h,
+                                guard=guard)
     out = _scan("screen_fused", X, theta[None], col_norm, active[None], r,
-                max(1, min(h, BP)), True)
-    screen_fused.launches += 1
+                max(1, min(h, BP)), True, dt, guard)
+    _count(screen_fused, in_dtype is not None or acc_dtype is not None)
     return tuple(t[0] for t in out)
 
 
 def screen_fused_batch(X: Tensor, Theta: Tensor, col_norm: Tensor,
-                       active: Tensor, r, *, h: int):
+                       active: Tensor, r, *, h: int, in_dtype=None,
+                       acc_dtype=None, guard: float = 1.0):
     """Fleet scan (K1b): K1 for the m problems of Theta (m, n) over the
     shared X, reading X once per chunk of 16 problems.
 
     col_norm (p,) shared or (m, p), active (m, p) bool, r (m,) radii (a
-    tensor, which may stay on the card). Returns score, ub, lb (m, p),
+    tensor, which may stay on the card); ``in_dtype``, ``acc_dtype`` and
+    ``guard`` as for :func:`screen_fused`. Returns score, ub, lb (m, p),
     tile winners tops/topi (m, p/BP, min(h, BP)) and tile max ub
     (m, p/BP): per problem bitwise what K1 returns. On the card a thread
-    sums 2 columns for 16 (float64) or 8 (float32) of a chunk's problems,
-    and each problem's tile top-h is one warp's sort, the problems' sorts
-    side by side.
+    sums 2 columns for 16 (float64) or 8 (float32 sums) of a chunk's
+    problems, and each problem's tile top-h is one warp's sort, the
+    problems' sorts side by side.
     """
+    X, Theta, col_norm, r, dt = _scan_args(X, Theta, col_norm, r, in_dtype,
+                                           acc_dtype)
     if X.device.type == "cpu":
-        return screen_fused_batch_ref(X, Theta, col_norm, active, r, h=h)
+        return screen_fused_batch_ref(X.to(dt), Theta, col_norm, active, r,
+                                      h=h, guard=guard)
     out = _scan("screen_fused_batch", X, Theta, col_norm, active, r,
-                max(1, min(h, BP)), True)
-    screen_fused_batch.launches += 1
+                max(1, min(h, BP)), True, dt, guard)
+    _count(screen_fused_batch, in_dtype is not None or acc_dtype is not None)
     return out
 
 
@@ -284,3 +346,6 @@ screen_fused.launches = 0
 ub_histogram.launches = 0
 screen_fused_batch.launches = 0
 ub_histogram_batch.launches = 0
+# launches in the mixed mode (``in_dtype`` / ``acc_dtype`` given)
+screen_fused.mixed = types.SimpleNamespace(launches=0)
+screen_fused_batch.mixed = types.SimpleNamespace(launches=0)

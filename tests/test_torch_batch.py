@@ -224,7 +224,9 @@ def test_batch_policies():
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
     cfg = rt.SaifConfig()
     assert rt.resolve_batch_inner(cfg, 100, 256, 16, cpu) == "gram"
-    assert rt.resolve_batch_inner(cfg, 100, 256, 16, cuda) == "cuda"
+    # least squares under the crossover: K6b on the card, as the reference
+    assert rt.resolve_batch_inner(cfg, 100, 256, 16, cuda) == "gram"
+    assert rt.resolve_batch_inner(cfg, 60, 256, 16, cuda) == "cuda"
     logit = rt.SaifConfig(loss="logistic")
     assert rt.resolve_batch_inner(logit, 100, 256, 16, cpu) == "torch"
     assert rt.resolve_batch_inner(logit, 100, 256, 16, cuda) == "cuda"
@@ -267,9 +269,13 @@ def test_unported_fleet_options_raise():
     X, Y, lams = _fleet(np.random.default_rng(0), 20, 30, 2)
     with pytest.raises(ValueError, match="parity"):
         rt.SaifConfig(parity="exact")
-    with pytest.raises(NotImplementedError, match="A5"):
-        rt.fleet_solve(X, Y, lams, rt.SaifConfig(parity="fast"),
-                       device="cpu")
+    # fast parity is ported: the lockstep fleet finds the bitwise supports
+    fast = rt.fleet_solve(X, Y, lams, rt.SaifConfig(parity="fast"),
+                          device="cpu")
+    bit = rt.fleet_solve(X, Y, lams, rt.SaifConfig(), device="cpu")
+    for i in range(2):
+        assert _support(fast.beta[i]) == _support(bit.beta[i])
+        assert float(fast.gap[i]) <= 1e-6
     # sample weights are ported; the kernel burst refuses them, as the
     # reference's pallas fleet does
     with pytest.raises(ValueError, match="sample weights"):

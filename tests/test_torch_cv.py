@@ -315,7 +315,9 @@ def test_resolve_batch_inner_under_weights():
     # the card: weighted LS takes the Gram engine (K6b) under the crossover
     assert rt.resolve_batch_inner(ls, 1000, 512, 5, cuda, weighted=True) \
         == "gram"
-    assert rt.resolve_batch_inner(ls, 1000, 512, 5, cuda) == "cuda"
+    # unweighted least squares under the crossover: K6b too (the reference)
+    assert rt.resolve_batch_inner(ls, 1000, 512, 5, cuda) == "gram"
+    assert rt.resolve_batch_inner(ls, 100, 512, 5, cuda) == "cuda"
     with pytest.raises(ValueError, match='inner_backend="torch"'):
         rt.resolve_batch_inner(ls, 100, 1024, 5, cuda, weighted=True)
     # weighted logistic: the kernel burst refuses weights, auto raises
@@ -357,12 +359,20 @@ def test_unported_and_refused_options():
     X, y, lm = _problem(4, 30, 60, 5)
     W = rt.kfold_weights(30, 2).numpy()
     Y = np.stack([y, y])
-    with pytest.raises(NotImplementedError, match="A5b"):
-        rt.fleet_solve(X, Y, lm / 2, rt.SaifConfig(parity="fast"),
-                       device="cpu", weights=W)
-    with pytest.raises(NotImplementedError, match="A5b"):
-        rt.prepare_fleet(X, Y, rt.SaifConfig(parity="fast"), weights=W,
-                         device="cpu")
+    # fast parity is ported: the weighted lockstep fleet finds the bitwise
+    # engine's supports, from the fast preparation
+    fast_cfg = rt.SaifConfig(parity="fast")
+    fast = rt.fleet_solve(X, Y, lm / 2, fast_cfg, device="cpu", weights=W)
+    bit = rt.fleet_solve(X, Y, lm / 2, rt.SaifConfig(), device="cpu",
+                         weights=W)
+    for i in range(2):
+        assert _support(fast.beta[i]) == _support(bit.beta[i])
+        assert float(fast.gap[i]) <= 1e-6
+    prep = rt.prepare_fleet(X, Y, fast_cfg, weights=W, device="cpu")
+    slow = rt.prepare_fleet(X, Y, rt.SaifConfig(), weights=W, device="cpu")
+    torch.testing.assert_close(prep.c0, slow.c0, rtol=1e-12, atol=1e-12)
+    torch.testing.assert_close(prep.col_norm, slow.col_norm, rtol=1e-12,
+                               atol=0)
     with pytest.raises(NotImplementedError):
         rt.cv_solve(X, y, [lm / 2], config=rt.SaifConfig(unpen_idx=0),
                     device="cpu")

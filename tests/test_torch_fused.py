@@ -427,12 +427,13 @@ CPU, CUDA = torch.device("cpu"), torch.device("cuda")
 
 
 @pytest.mark.parametrize("args,device,want", [
-    # on the card least squares runs K3 while the burst fits it ...
-    (("least_squares", 100, 400), CUDA, "cuda"),
-    (("least_squares", 1000, 1024), CUDA, "cuda"),
+    # on the card least squares takes the Gram engine (K6, the fused slot
+    # in its pen) under the reference's crossover, while the capacity
+    # fits K6's gate ...
+    (("least_squares", 100, 400), CUDA, "gram"),
+    (("least_squares", 1000, 1024), CUDA, "gram"),
+    # ... and K3 past the crossover while the burst fits it
     (("least_squares", 100, 401), CUDA, "cuda"),
-    # ... past its shared-memory gate the Gram engine (K6) under the
-    # crossover, while the capacity fits K6's own gate
     (("least_squares", 10**4, 4096), CUDA, "gram"),
     (("logistic", 1000, 1024), CUDA, "cuda"),
     # on the CPU the reference's crossover stands

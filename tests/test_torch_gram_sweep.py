@@ -199,16 +199,19 @@ def test_gram_sweep_form_fits_under_every_gate():
 
 
 @pytest.mark.parametrize("loss,n,k,device,unpen,want", [
-    # the smoke's solves on the card: LS (auto), logistic, fused (the
+    # the smoke's solves on the card: LS (auto) takes the Gram engine
+    # under the crossover, as the reference does, logistic K3, fused (the
     # unpenalized slot), the CV refit and fold-1 serial solve
-    ("least_squares", 1000, 512, "cuda", False, "cuda"),
-    ("least_squares", 1000, 1024, "cuda", False, "cuda"),
-    ("least_squares", 800, 512, "cuda", False, "cuda"),
+    ("least_squares", 1000, 512, "cuda", False, "gram"),
+    ("least_squares", 1000, 1024, "cuda", False, "gram"),
+    ("least_squares", 800, 512, "cuda", False, "gram"),
     ("logistic", 1000, 256, "cuda", False, "cuda"),
     ("logistic", 1000, 512, "cuda", True, "cuda"),
-    # the shared-memory form's edge, and past it the Gram engine
-    ("least_squares", 7900, 512, "cuda", True, "cuda"),
+    # K3's shared-memory edge makes no difference under the crossover;
+    # past the crossover least squares runs K3
+    ("least_squares", 7900, 512, "cuda", True, "gram"),
     ("least_squares", 8000, 512, "cuda", True, "gram"),
+    ("least_squares", 100, 512, "cuda", False, "cuda"),
     # the CPU tests' shapes keep the reference's crossover
     ("least_squares", 60, 64, "cpu", False, "gram"),
     ("least_squares", 60, 512, "cpu", False, "torch"),

@@ -51,7 +51,11 @@ def test_config_and_backend_names():
     assert resolve_backend("torch", cuda) == "torch"
     with pytest.raises(ValueError):
         resolve_backend("jnp", cpu)
+    # least squares under the crossover: the Gram engine (K6), as the
+    # reference routes it on every backend
     assert resolve_inner_backend("auto", "least_squares", 100, 400,
+                                 cuda) == "gram"
+    assert resolve_inner_backend("auto", "least_squares", 100, 401,
                                  cuda) == "cuda"
     assert resolve_inner_backend("auto", "least_squares", 100, 400,
                                  cpu) == "gram"
@@ -90,12 +94,14 @@ def test_port_imports_no_jax_and_no_reference():
         "         'repro_torch.core.select', 'repro_torch.kernels.gram.gram',\n"
         "         'repro_torch.kernels.gram.ref', 'repro_torch.core.dynamic',\n"
         "         'repro_torch.core.sequential', 'repro_torch.core.homotopy',\n"
-        "         'repro_torch.kernels.cm.wide']\n"
+        "         'repro_torch.kernels.cm.wide',\n"
+        "         'repro_torch.core.batch_fast']\n"
         "assert all(m in sys.modules for m in fleet), fleet\n"
         "from repro_torch.kernels import ops\n"
         "assert {'screen_fused_batch', 'ub_histogram_batch',\n"
         "        'cm_burst_batch', 'cm_epochs', 'gram_sweep',\n"
-        "        'gram_sweep_batch', 'cm_sweep_wide'} <= set(ops.KERNELS)\n"
+        "        'gram_sweep_batch', 'cm_sweep_wide', 'screen_fused_mixed',\n"
+        "        'screen_fused_batch_mixed'} <= set(ops.KERNELS)\n"
         "assert ops.KERNELS['cm_sweep_wide'].launches == 0\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))"
     )
