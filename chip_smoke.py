@@ -104,12 +104,15 @@ Phases (each one fails the run by raising):
    float32, and K6b on the CV's 5 fold carries at its last lambda against
    its plain version and bit for bit 5 launches of K6; both sweeps start
    from beta = 0, as the K3 and K5 checks do; K1b (B = 16) and K1 in
-   their mixed mode (bf16 and float32 inputs, float32 sums), at full
-   width and at p = 777, n = 1001: every score within the certified bound
-   gamma_total ||theta|| ||x_i|| of the float64 product and within the
-   float32 sums' bound 2 gamma_n(u_f32) sum_j |theta_j x_ji| of the twin
-   (the same rounded inputs), the tile winners the twin's where they
-   stand clear, timed beside cuBLAS on the same cast inputs; K6b with the identity
+   their mixed mode (bf16 inputs on the tensor-core scan, float32 inputs
+   on the fma chains; float32 sums), at full width and at p = 777, n =
+   1001 (there also m = 5 and 17): every score within its route's
+   certified bound gamma_total ||theta|| ||x_i|| of the float64 product
+   (the wgmma sums certified as a truncating float32 adder, u = 2^-23) and
+   within the sums' bound (gamma_n(2^-24) + gamma_n(u_route)) sum_j
+   |theta_j x_ji| of the twin (the same rounded inputs), the tile winners
+   the twin's where they stand clear, timed beside cuBLAS on the same cast
+   inputs; K6b with the identity
    order on ``[fleet-fast/working]``'s carries (dead slots interleaved, a
    frozen problem, 1-40 epochs) against its twin;
 18. K7 against its plain version in float64 and float32 (rel 1e-9 and
@@ -154,9 +157,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth and dense non-tensor peaks
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth and dense non-tensor peaks;
+# bf16 is the dense tensor-core rate (the bf16 mode's wgmma scan)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
+PEAK_FLOPS = {"float64": 34e12, "float32": 67e12, "bfloat16": 989e12}
 N = 1000
 # lambda / lambda_max. Least squares sits at 0.3, the lowest fraction the
 # port certifies within max_outer at this size: at 0.2 and below the
@@ -1185,7 +1189,8 @@ def fast_fleet_phase(X, Y, lams, screen_dtype, bit, bit_wall, expect):
                            f"bitwise fleet's support")
     DEFERRED_PROFILES.append(
         (name, lambda: rt.fleet_solve(X, Y, lams, cfg), wall,
-         ("screen_fused_kernel", "screen_tail_kernel", "gram_sweep_kernel")))
+         ("screen_fused_kernel", "screen_tc_kernel", "screen_tail_kernel",
+          "gram_sweep_kernel")))
     return res, counts, st
 
 
@@ -1194,123 +1199,141 @@ MIXED = (("bfloat16", "bf16"), ("float32", "f32"))
 
 def check_mixed_scans(X, records):
     """``[kernel screen_fused_batch bf16|f32]`` and ``[kernel screen_fused
-    bf16|f32]``: K1b (B = 16) and K1 in the mixed mode, X cast once, at the
-    smoke's shapes and at p = 777 with n odd. Each score within the
-    certified bound gamma_total ||theta|| ||x_i|| of the float64 product.
-    Kernel and twin multiply the same rounded inputs in float32, so they
-    differ by the float32 sums' order only: each score within twice
-    gamma_n(u_f32) sum_j |theta_j| |x_ji| (the rounded inputs) of the
-    twin's, ub within that plus the epilogue's float32 rounding, and
-    tile-winner ids equal the twin's wherever neighbouring scores stand
-    more than that apart. Timed at full size beside the twin and cuBLAS
-    on the same cast inputs."""
+    bf16|f32]``: K1b and K1 in the mixed mode, X cast once in its scan's
+    layout, at the smoke's shapes (m = 16 and 1) and at p = 777 with n odd
+    (m = 1, 5, 16, 17: a chunk of 8 with three empty rows, a second chunk of
+    one problem; m = 16 also with per-problem norms). The bf16 mode runs
+    the tensor-core scan (route=wgmma), the float32-input mode the fma
+    chains (route=fma). Each score within
+    its route's certified bound gamma_total ||theta|| ||x_i|| of the
+    float64 product (``scan_gamma``: the wgmma sums are certified as a
+    truncating float32 adder, u = 2^-23). Kernel and twin multiply the same
+    rounded inputs exactly and differ by their float32 sums only: each
+    score within (gamma_n(2^-24) + gamma_n(u_route)) sum_j |theta_j|
+    |x_ji| of the twin's (the twin rounds to nearest), ub within that plus
+    the epilogue's float32 rounding, and tile-winner ids equal the twin's
+    wherever neighbouring scores stand more than that apart. Timed at full
+    size beside the twin and cuBLAS on the same cast inputs."""
     import torch
-    from repro_torch.core.duality import (dot_error_gamma,
-                                          mixed_precision_gamma,
-                                          unit_roundoff)
+    from repro_torch.core.duality import dot_error_gamma, unit_roundoff
+    from repro_torch.core.screen_backend import scan_gamma, scan_unit_roundoff
     from repro_torch.kernels import ops
+    from repro_torch.kernels.screen.screen import scan_input
 
     dev = X.device
     g = torch.Generator(device="cpu").manual_seed(21)
     small = (torch.rand(1001, 777, generator=g, dtype=torch.float64) * 20
              - 10).to(dev)
     k1_rows = []
-    for Xs, full in ((X, True), (small, False)):
+    u32 = unit_roundoff(torch.float32)
+    cases = [(X, True, m, False) for m in (16, 1)] + [
+        (small, False, m, m == 16 and own) for m in (16, 1, 5, 17)
+        for own in (False, True) if m == 16 or not own]
+    for Xs, full, m, own in cases:
         n, p = Xs.shape
         cn = torch.linalg.vector_norm(Xs, dim=0)
-        for m in (16, 1):
-            Th = (torch.randn(m, n, generator=g, dtype=torch.float64)
-                  / (10 * n ** 0.5)).to(dev)
-            act = (torch.rand(m, p, generator=g) < 0.05).to(dev)
-            r = torch.linspace(1e-3, 1e-2, m, dtype=torch.float64,
-                               device=dev)
-            exact = torch.abs(Th @ Xs)
-            free = ~act
-            h = 32
-            for mode, short in MIXED:
-                dt = getattr(torch, mode)
-                Xc, cn32, r32 = Xs.to(dt), cn.float(), r.float()
-                guard = 1.0 + 8.0 * 2.0 ** -24
-                gam = mixed_precision_gamma(n, dt, torch.float32)
-                bound = (gam * torch.linalg.vector_norm(Th, dim=1)[:, None]
-                         * cn[None, :])
-                # kernel against twin: the float32 sums' bound over the
-                # products of the rounded inputs (exact in float64)
-                u32 = unit_roundoff(torch.float32)
-                pair = (2 * dot_error_gamma(n, u32)
-                        * (Th.to(dt).double().abs() @ Xc.double().abs()))
-                if m > 1:
-                    def call(Xc=Xc, Th=Th, cn32=cn32, act=act, r32=r32,
-                             mode=mode, guard=guard):
-                        return ops.screen_fused_batch(
-                            Xc, Th, cn32, act, r32, h=h, in_dtype=mode,
-                            guard=guard)
-                else:
-                    def call(Xc=Xc, Th=Th, cn32=cn32, act=act, r32=r32,
-                             mode=mode, guard=guard):
-                        return tuple(t[None] for t in ops.screen_fused(
-                            Xc, Th[0], cn32, act[0], r32[0], h=h,
-                            in_dtype=mode, guard=guard))
-
-                def twin(Xc=Xc, Th=Th, cn32=cn32, act=act, r32=r32, dt=dt,
-                         guard=guard):
-                    return ops.screen_fused_batch_ref(
-                        Xc.float(), Th.to(dt).float(), cn32, act, r32, h=h,
+        if own:             # per-problem norms, as a weighted fleet has
+            cn = cn * torch.linspace(0.5, 1.5, m, dtype=torch.float64,
+                                     device=dev)[:, None]
+        Th = (torch.randn(m, n, generator=g, dtype=torch.float64)
+              / (10 * n ** 0.5)).to(dev)
+        act = (torch.rand(m, p, generator=g) < 0.05).to(dev)
+        r = torch.linspace(1e-3, 1e-2, m, dtype=torch.float64,
+                           device=dev)
+        exact = torch.abs(Th @ Xs)
+        free = ~act
+        h = 32
+        for mode, short in MIXED:
+            dt = getattr(torch, mode)
+            Xc, cn32, r32 = scan_input(Xs, dt), cn.float(), r.float()
+            guard = 1.0 + 8.0 * u32
+            route = "wgmma" if dt == torch.bfloat16 else "fma"
+            gam = scan_gamma(n, dt, dev)
+            u_route = scan_unit_roundoff(dt, dev)
+            bound = (gam * torch.linalg.vector_norm(Th, dim=1)[:, None]
+                     * (cn if own else cn[None, :]))
+            # kernel against twin: both sums' bounds over the products
+            # of the rounded inputs (exact in float64)
+            pair = ((dot_error_gamma(n, u32)
+                     + dot_error_gamma(n, u_route))
+                    * (Th.to(dt).double().abs() @ Xc.double().abs()))
+            if m > 1:
+                def call(Xc=Xc, Th=Th, cn32=cn32, act=act, r32=r32,
+                         mode=mode, guard=guard):
+                    return ops.screen_fused_batch(
+                        Xc, Th, cn32, act, r32, h=h, in_dtype=mode,
                         guard=guard)
-                out, ref = call(), twin()
-                d_exact = ((out[0].double() - exact).abs() - bound)[free]
-                d_twin = ((out[0] - ref[0]).abs().double() - pair)[free]
-                ub_slack = ((out[1] - ref[1]).abs().double() - guard * pair
-                            - 8 * u32 * ref[1].abs().double())[free]
-                err = float((out[0] - ref[0]).abs()[free].max())
-                err_share = float(((out[0] - ref[0]).abs().double()
-                                   / pair.clamp(min=1e-300))[free].max())
-                # tile winners: the twin's sorted tops, decided where they
-                # stand clear of both neighbours
-                ts = ref[3].double()
-                tol = pair.max(dim=1).values[:, None, None]
-                inf = torch.full_like(ts[..., :1], float("inf"))
-                dif = torch.cat([inf, ts], -1) - torch.cat([ts, -inf], -1)
-                clear = ((dif[..., :-1].abs() > tol)
-                         & (dif[..., 1:].abs() > tol) & torch.isfinite(ts))
-                ids_ok = bool((out[4][clear] == ref[4][clear]).all())
-                ok = (float(d_exact.max()) <= 0 and float(d_twin.max()) <= 0
-                      and float(ub_slack.max()) <= 0 and ids_ok)
-                kname = "screen_fused_batch" if m > 1 else "screen_fused"
-                line = (f"[kernel {kname} {short}] n={n} p={p} m={m} "
-                        f"gamma={gam:.3e} max_abs_err_vs_twin={err:.3e} "
-                        f"score_vs_f64_slack={float(d_exact.max()):.3e} "
-                        f"score_vs_twin_slack={float(d_twin.max()):.3e} "
-                        f"err_over_twin_bound={err_share:.3e} "
-                        f"ub_slack={float(ub_slack.max()):.3e} "
-                        f"ids_ok={ids_ok} (decided {int(clear.sum())} of "
-                        f"{int(torch.isfinite(ts).sum())})")
-                if full:
-                    isz = torch.finfo(dt).bits // 8
-                    ms, call_ms = kernel_ms(call, 20, "screen_fused_kernel")
-                    plain = time_ms(twin, 3)
-                    Thc = Th.to(dt)
-                    lib = time_ms(lambda: torch.abs(Thc @ Xc), 20)
-                    pb = -(-p // 256)
-                    bnd, by = bound_ms(
-                        n * p * isz + m * n * 4 + p * 4 + m * p + 4
-                        + 3 * m * p * 4 + m * pb * 32 * 8 + m * pb * 4,
-                        2 * m * n * p, "float32")
-                    line += (f" ms={ms:.4f} call_ms={call_ms:.4f} "
-                             f"plain_ms={plain:.4f} library_ms(abs(Theta_"
-                             f"{short} @ X_{short}), cuBLAS, {short} out)="
-                             f"{lib:.4f} bound_ms={bnd:.4f} ({by})")
-                    rec = dict(max_abs_err=err, ms=ms, call_ms=call_ms,
-                               plain_ms=plain, bound_ms=bnd, bound_by=by,
-                               library_ms=lib)
-                    if m > 1:
-                        records[f"screen_fused_batch_{short}"].update(rec)
-                    else:
-                        k1_rows.append({"in_dtype": mode, **rec})
-                print(line, flush=True)
-                if not ok:
-                    raise RuntimeError(f"{kname} {mode}: outside the "
-                                       f"certified bound of the twin")
+            else:
+                def call(Xc=Xc, Th=Th, cn32=cn32, act=act, r32=r32,
+                         mode=mode, guard=guard):
+                    return tuple(t[None] for t in ops.screen_fused(
+                        Xc, Th[0], cn32, act[0], r32[0], h=h,
+                        in_dtype=mode, guard=guard))
+
+            def twin(Xc=Xc, Th=Th, cn32=cn32, act=act, r32=r32, dt=dt,
+                     guard=guard):
+                return ops.screen_fused_batch_ref(
+                    Xc.float(), Th.to(dt).float(), cn32, act, r32, h=h,
+                    guard=guard)
+            out, ref = call(), twin()
+            d_exact = ((out[0].double() - exact).abs() - bound)[free]
+            d_twin = ((out[0] - ref[0]).abs().double() - pair)[free]
+            ub_slack = ((out[1] - ref[1]).abs().double() - guard * pair
+                        - 8 * u32 * ref[1].abs().double())[free]
+            err = float((out[0] - ref[0]).abs()[free].max())
+            err_share = float(((out[0] - ref[0]).abs().double()
+                               / pair.clamp(min=1e-300))[free].max())
+            # tile winners: the twin's sorted tops, decided where they
+            # stand clear of both neighbours
+            ts = ref[3].double()
+            tol = pair.max(dim=1).values[:, None, None]
+            inf = torch.full_like(ts[..., :1], float("inf"))
+            dif = torch.cat([inf, ts], -1) - torch.cat([ts, -inf], -1)
+            clear = ((dif[..., :-1].abs() > tol)
+                     & (dif[..., 1:].abs() > tol) & torch.isfinite(ts))
+            ids_ok = bool((out[4][clear] == ref[4][clear]).all())
+            ok = (float(d_exact.max()) <= 0 and float(d_twin.max()) <= 0
+                  and float(ub_slack.max()) <= 0 and ids_ok)
+            kname = "screen_fused_batch" if m > 1 else "screen_fused"
+            line = (f"[kernel {kname} {short}] route={route} n={n} p={p}"
+                    f" m={m}{' norms=per-problem' if own else ''} "
+                    f"gamma={gam:.3e} u_sums={u_route:.3e} "
+                    f"max_abs_err_vs_twin={err:.3e} "
+                    f"score_vs_f64_slack={float(d_exact.max()):.3e} "
+                    f"score_vs_twin_slack={float(d_twin.max()):.3e} "
+                    f"err_over_twin_bound={err_share:.3e} "
+                    f"ub_slack={float(ub_slack.max()):.3e} "
+                    f"ids_ok={ids_ok} (decided {int(clear.sum())} of "
+                    f"{int(torch.isfinite(ts).sum())})")
+            if full:
+                isz = torch.finfo(dt).bits // 8
+                ms, call_ms = kernel_ms(
+                    call, 20, "screen_tc_kernel" if route == "wgmma"
+                    else "screen_fused_kernel")
+                plain = time_ms(twin, 3)
+                Thc = Th.to(dt)
+                lib = time_ms(lambda: torch.abs(Thc @ Xc), 20)
+                pb = -(-p // 256)
+                bnd, by = bound_ms(
+                    n * p * isz + m * n * isz + p * 4 + m * p + 4 * m
+                    + 3 * m * p * 4 + m * pb * h * 8 + m * pb * 4,
+                    2 * m * n * p, mode)
+                line += (f" ms={ms:.4f} call_ms={call_ms:.4f} "
+                         f"plain_ms={plain:.4f} library_ms(abs(Theta_"
+                         f"{short} @ X_{short}), cuBLAS, {short} out)="
+                         f"{lib:.4f} bound_ms={bnd:.4f} ({by})")
+                rec = dict(max_abs_err=err, ms=ms, call_ms=call_ms,
+                           plain_ms=plain, bound_ms=bnd, bound_by=by,
+                           library_ms=lib, err_over_twin_bound=err_share)
+                if m > 1:
+                    records[f"screen_fused_batch_{short}"].update(rec)
+                else:
+                    k1_rows.append({"in_dtype": mode, "route": route,
+                                    **rec})
+            print(line, flush=True)
+            if not ok:
+                raise RuntimeError(f"{kname} {mode} (m = {m}): outside "
+                                   f"the certified bounds")
     # K1's mixed mode is on no path (the serial engine has no screen
     # dtype): its numbers ride in K1's record
     records["screen_fused"]["mixed"] = k1_rows
@@ -2601,7 +2624,8 @@ def main() -> int:
         # K1b's mixed mode (the certified screen of parity="fast"), and K6b
         # sweeping the fast fleet's slot range in slot order
         **{f"screen_fused_batch_{short}": {
-            "name": f"screen_fused_batch ({mode} in, float32 sums)",
+            "name": f"screen_fused_batch ({mode} in, float32 sums; "
+                    f"{'wgmma' if short == 'bf16' else 'fma'})",
             "route": "cuda", "source": "src/repro_torch/csrc/screen.cu",
             "replaces": "src/repro/kernels/screen/screen.py:394 "
                         "(in_dtype/acc_dtype)"} for mode, short in MIXED},

@@ -243,13 +243,17 @@ def dot_error_gamma(n: int, u: float) -> float:
     return nu / (1.0 - nu)
 
 
-def mixed_precision_gamma(n: int, in_dtype, acc_dtype) -> float:
+def mixed_precision_gamma(n: int, in_dtype, acc_dtype,
+                          u_acc: float | None = None) -> float:
     """Forward-error factor of a dot with inputs rounded to ``in_dtype``
     and sums in ``acc_dtype``: |fl(x.y) - x.y| <= gamma_total ||x|| ||y||,
     gamma_total = (1 + u_in)^2 (1 + gamma_n(u_acc)) - 1 (a re-associated
-    working-precision contraction with in = acc)."""
+    working-precision contraction with in = acc). ``u_acc``: the sums' unit
+    roundoff where their adder is not ``acc_dtype``'s round-to-nearest (a
+    truncating one: 2 u)."""
     u_in = unit_roundoff(in_dtype)
-    u_acc = unit_roundoff(acc_dtype)
+    if u_acc is None:
+        u_acc = unit_roundoff(acc_dtype)
     return (1.0 + u_in) ** 2 * (1.0 + dot_error_gamma(n, u_acc)) - 1.0
 
 

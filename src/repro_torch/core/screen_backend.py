@@ -34,6 +34,7 @@ from repro_torch.core.screen_rule import (SCREEN_RULES,  # noqa: F401
                                           ScreenRule, resolve_screen_rule)
 from repro_torch.kernels.screen.ref import (ge_counts_from_hist,
                                             survivor_count)
+from repro_torch.kernels.screen.screen import TC_UNIT_ROUNDOFF, scan_input
 
 Tensor = torch.Tensor
 
@@ -286,6 +287,33 @@ def make_batch_screen_cuda(X: Tensor, col_norm: Tensor,
     return screen
 
 
+def scan_unit_roundoff(in_dtype, device, plain: bool = False) -> float:
+    """The unit roundoff of the screen scan's sums on the route that runs
+    them, for X and theta rounded to ``in_dtype`` (a torch dtype or its
+    name) and summed in float32 or the input type, the wider. The card's
+    bf16 route (K1/K1b's tensor-core scan, unless ``plain``) is certified
+    as a truncating float32 adder, 2^-23; every other route (the CPU, the
+    plain versions, the float32-input and working modes' fma chains) rounds
+    to nearest: the sums' type's u, the reference's."""
+    if isinstance(in_dtype, str):
+        in_dtype = getattr(torch, in_dtype)
+    if (in_dtype == torch.bfloat16 and torch.device(device).type == "cuda"
+            and not plain):
+        return TC_UNIT_ROUNDOFF
+    return unit_roundoff(torch.promote_types(torch.float32, in_dtype))
+
+
+def scan_gamma(n: int, in_dtype, device, plain: bool = False) -> float:
+    """gamma_total of the screen scan's dot on its route
+    (:func:`scan_unit_roundoff`): the reference's ``mixed_precision_gamma``
+    bit for bit wherever the sums round to nearest."""
+    if isinstance(in_dtype, str):
+        in_dtype = getattr(torch, in_dtype)
+    return mixed_precision_gamma(
+        n, in_dtype, torch.promote_types(torch.float32, in_dtype),
+        u_acc=scan_unit_roundoff(in_dtype, device, plain))
+
+
 def make_batch_screen_fast(X: Tensor, col_norm: Tensor, h: int,
                            screen_dtype: str = "working",
                            plain: bool = False):
@@ -297,12 +325,12 @@ def make_batch_screen_fast(X: Tensor, col_norm: Tensor, h: int,
     dtype. Every row is scanned once with X and theta rounded to
     ``screen_dtype`` ("working" | "float32" | "bfloat16") and summed in
     float32 (working: in X's dtype). Safety: the radius is widened by the
-    certified bound gamma_total ||theta|| of that dot
-    (:func:`~repro_torch.core.duality.widened_radius`) before any bound is
-    formed, and ub by the scalar guard (1 + 8 u_acc) that covers the
-    bound pipeline's own roundings, so a feature this screen rules out the
-    exact screen rules out too. Candidate selection is heuristic-grade and
-    runs on the low-precision scores.
+    certified bound gamma_total ||theta|| of that dot on its route
+    (:func:`scan_gamma`; :func:`~repro_torch.core.duality.widened_radius`)
+    before any bound is formed, and ub by the scalar guard (1 + 8 u_acc)
+    that covers the bound pipeline's own roundings, so a feature this
+    screen rules out the exact screen rules out too. Candidate selection
+    is heuristic-grade and runs on the low-precision scores.
 
     A low-precision pass can leave a row's ADD stop undecidable: its ub
     refuses max ub < 1 while the anti-conservative bound, (1 - 8 u_acc)
@@ -312,7 +340,8 @@ def make_batch_screen_fast(X: Tensor, col_norm: Tensor, h: int,
     cheap pass, cast to the working dtype.
 
     On a card the pass is K1b in its mixed mode over X cast once here
-    (working mode: K1b on X itself), the guard in K1b's epilogue, then
+    (bf16: the tensor-core scan, certified with a truncating float32 adder;
+    working mode: K1b on X itself), the guard in K1b's epilogue, then
     the tile merge and K2b's tail in float32; an escalation runs K1b and
     K2b in working precision on the undecidable rows only (its selection
     in working precision too, which the contract allows). On the CPU the
@@ -326,15 +355,16 @@ def make_batch_screen_fast(X: Tensor, col_norm: Tensor, h: int,
     low = screen_dtype != "working"
     in_dt = getattr(torch, screen_dtype) if low else work
     acc = torch.promote_types(torch.float32, in_dt) if low else work
-    gamma = mixed_precision_gamma(n, in_dt, acc)
-    gamma_work = mixed_precision_gamma(n, work, work)
-    u_acc = unit_roundoff(acc)
-    one_plus, one_minus = 1.0 + 8.0 * u_acc, 1.0 - 8.0 * u_acc
-    # cast once: the design in the input type (freed with the screen; the
-    # plain path holds its values in the sums' type), the norms in the sums'
-    # type
     plain = plain or X.device.type == "cpu"
-    Xc = X.to(in_dt).to(acc) if low and plain else X.to(in_dt) if low else X
+    gamma = scan_gamma(n, in_dt, X.device, plain)
+    gamma_work = mixed_precision_gamma(n, work, work)
+    u_acc = unit_roundoff(acc)       # the epilogue's roundings: to nearest
+    one_plus, one_minus = 1.0 + 8.0 * u_acc, 1.0 - 8.0 * u_acc
+    # cast once: the design in the input type and its kernel's layout (freed
+    # with the screen; the plain path holds its values in the sums' type),
+    # the norms in the sums' type
+    Xc = (X.to(in_dt).to(acc) if low and plain else
+          scan_input(X, in_dt) if low else X)
     cn = col_norm.to(acc)
     mode = {"in_dtype": in_dt, "guard": one_plus} if low else {
         "guard": one_plus}

@@ -12,14 +12,15 @@
 //    the order of a stable descending sort of (score, lane), and its max ub.
 //    K1 is the BB = 1 instance of one template, K1b the BB = 16 instance.
 //    The mixed mode (the Pallas kernels' in_dtype / acc_dtype, the certified
-//    mixed-precision screen of parity="fast") is the instance TI = bf16 (or
-//    float, X cast by the caller), TA = float: X is read in TI and each
-//    element is widened to TA before its fma; Theta arrives in TA holding
-//    values the caller rounded to TI, so every product is exact in float
-//    and only the row-order float sum rounds. col_norm, r, the outputs and
-//    the epilogue are in TA; ub (and the tile max) is multiplied by the
-//    caller's `guard` (1 + 8 u_acc; 1 leaves the working mode's bits).
-//    Bound in that mode: n*p*sizeof(TI) bytes a chunk.
+//    mixed-precision screen of parity="fast") with a float32 input is the
+//    float instance on X cast by the caller: Theta arrives holding values
+//    the caller rounded to float32, so every product is exact and only the
+//    row-order float sum rounds. With a bf16 input it is the tensor-core
+//    scan below (screen_tc_kernel). The template still takes a bf16 X (TI =
+//    bf16, each element widened to T before its fma): only
+//    scripts/screen_variants_torch.py instantiates it, as a timing variant.
+//    In the mixed mode ub (and the tile max) is multiplied by the caller's
+//    `guard` (1 + 8 u_acc; 1 leaves the working mode's bits).
 //    Bound on this card: bytes, X read once per chunk of BB = 16 problems,
 //    n*p*itemsize at 3.35 TB/s. The 2*n*p*16 flops of a chunk fit in under
 //    half that time on the f64 CUDA cores; a tensor-core product would not
@@ -46,6 +47,57 @@
 //      over the CTA's warps, and the tile's max ub is a warp reduction. The
 //      Pallas kernel's h_tile rounds of argmax were cheap on a TPU's
 //      sequential grid; on this card each round cost two block barriers.
+//
+// K1 / K1b in the bf16 mixed mode — screen_tc_kernel, the same outputs,
+//    argument order and output shapes as the instances above, for the
+//    Pallas kernels' in_dtype = bf16 (repro/kernels/screen/screen.py:246
+//    _screen_dtypes: X and Theta tiles cast to bf16, the MXU accumulating
+//    bf16 x bf16 in f32). Every bf16 x bf16 product is exact in float32,
+//    so only the accumulation rounds, and the mode is checked against its
+//    twin within the sums' bound, not bit for bit: the tensor cores may
+//    take it. Bound on this card: bytes, X in bf16 read once per chunk of
+//    up to 16 problems (n*p*2 bytes, 0.060 ms at the smoke's n = 1000, p =
+//    100,000), against 2*16*n*p flops that take about 3 us at 989 TFLOP/s.
+//    The float32-input mode stays on the fma instance: TF32 would round
+//    X's float32 values, and the mode's premise is exact products.
+//    Design, against that bound:
+//    - the product, transposed so that the MMA's M comes from the columns:
+//      D (256 columns x N problems) = A (256 x k) * B (k x N), A = X's tile
+//      (rows k, columns M, stored columns-contiguous: wgmma's transposed,
+//      MN-major A), B = the chunk's Theta rows (K-major, its (m, n)
+//      row-major layout). A work item is one tile of BP = 256 columns and
+//      one chunk of N = 8 (m <= 8; K1 is m = 1) or 16 problems; one
+//      warpgroup issues its m64nNk16 wgmmas, four 64-column quarters a
+//      k16 step;
+//    - the stream: one producer thread feeds a ring of STAGES stages in
+//      shared memory with TMA (full/empty mbarrier pairs); a stage is 64
+//      rows of X as four 64 x 64 boxes (128-byte swizzle, so a box row is
+//      at most 128 bytes) and the chunk's 64 Theta values a problem. The
+//      CTAs are persistent over the (tile, chunk) items in K1b's order,
+//      and 16 further warps run each item's epilogue from a double buffer
+//      while the wgmmas and the loads go on with the next item (the
+//      epilogue, its warp sorts above all, took as long as an item's
+//      loads when the wgmma warps ran it themselves). TMA zero-fills
+//      rows past n and problems past m (a zero product adds an exact zero),
+//      so a ragged n or m needs no special path; boxes wholly past p are
+//      not loaded, and their lanes are masked. X's and Theta's row strides
+//      (ldx, ldt) are multiples of 8 elements, as TMA needs; the tensor
+//      maps are encoded on the host through cudaGetDriverEntryPoint (no
+//      libcuda link) and passed as __grid_constant__ arguments;
+//    - the sums: each 64-row stage is one chain of four wgmmas from zero,
+//      added into registers with __fadd_rn. NVIDIA does not document the
+//      rounding of wgmma's float32 accumulation (studies of earlier tensor
+//      cores found aligned significands and truncated adds), so this route
+//      certifies its sums with the unit roundoff 2^-23 of a truncating
+//      float32 adder (core/screen_backend.py scan_unit_roundoff); the
+//      __fadd_rn adds only tighten the true error;
+//    - the epilogue: each accumulator's |sum| goes to shared memory in the
+//      per-problem layout tile_top reads, then the masked epilogue above
+//      (rounded bounds, the guard, the stores, per-warp ub maxima, one
+//      warp's bitonic sort per problem), a thread one column for half of
+//      the chunk's problems.
+//    A refused launch or tensor-map encode returns an error, never falls
+//    back.
 //
 // K2 ub_histogram / screen_tail — replaces repro/kernels/screen/screen.py:512
 //    ub_histogram_pallas and the code around it in one screen
@@ -84,10 +136,12 @@
 //    K2b is the same kernel over m problems (ub (m, p); col_norm shared or
 //    per problem), one cluster each. Bound: m*p*itemsize bytes.
 #include <cooperative_groups.h>
+#include <cuda.h>              // CUtensorMap and its enums (no libcuda link)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -109,8 +163,11 @@ __device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(
 // both go through it, so their sums agree bit for bit.
 __device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
 __device__ __forceinline__ double fma_rn(double a, double b, double c) { return __fma_rn(a, b, c); }
-// An X element in the accumulator's type (exact: bf16 -> float widens).
-__device__ __forceinline__ float to_acc(__nv_bfloat16 v) { return __bfloat162float(v); }
+// An X element in the accumulator's type (exact: bf16 -> float widens; the
+// bf16 overload serves only the fma timing variant of the bf16 mode).
+[[maybe_unused]] __device__ __forceinline__ float to_acc(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
 __device__ __forceinline__ float to_acc(float v) { return v; }
 __device__ __forceinline__ double to_acc(double v) { return v; }
 
@@ -480,6 +537,360 @@ screen_fused_kernel(const TI* __restrict__ X, const T* __restrict__ Theta,
 }
 
 // ---------------------------------------------------------------------------
+// K1 / K1b in the bf16 mixed mode: the tensor-core scan
+// ---------------------------------------------------------------------------
+constexpr int TC_KB = 64;                  // rows of X a stage
+constexpr int TC_BOX = 64;                 // columns of a TMA box (128 bytes)
+constexpr int TC_BOX_BYTES = TC_KB * TC_BOX * 2;
+constexpr int TC_QUARTERS = BP / TC_BOX;   // m64 tiles of a tile, one a box
+constexpr int TC_MMA = 128;                // warps 0-3: the wgmma warpgroup
+constexpr int TC_EPI = 512;                // warps 4-19: the epilogue
+constexpr int TC_EWARPS = TC_EPI / 32;
+constexpr int TC_THREADS = TC_MMA + TC_EPI + 32;   // + the producer warp
+constexpr int TC_UWARPS = BP / 32;         // warps whose ub maxima a row has
+// a problem's row of |sums| in shared memory: tile_top's padded layout,
+// rows 4 floats (mod 32 banks) apart so that a fragment's stores of four
+// problems x eight lanes hit 32 banks
+constexpr int TC_KS = BP + BP / SORT_PER_LANE + 4;
+constexpr int TC_SMEM_MAX = 227 * 1024;    // a CTA's most on this card
+constexpr int TC_MAX_STAGES = 16;
+// a failed cuTensorMapEncodeTiled returns TC_ENCODE_ERROR + its CUresult
+constexpr int TC_ENCODE_ERROR = 100000;
+
+// Geometry of the instance with chunks of N problems (the MMA's N): a
+// stage holds 64 rows of X's tile (4 boxes) and of the chunk's Theta, the
+// ring as many stages as one CTA's shared memory allows beside two buffers
+// of the epilogue's N rows of |sums| and per-warp maxima and the barriers
+// (1 KB spare aligns the ring to the swizzle's 1024 bytes).
+template <int N>
+struct TcScan {
+  static constexpr size_t X_STAGE = (size_t)TC_QUARTERS * TC_BOX_BYTES;
+  static constexpr size_t TH_STAGE = (size_t)N * TC_KB * 2;
+  static constexpr size_t STAGE = X_STAGE + TH_STAGE;
+  static constexpr int EPI_FLOATS = N * (TC_KS + TC_UWARPS);  // a buffer's
+  static constexpr size_t EPI = 2 * (size_t)EPI_FLOATS * 4;
+  static constexpr size_t BARS = (2 * TC_MAX_STAGES + 4) * 8;
+  static constexpr size_t FIT = (TC_SMEM_MAX - 1024 - EPI - BARS) / STAGE;
+  static constexpr int STAGES =
+      (int)(FIT < TC_MAX_STAGES ? FIT : TC_MAX_STAGES);
+  static constexpr size_t SMEM = 1024 + STAGES * STAGE + EPI + BARS;
+  static_assert(STAGE % 1024 == 0, "stages keep the swizzle's alignment");
+  static_assert(STAGES >= 2, "a ring needs stages in flight");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+// wait until the phase of parity `parity` of the barrier has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// TMA: the box at (c0, c1) (innermost first) of `map` into dst, counted
+// on `bar`'s transaction bytes
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+// the epilogue's 512 threads meet (named barrier 1)
+__device__ __forceinline__ void epi_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(TC_EPI) : "memory");
+}
+
+// wgmma's shared-memory matrix descriptor of a 128-byte-swizzled operand at
+// shared address a: start, leading and stride byte offsets in 16-byte
+// units, layout 1 (SWIZZLE_128B) in bits 62-63. Both offsets are 1024
+// bytes: the stride between groups of 8 swizzled 128-byte rows (K for the
+// MN-major A, N for the K-major B); the other offset is not read at these
+// shapes (A's 64 columns and B's 64 k-values are each one swizzle row).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t a) {
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16)
+         | ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving accumulator accesses across the wgmmas
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 x N, float32, in registers) += A (64 x 16, bf16, MN-major) * B
+// (16 x N, bf16, K-major), both from shared memory (imm-trans-a = 1)
+template <int N>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t a,
+                                           uint64_t b);
+template <>
+__device__ __forceinline__ void wgmma_bf16<8>(float (&d)[4], uint64_t a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_bf16<16>(float (&d)[8], uint64_t a,
+                                               uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// Persistent, work items as in screen_fused_kernel (item = tile * chunks +
+// chunk, CTA c takes c, c + gridDim.x, ...), chunks of N problems. Three
+// roles run side by side: warp 20 (one thread) loads the stages; warps 0-3,
+// one warpgroup, issue the wgmmas of every stage and write each item's
+// |sums| into one of two epilogue buffers (mbarriers kfull / kempty); warps
+// 4-19 run each item's epilogue from its buffer (the column pass, then one
+// warp's sort a problem) while the wgmmas go on with the next item. The
+// epilogue's loads of the norms and the mask are issued before its buffer
+// is full, so their latency hides behind the wgmmas too.
+//
+// The accumulator fragment of m64nNk16 (float32): thread l of warp wq of
+// the warpgroup holds, in register v of quarter i (columns i * 64 ..),
+// column lane  i * 64 + 16 wq + l / 4 + 8 ((v / 2) % 2)  of the tile and
+// problem q = 8 (v / 4) + 2 (l % 4) + v % 2 of the chunk.
+template <int N>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+screen_tc_kernel(const __grid_constant__ CUtensorMap tmx,
+                 const __grid_constant__ CUtensorMap tmt,
+                 const float* __restrict__ col_norm, int cn_stride,
+                 const uint8_t* __restrict__ active,
+                 const float* __restrict__ r, int m, int n, int p,
+                 int h_tile, int masked, float guard,
+                 float* __restrict__ score, float* __restrict__ ub,
+                 float* __restrict__ lb, float* __restrict__ tops,
+                 int* __restrict__ topi, float* __restrict__ tmax) {
+  using S = TcScan<N>;
+  constexpr int STAGES = S::STAGES, R = N / 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  float* epi = reinterpret_cast<float*>(smem + STAGES * S::STAGE);
+  uint64_t* full = reinterpret_cast<uint64_t*>(epi + 2 * S::EPI_FLOATS);
+  uint64_t* empty = full + TC_MAX_STAGES;
+  uint64_t* kfull = empty + TC_MAX_STAGES;   // [b]: buffer b holds |sums|
+  uint64_t* kempty = kfull + 2;              // [b]: buffer b is free
+
+  const int t = threadIdx.x, w = t >> 5, wl = t & 31;
+  const int p_blocks = (p + BP - 1) / BP, chunks = (m + N - 1) / N;
+  const int items = p_blocks * chunks;
+  const int kblocks = (n + TC_KB - 1) / TC_KB;
+  if (t == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], TC_MMA / 32);
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&kfull[b], TC_MMA / 32);
+      mbar_init(&kempty[b], TC_EWARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (w == (TC_MMA + TC_EPI) / 32) {    // the producer: one thread
+    if (wl == 0) {
+      int s = 0;
+      uint32_t ph = 0;
+      for (int item = blockIdx.x; item < items; item += gridDim.x) {
+        const int tile = item / chunks, chunk = item % chunks;
+        const int boxes =
+            min(TC_QUARTERS, (p - tile * BP + TC_BOX - 1) / TC_BOX);
+        const uint32_t bytes = boxes * TC_BOX_BYTES + (uint32_t)S::TH_STAGE;
+        for (int kb = 0; kb < kblocks; ++kb) {
+          mbar_wait(&empty[s], ph ^ 1);   // the first round passes at once
+          mbar_expect_tx(&full[s], bytes);
+          unsigned char* st = smem + s * S::STAGE;
+          for (int i = 0; i < boxes; ++i)
+            tma_load(st + i * TC_BOX_BYTES, &tmx, tile * BP + i * TC_BOX,
+                     kb * TC_KB, &full[s]);
+          tma_load(st + S::X_STAGE, &tmt, kb * TC_KB, chunk * N, &full[s]);
+          if (++s == STAGES) {
+            s = 0;
+            ph ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  if (w < TC_MMA / 32) {                // the wgmma warpgroup
+    int s = 0;
+    uint32_t ph = 0;
+    for (int it = 0;; ++it) {
+      if (blockIdx.x + it * gridDim.x >= items) break;
+      float sum[TC_QUARTERS][R];
+#pragma unroll
+      for (int i = 0; i < TC_QUARTERS; ++i)
+#pragma unroll
+        for (int v = 0; v < R; ++v) sum[i][v] = 0.f;
+      for (int kb = 0; kb < kblocks; ++kb) {
+        mbar_wait(&full[s], ph);
+        const uint32_t st = smem_u32(smem + s * S::STAGE);
+        float d[TC_QUARTERS][R];
+#pragma unroll
+        for (int i = 0; i < TC_QUARTERS; ++i) {
+#pragma unroll
+          for (int v = 0; v < R; ++v) d[i][v] = 0.f;
+          fence_regs(d[i]);
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < TC_KB / 16; ++j) {
+          // k16 step j: A 16 rows (two groups of 8 swizzled rows) further,
+          // B 16 k-values (32 bytes) further along its swizzled rows
+          const uint64_t db =
+              sw128_desc(st + (uint32_t)S::X_STAGE + 32 * j);
+#pragma unroll
+          for (int i = 0; i < TC_QUARTERS; ++i)
+            wgmma_bf16<N>(d[i], sw128_desc(st + i * TC_BOX_BYTES
+                                           + j * 16 * 128), db);
+        }
+        wgmma_commit_wait();
+#pragma unroll
+        for (int i = 0; i < TC_QUARTERS; ++i) fence_regs(d[i]);
+        __syncwarp();
+        if (wl == 0) mbar_arrive(&empty[s]);
+#pragma unroll
+        for (int i = 0; i < TC_QUARTERS; ++i)
+#pragma unroll
+          for (int v = 0; v < R; ++v)
+            sum[i][v] = __fadd_rn(sum[i][v], d[i][v]);
+        if (++s == STAGES) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
+      // |sums| into buffer it % 2 once the epilogue has freed it (its use
+      // it / 2 - 1)
+      const int b = it & 1, u = it >> 1;
+      if (u > 0) mbar_wait(&kempty[b], (uint32_t)(u - 1) & 1);
+      float* key_s = epi + b * S::EPI_FLOATS;
+#pragma unroll
+      for (int i = 0; i < TC_QUARTERS; ++i)
+#pragma unroll
+        for (int v = 0; v < R; ++v) {
+          const int lane = i * TC_BOX + 16 * w + (wl >> 2)
+                           + 8 * ((v >> 1) & 1);
+          const int q = 8 * (v >> 2) + 2 * (wl & 3) + (v & 1);
+          key_s[q * TC_KS + lane + lane / SORT_PER_LANE] = fabsf(sum[i][v]);
+        }
+      __syncwarp();
+      if (wl == 0) mbar_arrive(&kfull[b]);
+    }
+    return;
+  }
+
+  // the epilogue: thread e owns column lane c of the tile for the chunk's
+  // problems of parity half; warp ew sorts problems ew, ew + 16, ...
+  const int e = t - TC_MMA, ew = e >> 5, c = e % BP, half = e / BP;
+  constexpr int QH = N / 2;             // problems of a parity
+  for (int it = 0;; ++it) {
+    const int item = blockIdx.x + it * gridDim.x;
+    if (item >= items) break;
+    const int tile = item / chunks, q0 = (item % chunks) * N;
+    const int nb = min(N, m - q0), col = tile * BP + c;
+    float nr[QH];
+    bool act[QH];
+#pragma unroll
+    for (int j = 0; j < QH; ++j) {
+      const int q = 2 * j + half, b = q0 + q;
+      const bool in = col < p && q < nb;
+      nr[j] = in ? mul_rn(col_norm[(size_t)b * cn_stride + col], r[b]) : 0.f;
+      act[j] = !in || (masked && active[(size_t)b * p + col] != 0);
+    }
+    const int b = it & 1;
+    mbar_wait(&kfull[b], (uint32_t)(it >> 1) & 1);
+    float* key_s = epi + b * S::EPI_FLOATS;
+    float* umax_s = key_s + N * TC_KS;
+#pragma unroll
+    for (int j = 0; j < QH; ++j) {
+      const int q = 2 * j + half;
+      if (q >= nb) break;
+      const size_t at = (size_t)(q0 + q) * p + col;
+      float* ks = key_s + q * TC_KS + c + c / SORT_PER_LANE;
+      const float sc = *ks;
+      if (!masked) {
+        if (col < p) {
+          score[at] = sc;
+          ub[at] = add_rn(sc, nr[j]);
+          lb[at] = fabsf(sub_rn(sc, nr[j]));
+        }
+        continue;
+      }
+      const float ms = act[j] ? -pos_inf<float>() : sc;
+      float u = add_rn(ms, nr[j]);
+      if (guard != 1.f) u = mul_rn(u, guard);
+      if (col < p) {
+        score[at] = ms;
+        ub[at] = u;
+        lb[at] = fabsf(sub_rn(ms, nr[j]));
+      }
+      *ks = ms;
+      float mx = fmaxf(-pos_inf<float>(), u);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      if (wl == 0) umax_s[q * TC_UWARPS + (c >> 5)] = mx;
+    }
+    if (masked) {
+      epi_sync();
+      for (int q = ew; q < nb; q += TC_EWARPS) {
+        const size_t tb = (size_t)(q0 + q) * p_blocks + tile;
+        tile_top(key_s + q * TC_KS, umax_s + q * TC_UWARPS, TC_UWARPS, wl,
+                 h_tile, tile * BP, tops + tb * h_tile, topi + tb * h_tile,
+                 tmax + tb);
+      }
+    }
+    __syncwarp();
+    if (wl == 0) mbar_arrive(&kempty[b]);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // K2: the screen's tail
 // ---------------------------------------------------------------------------
 constexpr int TAIL_THREADS = 512;
@@ -780,6 +1191,94 @@ int launch_screen(const void* X, const void* Theta, const void* col_norm,
   return (int)cudaGetLastError();
 }
 
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, looked up through the runtime (no link)
+cudaError_t encoder(EncodeTiledFn* fn) {
+  static EncodeTiledFn cached = nullptr;
+  if (cached == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
+                                            cudaEnableDefault, &q);
+#endif
+    if (e != cudaSuccess) return e;
+    if (q != cudaDriverEntryPointSuccess || f == nullptr)
+      return cudaErrorSymbolNotFound;
+    cached = reinterpret_cast<EncodeTiledFn>(f);
+  }
+  *fn = cached;
+  return cudaSuccess;
+}
+
+// The tensor map of a row-major bf16 matrix (rows, cols) with row stride
+// ld elements, read in boxes of 64 columns (128 bytes, swizzled) x
+// box_rows rows; out-of-range elements read as zeros.
+int encode_bf16(EncodeTiledFn enc, CUtensorMap* map, const void* base,
+                int rows, int cols, int ld, int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)TC_BOX, (cuuint32_t)box_rows};
+  const cuuint32_t estr[2] = {1, 1};
+  const CUresult res = enc(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+      dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : TC_ENCODE_ERROR + (int)res;
+}
+
+// K1 / K1b's bf16 mode: chunks of N = 8 problems while m <= 8, else 16
+template <int N>
+int launch_tc(const void* X, int ldx, const void* Theta, int ldt,
+              const void* col_norm, int cn_stride, const void* active,
+              const void* r, int m, int n, int p, int h_tile, int masked,
+              float guard, void* score, void* ub, void* lb, void* tops,
+              void* topi, void* tmax, void* stream) {
+  using S = TcScan<N>;
+  const int items = ((p + BP - 1) / BP) * ((m + N - 1) / N);
+  if (items == 0) return (int)cudaSuccess;
+  CUtensorMap tmx, tmt;
+  memset(&tmx, 0, sizeof tmx);
+  memset(&tmt, 0, sizeof tmt);
+  if (n > 0) {                          // n = 0: no stage is loaded
+    EncodeTiledFn enc;
+    cudaError_t e = encoder(&enc);
+    if (e != cudaSuccess) return (int)e;
+    int rc = encode_bf16(enc, &tmx, X, n, p, ldx, TC_KB);
+    if (rc != 0) return rc;
+    rc = encode_bf16(enc, &tmt, Theta, m, n, ldt, N);
+    if (rc != 0) return rc;
+  }
+  cudaError_t e = cudaFuncSetAttribute(
+      screen_tc_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)S::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, screen_tc_kernel<N>, TC_THREADS, S::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int grid = items < sms * per_sm ? items : sms * per_sm;
+  screen_tc_kernel<N><<<grid, TC_THREADS, S::SMEM, (cudaStream_t)stream>>>(
+      tmx, tmt, (const float*)col_norm, cn_stride, (const uint8_t*)active,
+      (const float*)r, m, n, p, h_tile, masked, guard, (float*)score,
+      (float*)ub, (float*)lb, (float*)tops, (int*)topi, (float*)tmax);
+  return (int)cudaGetLastError();
+}
+
 // The tail kernel over m problems, one cluster each: 16 CTAs (the
 // non-portable size) while the m clusters of 16 fit on the SMs at once,
 // else the portable 8 (16 of 16-CTA clusters ran in two waves).
@@ -833,8 +1332,8 @@ int launch_tail(const void* ub, int m, int p, int h, const void* lb_sorted,
 extern "C" {
 
 // K1 (BB = 1, m = 1) and K1b (BB = 16): the same kernel and arguments; X in
-// TI, everything else in T. The _bf16 entries are the mixed mode with bf16
-// X (the float mixed mode is the _f32 entry on an X cast to float).
+// TI, everything else in T (the float mixed mode is the _f32 entry on an X
+// cast to float).
 #define SCREEN_ENTRY(NAME, TI, T, BB)                                          \
   int NAME(const void* X, const void* Theta, const void* col_norm,            \
            int cn_stride, const void* active, const void* r, int m, int n,    \
@@ -847,10 +1346,27 @@ extern "C" {
 
 SCREEN_ENTRY(screen_fused_f32, float, float, 1)
 SCREEN_ENTRY(screen_fused_f64, double, double, 1)
-SCREEN_ENTRY(screen_fused_bf16, __nv_bfloat16, float, 1)
 SCREEN_ENTRY(screen_fused_batch_f32, float, float, 16)
 SCREEN_ENTRY(screen_fused_batch_f64, double, double, 16)
-SCREEN_ENTRY(screen_fused_batch_bf16, __nv_bfloat16, float, 16)
+
+// K1 and K1b in the bf16 mixed mode, the tensor-core scan: X (n, p) and
+// Theta (m, n) in bf16 with row strides ldx and ldt (multiples of 8
+// elements, 16-byte-aligned starts), col_norm, r, guard and the outputs in
+// float32, otherwise the scan entries' arguments. Returns a cudaError_t,
+// or TC_ENCODE_ERROR + the CUresult of a refused tensor-map encode.
+int screen_fused_tc(const void* X, int ldx, const void* Theta, int ldt,
+                    const void* col_norm, int cn_stride, const void* active,
+                    const void* r, int m, int n, int p, int h_tile,
+                    int masked, float guard, void* score, void* ub, void* lb,
+                    void* tops, void* topi, void* tmax, void* stream) {
+  return m <= 8
+             ? launch_tc<8>(X, ldx, Theta, ldt, col_norm, cn_stride, active,
+                            r, m, n, p, h_tile, masked, guard, score, ub, lb,
+                            tops, topi, tmax, stream)
+             : launch_tc<16>(X, ldx, Theta, ldt, col_norm, cn_stride, active,
+                             r, m, n, p, h_tile, masked, guard, score, ub,
+                             lb, tops, topi, tmax, stream);
+}
 
 // K2 and K2b, the histogram entry: hist (m, h+1) of ub (m, p) against
 // lb_sorted (m, h)

@@ -43,8 +43,9 @@ _SIGNATURES = {
     "screen": {
         "screen_fused_{dt}": _SCREEN,
         "screen_fused_batch_{dt}": _SCREEN,
-        "screen_fused_bf16": _SCREEN,        # bf16 X, float sums
-        "screen_fused_batch_bf16": _SCREEN,
+        # the bf16 mode's tensor-core scan: X, ldx, Theta, ldt, then the
+        # scan's arguments from col_norm on (float32)
+        "screen_fused_tc": [_P, _I, _P, _I] + _SCREEN[2:],
         "ub_histogram_{dt}": [_P, _P, _I, _I, _I, _P, _P],
         "screen_tail_{dt}": [_P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I,
                              _P, _P, _P, _P, _P],

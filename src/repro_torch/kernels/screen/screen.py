@@ -14,7 +14,10 @@ K1 replaces ``repro/kernels/screen/screen.py:271 screen_fused_pallas``
 it in one screen (``repro/core/screen_backend.py:146-168``); K1b replaces
 ``:394 screen_fused_batch_pallas`` and K2b ``:562
 ub_histogram_batch_pallas``. The mixed mode's launches count apart, in
-``screen_fused.mixed.launches`` and ``screen_fused_batch.mixed.launches``.
+``screen_fused.mixed.launches`` and ``screen_fused_batch.mixed.launches``;
+its bf16 input runs the tensor-core scan (``screen_tc_kernel``, one kernel
+for K1 and K1b), which reads X and Theta through TMA in the layout
+:func:`tma_bf16` gives them.
 """
 from __future__ import annotations
 
@@ -58,10 +61,48 @@ def _require(t: Tensor, what: str, dtype, shape, device) -> None:
         raise ValueError(f"{what} must be contiguous")
 
 
-# (X's type, the sums' type) -> the kernel instance
+# (X's type, the sums' type) -> the kernel instance ("tc": the tensor-core
+# scan of the bf16 mode)
 _SCAN_INSTANCES = {(torch.float32, torch.float32): "f32",
                    (torch.float64, torch.float64): "f64",
-                   (torch.bfloat16, torch.float32): "bf16"}
+                   (torch.bfloat16, torch.float32): "tc"}
+# The tensor-core scan's float32 accumulation is certified as a truncating
+# float32 adder: NVIDIA does not document how wgmma rounds its sums.
+TC_UNIT_ROUNDOFF = 2.0 ** -23
+# a failed tensor-map encode returns this + its CUresult (csrc/screen.cu)
+_TC_ENCODE_ERROR = 100000
+
+
+def _tma_ok(A: Tensor) -> bool:
+    """A 2-D bf16 matrix TMA can read as it lies: unit column stride, a row
+    stride of a multiple of 8 elements (16 bytes) and a 16-byte-aligned
+    start."""
+    return (A.dtype == torch.bfloat16 and A.ndim == 2 and A.stride(1) == 1
+            and A.stride(0) % 8 == 0 and A.stride(0) >= A.shape[1]
+            and A.data_ptr() % 16 == 0)
+
+
+def tma_bf16(A: Tensor) -> Tensor:
+    """A (rows, cols) in bfloat16, laid out for the tensor-core scan's TMA:
+    a (rows, cols) view of a (rows, cols rounded up to 8) buffer, zeros in
+    the pad. A itself when it already has such a layout."""
+    if _tma_ok(A):
+        return A
+    rows, cols = A.shape
+    ld = -(-cols // 8) * 8
+    make = torch.empty if ld == cols else torch.zeros
+    out = make((rows, ld), dtype=torch.bfloat16, device=A.device)
+    out[:, :cols] = A
+    return out[:, :cols]
+
+
+def scan_input(X: Tensor, in_dtype) -> Tensor:
+    """X cast once to the scan's input type (a torch dtype), in the layout
+    its kernel reads: :func:`tma_bf16` for bfloat16, contiguous
+    otherwise."""
+    if in_dtype == torch.bfloat16:
+        return tma_bf16(X)
+    return X.to(in_dtype).contiguous()
 
 
 def screen_dtypes(X: Tensor, in_dtype=None, acc_dtype=None):
@@ -81,11 +122,16 @@ def screen_dtypes(X: Tensor, in_dtype=None, acc_dtype=None):
 def _scan_args(X, Theta, col_norm, r, in_dtype, acc_dtype):
     """X in the input type (cast here unless the caller cast it once),
     Theta rounded to the input type and held in the sums' type (exactly),
-    col_norm and r in the sums' type."""
+    col_norm and r in the sums' type. For the tensor-core scan (bf16 on
+    the card) X and Theta are bf16 in :func:`tma_bf16`'s layout (a caller's
+    bf16 X is re-laid-out only where TMA cannot read it)."""
     dt_in, dt_acc = screen_dtypes(X, in_dtype, acc_dtype)
-    if X.dtype != dt_in:
-        X = X.to(dt_in)
-    Theta = Theta.to(dt_in).to(dt_acc)
+    if dt_in == torch.bfloat16 and X.device.type == "cuda":
+        X, Theta = tma_bf16(X), tma_bf16(Theta)
+    else:
+        if X.dtype != dt_in:
+            X = X.to(dt_in)
+        Theta = Theta.to(dt_in).to(dt_acc)
     if isinstance(r, Tensor):
         r = r.to(dt_acc)
     return X, Theta, col_norm.to(dt_acc), r, dt_acc
@@ -104,8 +150,15 @@ def _scan(entry, X, Theta, col_norm, active, r, h_tile, masked, dt=None,
     if inst is None:
         raise ValueError(f"no scan kernel for X in {X.dtype} summed in {dt}"
                          f" (float32, float64, bfloat16 into float32)")
-    _require(X, "X", X.dtype, (n, p), dev)
-    _require(Theta, "Theta", dt, (m, n), dev)
+    if inst == "tc":
+        for what, A, shape in (("X", X, (n, p)), ("Theta", Theta, (m, n))):
+            if (A.device != dev or tuple(A.shape) != shape
+                    or not _tma_ok(A)):
+                raise ValueError(f"{what} must be {shape} bfloat16 on {dev} "
+                                 f"in tma_bf16's layout")
+    else:
+        _require(X, "X", X.dtype, (n, p), dev)
+        _require(Theta, "Theta", dt, (m, n), dev)
     if col_norm.ndim == 1:
         _require(col_norm, "col_norm", dt, (p,), dev)
     else:
@@ -123,12 +176,20 @@ def _scan(entry, X, Theta, col_norm, active, r, h_tile, masked, dt=None,
     tops = torch.empty((m, p_blocks, h_tile), dtype=dt, device=dev)
     topi = torch.empty((m, p_blocks, h_tile), dtype=torch.int32, device=dev)
     tmax = torch.empty((m, p_blocks), dtype=dt, device=dev)
-    fn = getattr(_build.library("screen"), f"{entry}_{inst}")
-    rc = fn(_ptr(X), _ptr(Theta), _ptr(col_norm),
-            p if col_norm.ndim == 2 else 0,
+    lib = _build.library("screen")
+    rest = (_ptr(col_norm), p if col_norm.ndim == 2 else 0,
             _ptr(active) if active is not None else None, _ptr(r), m, n, p,
             h_tile, int(masked), float(guard), _ptr(score), _ptr(ub),
             _ptr(lb), _ptr(tops), _ptr(topi), _ptr(tmax), _stream())
+    if inst == "tc":
+        rc = lib.screen_fused_tc(_ptr(X), X.stride(0), _ptr(Theta),
+                                 Theta.stride(0), *rest)
+        if rc >= _TC_ENCODE_ERROR:
+            raise RuntimeError(f"{entry}: cuTensorMapEncodeTiled refused a "
+                               f"tensor map (CUresult "
+                               f"{rc - _TC_ENCODE_ERROR})")
+    else:
+        rc = getattr(lib, f"{entry}_{inst}")(_ptr(X), _ptr(Theta), *rest)
     _build.check(rc, entry)
     return score, ub, lb, tops, topi, tmax
 
@@ -160,14 +221,16 @@ def screen_fused(X: Tensor, theta: Tensor, col_norm: Tensor, active: Tensor,
 
     On the card each score is one fma chain over the rows in order (the
     same bits as every problem of K1b); persistent CTAs stream X through
-    shared memory, and one warp sorts each tile's 256 scores.
+    shared memory, and one warp sorts each tile's 256 scores. A bf16 input
+    runs the tensor-core scan instead (wgmma on TMA-fed tiles), whose sums
+    are float32 in another order.
     """
-    X, theta, col_norm, r, dt = _scan_args(X, theta, col_norm, r, in_dtype,
-                                           acc_dtype)
+    X, Theta, col_norm, r, dt = _scan_args(X, theta[None], col_norm, r,
+                                           in_dtype, acc_dtype)
     if X.device.type == "cpu":
-        return screen_fused_ref(X.to(dt), theta, col_norm, active, r, h=h,
+        return screen_fused_ref(X.to(dt), Theta[0], col_norm, active, r, h=h,
                                 guard=guard)
-    out = _scan("screen_fused", X, theta[None], col_norm, active[None], r,
+    out = _scan("screen_fused", X, Theta, col_norm, active[None], r,
                 max(1, min(h, BP)), True, dt, guard)
     _count(screen_fused, in_dtype is not None or acc_dtype is not None)
     return tuple(t[0] for t in out)
@@ -186,7 +249,9 @@ def screen_fused_batch(X: Tensor, Theta: Tensor, col_norm: Tensor,
     (m, p/BP): per problem bitwise what K1 returns. On the card a thread
     sums 2 columns for 16 (float64) or 8 (float32 sums) of a chunk's
     problems, and each problem's tile top-h is one warp's sort, the
-    problems' sorts side by side.
+    problems' sorts side by side. A bf16 input runs the tensor-core scan
+    (chunks of 8 problems while m <= 8, else 16), whose rows are K1's
+    within the float32 sums' bound, not bit for bit.
     """
     X, Theta, col_norm, r, dt = _scan_args(X, Theta, col_norm, r, in_dtype,
                                            acc_dtype)

@@ -34,6 +34,7 @@ from repro_torch.core import batch_fast as bf
 from repro_torch.core import active_set as aset_lib
 from repro_torch.core.duality import (dot_error_gamma, mixed_precision_gamma,
                                       unit_roundoff, widened_radius)
+from repro_torch.core import screen_backend as sb
 from repro_torch.core.screen_backend import make_batch_screen_fast
 from repro_torch.kernels import ops
 from test_torch_batch import _fleet, _support
@@ -108,13 +109,21 @@ def _exact_ub(X, cn, Theta, r, in_active):
     return np.where(in_active, -np.inf, score) + cn[None, :] * r[:, None]
 
 
-@pytest.mark.parametrize("screen_dtype", ["bfloat16", "float32"])
-def test_widened_screen_is_subset_safe(screen_dtype):
+@pytest.mark.parametrize("screen_dtype", ["bfloat16", "float32",
+                                          "bfloat16-card"])
+def test_widened_screen_is_subset_safe(screen_dtype, monkeypatch):
     """Elementwise: the widened low-precision ub >= the exact f64 ub, so
     what the cheap pass rules out the exact screen rules out too; and
-    max ub dominates the exact max (``do`` all False: the cheap branch)."""
+    max ub dominates the exact max (``do`` all False: the cheap branch).
+    ``-card``: at the card's bf16 route's gamma (its tensor-core sums
+    certified as a truncating float32 adder), on the same CPU twins."""
+    screen_dtype, _, route = screen_dtype.partition("-")
     n, p, b = 48, 160, 3
     u_acc = unit_roundoff("float32")
+    if route:
+        card_gamma = sb.scan_gamma(n, screen_dtype, torch.device("cuda"))
+        assert card_gamma > mixed_precision_gamma(n, screen_dtype, "float32")
+        monkeypatch.setattr(sb, "scan_gamma", lambda *a, **k: card_gamma)
     for seed in range(N_SEEDS):
         rng = np.random.default_rng(1000 + seed)
         X, cn, Theta, r, in_active = _screen_state(rng, n, p, b)
@@ -123,7 +132,8 @@ def test_widened_screen_is_subset_safe(screen_dtype):
         out = screen(_t(Theta), _t(r), _t(in_active),
                      torch.zeros(b, dtype=torch.bool))
         assert screen.escalated == 0
-        gamma = mixed_precision_gamma(n, screen_dtype, "float32")
+        gamma = (card_gamma if route else
+                 mixed_precision_gamma(n, screen_dtype, "float32"))
         r_wide = widened_radius(_t(r), _t(Theta), gamma).numpy()
         score_lo = np.full((b, p), -np.inf)
         np.put_along_axis(score_lo, out.cand_idx.numpy(),
