@@ -133,11 +133,32 @@ Phases (each one fails the run by raising):
    by the KKT residual over all p (<= 1e-3 lambda at every lambda) and
    finds SAIF's support; wall, outer steps, coordinate updates, K7
    launches, the wall over SAIF's, and (profiled after it) K7's device
-   time and the idle share.
+   time and the idle share;
+20. the Session front door at full width, run last:
+   ``[session-ls]``: ``open_session(Problem(X, y), SaifConfig(eps=1e-6))``
+   on phase 2's problem (admission, prep and open times; ``prepare_path``
+   counted), then a request mix served twice: Scalar(0.3 lambda_max), a
+   second cold Scalar in its h bucket, Scalar(0.3, warm=True), a Path
+   over 4 lambdas 0.6 -> 0.3, phase 9's Fleet, a 5-fold CV over 6
+   lambdas 0.9 -> 0.3 (refit=False); every request certified and counted
+   (K1/K2/K6 serial, K1b/K2b/K6b for Fleet and CV), every cold request
+   bit for bit its direct call (phases 2 and 9's results where they
+   match) and, in the second pass, its first; one preparation in the
+   session's life; each request's hot wall beside its direct call's; a
+   hot Scalar profiled; ``[session-pad]``: ``pad_to=(1000, 131072)`` a
+   Scalar and the Fleet bit for bit phases 2 and 9, ``pad_to=(1024,
+   131072)`` a Scalar with phase 2's support, beta within rtol 1e-10,
+   certified; ``[session-cache]``: a ``WarmCache`` session, Scalar(0.5)
+   misses, Scalar(0.3) hits, certified with the cold support, its outer
+   steps against the cold solve's, the digest's cost, the cache's stats
+   and events; ``[session-fused]``: phase 5's chain problem through
+   ``Problem(penalty=fused(parent))``, K4 once at open, a Scalar and
+   phase 7's Path bit for bit ``saif_fused`` / ``fused_path``.
 
 Launch counters are zeroed just before each solve (and the transform of
-phase 4, the CV fleets, the CV refit, the selection, the K5 call and each
-baseline) and read just after; the
+phase 4, the CV fleets, the CV refit, the selection, the K5 call, each
+baseline, each session request and the fused session's open) and read
+just after; the
 kernel launches of phases 8, 12, 17 and 18, of the checks of phases 13-14, of
 the comparisons of phase 4, of the serial solves that phases 9-10 compare
 with, of the lambda_max helpers and of one extra solve
@@ -969,8 +990,9 @@ def transform_phase(X, records):
 
 def fused_phases():
     """Phases 5-7: fused least squares and logistic at FUSED_P, and the
-    fused path. Returns the kernel-path results, the problems and the
-    summed launch counts."""
+    fused path. Returns the kernel-path results, the problems, the summed
+    launch counts and the least-squares problem with its ``auto`` result
+    and path (for ``[session-fused]``)."""
     import numpy as np
     import torch
     import repro_torch as rt
@@ -1048,7 +1070,9 @@ def fused_phases():
         raise RuntimeError(f"fused-path: supports shrink down the path: "
                            f"{sizes}")
     launches.append(counts)
-    return fused, launches
+    fused_ls = {"X": X, "y": y, "parent": parent, "lam": fused[0][3],
+                "res": fused[0][4], "path_lams": lams, "path": fp}
+    return fused, launches, fused_ls
 
 
 def fleet_responses(X, b, seed, logistic=False, k=15):
@@ -1192,6 +1216,376 @@ def fast_fleet_phase(X, Y, lams, screen_dtype, bit, bit_wall, expect):
          ("screen_fused_kernel", "screen_tc_kernel", "screen_tail_kernel",
           "gram_sweep_kernel")))
     return res, counts, st
+
+
+def results_equal(a, b, p=None):
+    """Two SaifResults bit for bit: every tensor field (the inner carry's
+    too), count and flag; ``beta`` cut to its first ``p`` columns."""
+    import torch
+    for f, x, y in zip(a._fields, a, b):
+        if f == "beta" and p is not None:
+            x = x[..., :p]
+        if isinstance(x, torch.Tensor):
+            if not torch.equal(x, y):
+                return False
+        elif isinstance(x, tuple):
+            if not all(torch.equal(u, v) for u, v in zip(x, y)):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+def timed(fn):
+    """(fn(), host seconds up to a synchronize)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def session_ls_phase(X, y, lm, ls_auto, Yf, fl_lams, fl_res, fl_wall,
+                     serial_expect, fleet_expect):
+    """``[session-ls]``: ``open_session(Problem(X, y), SaifConfig(eps=
+    1e-6))`` on phase 2's design (admission, prep and open times), then
+    the request mix twice: Scalar(0.3), a second cold Scalar in its h
+    bucket, Scalar(0.3, warm=True), a 4-point Path 0.6 -> 0.3, phase 9's
+    Fleet, a 5-fold CV over 6 lambdas 0.9 -> 0.3 (refit=False). Every
+    request certified on the card and counted (K1/K2/K6 for the serial
+    ones, K1b/K2b/K6b for Fleet and CV); every cold request bit for bit
+    its direct call (phases 2 and 9's results where they match), and in
+    the second pass bit for bit its first; the preparation counted (one,
+    at open); each request's hot wall beside its direct call's; one hot
+    Scalar profiled later. Returns (the session, launch counts)."""
+    import numpy as np
+    import torch
+    import repro_torch as rt
+    from repro_torch.core.saif import add_batch_size_static
+    from repro_torch.kernels import ops
+
+    ls = rt.get_loss("least_squares")
+    n, p = X.shape
+    cfg = rt.SaifConfig(eps=1e-6)
+    lam = LS_LAM * lm
+    prep = rt.prepare_path(X, y, cfg)
+
+    def h_of(l):
+        return add_batch_size_static(cfg.c, l, prep.c0_max, prep.c0_median,
+                                     p)
+    lam2 = next(f * lm for f in (0.29, 0.31, 0.28, 0.32, 0.27)
+                if h_of(f * lm) == h_of(lam))
+    del prep
+    path_lams = np.geomspace(0.6 * lm, LS_LAM * lm, 4).tolist()
+    cv_lams = np.geomspace(0.9 * lm, LS_LAM * lm, 6).tolist()
+    W = rt.kfold_weights(n, CV_FOLDS).to(X)
+
+    saif_mod = sys.modules["repro_torch.core.saif"]
+    real_prepare = saif_mod.prepare_path
+    prepares = []
+
+    def counted(*a, **k):
+        prepares.append(1)
+        return real_prepare(*a, **k)
+    saif_mod.prepare_path = counted
+    try:
+        prob, t_adm = timed(lambda: rt.Problem(X=X, y=y))
+        sess, t_prep = timed(lambda: rt.open_session(prob, cfg))
+    finally:
+        saif_mod.prepare_path = real_prepare
+    print(f"[session-ls] open n={n} p={p}: admission_s={t_adm:.4f} "
+          f"prep_s={t_prep:.4f} open_s={t_adm + t_prep:.4f} "
+          f"prepare_path_calls={len(prepares)}", flush=True)
+    if len(prepares) != 1:
+        raise RuntimeError("session-ls: open_session did not prepare once")
+
+    reqs = [("scalar", rt.Scalar(lam), serial_expect),
+            ("scalar2", rt.Scalar(lam2), serial_expect),
+            ("scalar/warm", rt.Scalar(lam, warm=True), serial_expect),
+            ("path", rt.Path(tuple(path_lams)), serial_expect),
+            ("fleet", rt.Fleet(Y=Yf, lams=fl_lams), fleet_expect),
+            ("cv", rt.CV(n_folds=CV_FOLDS, lams=tuple(cv_lams),
+                         keep_fold_betas=True, refit=False), fleet_expect)]
+
+    def certify(name, res):
+        """Worst (gap, KKT / lambda) of a request's result; raises when
+        one is not certified."""
+        cells = []
+        if name.startswith("scalar"):
+            cells = [(y, None, res, lam2 if name == "scalar2" else lam)]
+        elif name == "path":
+            cells = [(y, None, r, l) for r, l in zip(res.results, res.lams)]
+        elif name == "fleet":
+            cells = [(Yf[i], None, res, fl_lams[i], i)
+                     for i in range(Yf.shape[0])]
+        else:
+            cells = [(y, W[k], fr, l, k) for l, fr in
+                     zip(res.lams, res.fold_results)
+                     for k in range(CV_FOLDS)]
+        worst_gap = worst_kkt = 0.0
+        for cell in cells:
+            yy, w, r, l = cell[:4]
+            beta, gap = r.beta, r.gap
+            if len(cell) == 5:
+                beta, gap = r.beta[cell[4]], r.gap[cell[4]]
+            kkt = float(rt.kkt_residual(ls, X, yy, beta, float(l),
+                                        sample_w=w))
+            gap = float(gap)
+            worst_gap = max(worst_gap, gap)
+            worst_kkt = max(worst_kkt, kkt / float(l))
+            if not (gap <= cfg.eps and kkt <= 1e-3 * float(l)):
+                raise RuntimeError(f"session-ls/{name}: not certified "
+                                   f"(gap {gap:.3e}, kkt {kkt:.3e})")
+        return worst_gap, worst_kkt
+
+    def same(name, a, b):
+        if name == "path":
+            return all(results_equal(u, v)
+                       for u, v in zip(a.results, b.results))
+        if name == "cv":
+            return (np.array_equal(a.cv_mean, b.cv_mean)
+                    and np.array_equal(a.cv_se, b.cv_se)
+                    and a.best_lam == b.best_lam
+                    and all(torch.equal(u, v)
+                            for u, v in zip(a.fold_betas, b.fold_betas)))
+        return results_equal(a, b)
+
+    # the direct calls: phases 2 and 9's results where they match
+    direct = {"scalar": (ls_auto, WALLS["ls/auto"]),
+              "fleet": (fl_res, fl_wall)}
+    direct["scalar2"] = timed(lambda: rt.saif(X, y, lam2, cfg))
+    direct["path"] = timed(lambda: rt.run_path(rt.prepare_path(X, y, cfg),
+                                               path_lams, cfg)[0])
+    direct["cv"] = timed(lambda: rt.cv_solve(
+        X, y, cv_lams, CV_FOLDS, cfg, keep_fold_betas=True, refit=False))
+
+    total = {k: 0 for k in ops.KERNELS}
+    first, walls, hot = {}, {}, {}
+    saif_mod.prepare_path = counted
+    try:
+        for rnd in (1, 2):
+            for name, req, expect in reqs:
+                torch.cuda.synchronize()
+                ops.reset_launch_counts()
+                res, wall = timed(lambda: sess.solve(req))
+                counts = ops.launch_counts()
+                check_launches(f"session-ls/{name}", counts, expect)
+                for k in total:
+                    total[k] += counts[k]
+                gap, kkt = certify(name, res)
+                cold = name in direct
+                if rnd == 1:
+                    first[name], walls[name] = res, wall
+                    ok = same(name, res, direct[name][0]) if cold else None
+                    line = (f"bitwise_direct={ok} direct_wall_s="
+                            f"{direct[name][1]:.4f}" if cold else
+                            "warm (no direct call)")
+                else:
+                    hot[name] = wall
+                    ok = same(name, res, first[name]) if cold else None
+                    line = (f"bitwise_first_pass={ok} first_wall_s="
+                            f"{walls[name]:.4f} direct_wall_s="
+                            f"{direct[name][1]:.4f}" if cold else
+                            f"first_wall_s={walls[name]:.4f}")
+                outer = (res.n_outer if name.startswith("scalar") else
+                         [r.n_outer for r in res.results] if name == "path"
+                         else res.n_outer.tolist() if name == "fleet" else
+                         [fr.n_outer.tolist() for fr in res.fold_results])
+                print(f"[session-ls/{name}] pass={rnd} wall_s={wall:.4f} "
+                      f"{line} outer={outer} max_gap={gap:.3e} "
+                      f"max_kkt_over_lam={kkt:.3e} launches={counts}",
+                      flush=True)
+                if ok is False:
+                    raise RuntimeError(f"session-ls/{name}: pass {rnd} not "
+                                       f"bit for bit its reference")
+    finally:
+        saif_mod.prepare_path = real_prepare
+    session_prepares = len(prepares)
+    print(f"[session-ls] requests={sess.compile_stats().requests} "
+          f"prepare_path_in_session_life={session_prepares} "
+          f"hot_scalar_wall_s={hot['scalar']:.4f} direct_saif_wall_s="
+          f"{WALLS['ls/auto']:.4f} hot_over_direct="
+          f"{hot['scalar'] / WALLS['ls/auto']:.3f}", flush=True)
+    if session_prepares != 1:
+        raise RuntimeError(f"session-ls: prepare_path ran "
+                           f"{session_prepares} times in the session")
+    _, hot = timed(lambda: sess.solve(rt.Scalar(lam)))
+    DEFERRED_PROFILES.append(
+        ("session-ls/scalar", lambda: sess.solve(rt.Scalar(lam)), hot,
+         ("screen_fused_kernel", "screen_tail_kernel", "gram_sweep_kernel")))
+    return sess, total
+
+
+def session_pad_phase(X, y, lm, ls_auto, Yf, fl_lams, fl_res,
+                      serial_expect, fleet_expect):
+    """``[session-pad]``: ``pad_to=(1000, 131072)``: a Scalar at 0.3
+    lambda_max and phase 9's Fleet, each bit for bit its unpadded
+    counterpart (phase 2's ``auto`` solve, phase 9's fleet);
+    ``pad_to=(1024, 131072)``: a Scalar with phase 2's support, beta
+    within rtol 1e-10 / atol 1e-12 of it, certified. Returns the launch
+    counts."""
+    import numpy as np
+    import torch
+    import repro_torch as rt
+    from repro_torch.kernels import ops
+
+    ls = rt.get_loss("least_squares")
+    n, p = X.shape
+    cfg = rt.SaifConfig(eps=1e-6)
+    lam = LS_LAM * lm
+    prob = rt.Problem(X=X, y=y)
+    total = {k: 0 for k in ops.KERNELS}
+    for bucket in ((n, 131072), (1024, 131072)):
+        sess, t_open = timed(lambda: rt.open_session(prob, cfg,
+                                                     pad_to=bucket))
+        ops.reset_launch_counts()
+        res, wall = timed(lambda: sess.solve(rt.Scalar(lam)))
+        counts = ops.launch_counts()
+        check_launches(f"session-pad{bucket}/scalar", counts, serial_expect)
+        for k in total:
+            total[k] += counts[k]
+        kkt = float(rt.kkt_residual(ls, X, y, res.beta, lam))
+        live_ok = bool((res.active_idx[res.active_mask] < p).all())
+        cert = float(res.gap) <= cfg.eps and kkt <= 1e-3 * lam
+        if bucket[0] == n:
+            ok = results_equal(res, ls_auto)
+            line = f"bitwise_unpadded={ok}"
+        else:
+            close = torch.allclose(res.beta, ls_auto.beta, rtol=1e-10,
+                                   atol=1e-12)
+            ok = support(res.beta) == support(ls_auto.beta) and close
+            err = float((res.beta - ls_auto.beta).abs().max())
+            line = (f"same_support={support(res.beta) == support(ls_auto.beta)}"
+                    f" allclose_1e-10={close} max_abs_diff={err:.3e}")
+        print(f"[session-pad] pad_to={bucket} open_s={t_open:.4f} scalar "
+              f"wall_s={wall:.4f} unpadded_wall_s={WALLS['ls/auto']:.4f} "
+              f"outer={res.n_outer} unpadded_outer={ls_auto.n_outer} "
+              f"gap={float(res.gap):.3e} kkt={kkt:.3e} {line} "
+              f"no_pad_in_slots={live_ok} launches={counts}", flush=True)
+        if not (ok and cert and live_ok):
+            raise RuntimeError(f"session-pad {bucket}: scalar not "
+                               f"certified or off its unpadded solve")
+        if bucket[0] == n:
+            ops.reset_launch_counts()
+            fl, wall = timed(lambda: sess.solve(rt.Fleet(Y=Yf,
+                                                         lams=fl_lams)))
+            counts = ops.launch_counts()
+            check_launches("session-pad/fleet", counts, fleet_expect)
+            for k in total:
+                total[k] += counts[k]
+            ok = results_equal(fl, fl_res)
+            worst = max(float(rt.kkt_residual(ls, X, Yf[i], fl.beta[i],
+                                              fl_lams[i])) / fl_lams[i]
+                        for i in range(Yf.shape[0]))
+            cert = bool((fl.gap <= cfg.eps).all()) and worst <= 1e-3
+            print(f"[session-pad] pad_to={bucket} fleet B={Yf.shape[0]} "
+                  f"wall_s={wall:.4f} bitwise_unpadded={ok} max_gap="
+                  f"{float(fl.gap.max()):.3e} max_kkt_over_lam={worst:.3e} "
+                  f"launches={counts}", flush=True)
+            if not (ok and cert):
+                raise RuntimeError("session-pad: fleet not certified or "
+                                   "off its unpadded fleet")
+        del sess
+        torch.cuda.empty_cache()
+    return total
+
+
+def session_cache_phase(X, y, lm, ls_auto, serial_expect):
+    """``[session-cache]``: a session with a ``WarmCache``: Scalar(0.5)
+    misses, Scalar(0.3) hits (entering by the Theorem-2 seed from the 0.5
+    solution); the hit certified, with phase 2's cold support, its outer
+    steps against the cold solve's; the digest's cost, ``cache.stats()``
+    and ``drain_events()``. Returns the launch counts."""
+    import torch
+    import repro_torch as rt
+    from repro_torch.core.warm_cache import problem_digest
+    from repro_torch.kernels import ops
+
+    ls = rt.get_loss("least_squares")
+    cfg = rt.SaifConfig(eps=1e-6)
+    lam = LS_LAM * lm
+    cache = rt.WarmCache(rt.WarmCacheConfig())
+    sess = rt.open_session(rt.Problem(X=X, y=y), cfg, warm_cache=cache)
+    digest, t_dig = timed(lambda: problem_digest(X, y))
+    total = {k: 0 for k in ops.KERNELS}
+    out = {}
+    for frac in (0.5, LS_LAM):
+        ops.reset_launch_counts()
+        res, wall = timed(lambda: sess.solve(rt.Scalar(frac * lm)))
+        counts = ops.launch_counts()
+        check_launches(f"session-cache/{frac}", counts, serial_expect)
+        for k in total:
+            total[k] += counts[k]
+        events = sess.drain_events()
+        kkt = float(rt.kkt_residual(ls, X, y, res.beta, frac * lm))
+        cert = float(res.gap) <= cfg.eps and kkt <= 1e-3 * frac * lm
+        out[frac] = (res, events, cert)
+        print(f"[session-cache] lam/lam_max={frac} wall_s={wall:.4f} "
+              f"events={list(events)} outer={res.n_outer} n_active="
+              f"{res.n_active} k_max={res.active_idx.shape[0]} gap="
+              f"{float(res.gap):.3e} kkt={kkt:.3e} certified={cert} "
+              f"launches={counts}", flush=True)
+    hit, events, cert = out[LS_LAM]
+    miss_ok = out[0.5][1] == ("warm_cache_miss",)
+    hit_ok = len(events) == 1 and events[0].startswith("warm_cache_hit")
+    same_sup = support(hit.beta) == support(ls_auto.beta)
+    st = cache.stats()
+    print(f"[session-cache] hit_outer={hit.n_outer} cold_outer="
+          f"{ls_auto.n_outer} hit_over_cold={hit.n_outer / ls_auto.n_outer:.3f}"
+          f" cold_support={same_sup} digest_s={t_dig:.4f} "
+          f"digest_memo_equal={sess._digest_memo == digest} stats={st._asdict()}",
+          flush=True)
+    if not (miss_ok and hit_ok and cert and same_sup and st.hits == 1
+            and st.misses == 1):
+        raise RuntimeError("session-cache: the hit did not certify with the "
+                           "cold support, or the cache did not hit")
+    return total
+
+
+def session_fused_phase(fused_ls):
+    """``[session-fused]``: phase 5's chain problem through
+    ``Problem(penalty=fused(parent))``: K4 launches exactly once, at
+    open, and never again; a Scalar and phase 7's 4-point Path bit for bit
+    ``saif_fused`` / ``fused_path`` (phases 5 and 7). Returns the launch
+    counts (open included)."""
+    import torch
+    import repro_torch as rt
+    from repro_torch.kernels import ops
+
+    X, y, parent = fused_ls["X"], fused_ls["y"], fused_ls["parent"]
+    cfg = rt.SaifConfig(eps=1e-6)
+    ops.reset_launch_counts()
+    sess, t_open = timed(lambda: rt.open_session(
+        rt.Problem(X=X, y=y, penalty=rt.fused(parent)), cfg))
+    open_counts = ops.launch_counts()
+    ops.reset_launch_counts()
+    (beta, res), wall = timed(lambda: sess.solve(rt.Scalar(fused_ls["lam"])))
+    pr, wall_p = timed(lambda: sess.solve(rt.Path(tuple(
+        fused_ls["path_lams"]))))
+    counts = ops.launch_counts()
+    check_launches("session-fused/open", open_counts,
+                   {"chain_suffix_sums": 1, "screen_fused": 0,
+                    "gram_sweep": 0})
+    check_launches("session-fused", counts,
+                   {"screen_fused": True, "ub_histogram": True,
+                    "gram_sweep": True, "chain_suffix_sums": 0,
+                    "cm_burst": False, "cm_burst_pen": False,
+                    "screen_fused_batch": False, "gram_sweep_batch": False})
+    ok_s = results_equal(res, fused_ls["res"])
+    fp = fused_ls["path"]
+    ok_p = (all(results_equal(a, b) for a, b in
+                zip(pr.path.results, fp.path.results))
+            and all(torch.equal(a, b) for a, b in zip(pr.betas, fp.betas)))
+    print(f"[session-fused] p={X.shape[1]} open_s={t_open:.4f} open_launches="
+          f"{open_counts['chain_suffix_sums']} (K4) scalar_wall_s={wall:.4f}"
+          f" path_wall_s={wall_p:.4f} bitwise_saif_fused={ok_s} "
+          f"bitwise_fused_path={ok_p} outer={res.n_outer} "
+          f"launches={counts}", flush=True)
+    if not (ok_s and ok_p):
+        raise RuntimeError("session-fused: not bit for bit saif_fused / "
+                           "fused_path")
+    return {k: open_counts[k] + counts[k] for k in counts}
 
 
 MIXED = (("bfloat16", "bf16"), ("float32", "f32"))
@@ -2636,7 +3030,7 @@ def main() -> int:
     }
 
     k4_launches = transform_phase(X, records)
-    fused, fused_counts = fused_phases()
+    fused, fused_counts, fused_ls = fused_phases()
 
     import numpy as np
     # serial solves: K1 + K2 + K6 for least squares (auto), K3 for logistic
@@ -2731,10 +3125,22 @@ def main() -> int:
 
     base_counts = baselines_phase(X, y, lam, lm, ls_res["auto"].beta,
                                   WALLS["ls/auto"])
+    # the Session front door at full width, on the engines above; last, so
+    # that the kernel rows' short profiler sessions run in a younger
+    # process (the profiler misses launches late in a run)
+    sess_ls, sess_counts = session_ls_phase(
+        X, y, lm, ls_res["auto"], Yf, fl_lams, fl_res, fl_wall, serial_ls,
+        fleet_ls)
+    sess_counts = [sess_counts,
+                   session_pad_phase(X, y, lm, ls_res["auto"], Yf, fl_lams,
+                                     fl_res, serial_ls, fleet_ls),
+                   session_cache_phase(X, y, lm, ls_res["auto"], serial_ls),
+                   session_fused_phase(fused_ls)]
     fast_counts = [c for _, c, _ in fast.values()]
     runs = [ls_counts["auto"], ls_counts["cuda"], lg_counts["auto"],
             *fused_counts, fl_counts, flc_counts, flg_counts, *fast_counts,
-            cv_counts, sel_counts, self_counts, k5_counts, base_counts]
+            cv_counts, sel_counts, self_counts, k5_counts, base_counts,
+            *sess_counts]
     for k, rec in records.items():
         if k in ops.KERNELS:
             rec["launches"] = sum(c[k] for c in runs) + (

@@ -90,8 +90,8 @@ def fleet_prep_from_numpy(X, Y, c0, col_norm, c0_max, c0_median, W=None,
     weights ``W`` (B, n) or None), on ``device`` (None = the card). The
     reference broadcasts shared norms to (B, p); an unweighted
     preparation's identical rows become the port's shared (p,) vector, a
-    weighted one keeps its (B, p) per-problem norms. Padded preparations
-    are not ported."""
+    weighted one keeps its (B, p) per-problem norms. Pass an unpadded
+    preparation; :func:`~repro_torch.core.batch.pad_fleet_prep` pads it."""
     dev = resolve_device(device)
     X = as_tensor(np.asarray(X), dev)
     cn = np.asarray(col_norm)

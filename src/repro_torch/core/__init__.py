@@ -1,56 +1,138 @@
-"""SAIF core in torch: the serial solve, the fleet (weighted too; the
-fast-parity lockstep engine with its certified mixed-precision screen), the
-lambda path, fused LASSO, K-fold CV and model selection, the paper's
-baselines (dynamic screening, the sequential path, the strong-rule
-homotopy, the unscreened CM), and their building blocks."""
-from repro_torch.core.batch import (FleetPrep, fleet_solve, prepare_fleet,
-                                    resolve_batch_inner, saif_batch)
-from repro_torch.core.cm import cm_epoch, solve_lasso_cm
-from repro_torch.core.cv import (CVPathResult, cv_solve, kfold_weights,
-                                 one_se_lambda)
-from repro_torch.core.batch_fast import solve_fleet_fast
-from repro_torch.core.duality import (dot_error_gamma, dual_point,
-                                      kkt_residual, lambda_max,
-                                      mixed_precision_gamma, unit_roundoff,
-                                      widened_radius)
-from repro_torch.core.dynamic import DynConfig, DynResult, dynamic_screening
-from repro_torch.core.fused import (FusedDesign, FusedPathResult,
-                                    build_schedule, build_tree,
-                                    eliminate_b_ls, fused_baseline_cm,
-                                    fused_lambda_max, fused_objective,
-                                    fused_path, prepare_fused, recover_b_ls,
-                                    recover_beta, recover_beta_device,
-                                    recover_from_transformed, saif_fused,
-                                    saif_fused_eliminated, transform_design,
-                                    transform_design_device,
-                                    transform_design_scan)
-from repro_torch.core.homotopy import (HomotopyConfig, HomotopyResult,
-                                      homotopy_path, support_metrics)
-from repro_torch.core.losses import get_loss
-from repro_torch.core.path import (SaifPathResult, lambda_grid, run_path,
-                                   saif_path, saif_path_naive)
-from repro_torch.core.saif import (PathState, SaifConfig, SaifResult,
-                                   prepare_path, saif, solve_scalar)
-from repro_torch.core.select import (Select, SelectionReport, select_solve,
-                                     stability_frequencies, subsample_weights)
-from repro_torch.core.sequential import SeqConfig, sequential_path
+"""SAIF core in torch.
 
-__all__ = ["saif", "SaifConfig", "SaifResult", "PathState", "prepare_path",
-           "solve_scalar", "get_loss", "kkt_residual", "lambda_max",
-           "saif_path", "saif_path_naive", "run_path", "lambda_grid",
-           "SaifPathResult", "saif_fused", "fused_path", "prepare_fused",
-           "FusedDesign", "FusedPathResult", "fused_lambda_max",
-           "fused_baseline_cm", "fused_objective", "saif_fused_eliminated",
-           "eliminate_b_ls", "recover_b_ls", "build_tree", "build_schedule",
-           "transform_design", "transform_design_scan",
-           "transform_design_device", "recover_beta", "recover_beta_device",
-           "recover_from_transformed", "fleet_solve", "saif_batch",
-           "prepare_fleet", "FleetPrep", "resolve_batch_inner", "cv_solve",
-           "kfold_weights", "one_se_lambda", "CVPathResult", "Select",
-           "SelectionReport", "select_solve", "subsample_weights",
-           "stability_frequencies", "dynamic_screening", "DynConfig",
-           "DynResult", "sequential_path", "SeqConfig", "homotopy_path",
-           "HomotopyConfig", "HomotopyResult", "support_metrics",
-           "solve_lasso_cm", "cm_epoch", "dual_point", "solve_fleet_fast",
-           "unit_roundoff", "dot_error_gamma", "mixed_precision_gamma",
-           "widened_radius"]
+Primary surface:
+  Problem, open_session, Session          — declarative spec + serving
+  Scalar, Path, Fleet, CV, Select         — the request types
+  saif, SaifConfig, SaifResult            — one-shot Algorithm 1/2
+
+Engines: the serial solve, the fleet (weighted too; the fast-parity
+lockstep engine with its certified mixed-precision screen), the lambda
+path, fused LASSO, K-fold CV and model selection, the paper's baselines
+(dynamic screening, the sequential path, the strong-rule homotopy, the
+unscreened CM), and their building blocks.
+
+Legacy frontends (deprecated shims over one-shot sessions; each warns
+once per process): saif_path, saif_batch, cv_path, saif_fused, fused_path.
+
+Attributes resolve lazily (PEP 562): importing :mod:`repro_torch.core`
+loads no torch and no engine until a name is touched, so ``from
+repro_torch import Problem, open_session`` stays cheap.
+"""
+from __future__ import annotations
+
+import importlib
+import sys
+import types
+
+_M = "repro_torch.core."
+# name -> defining module (resolved on first attribute access)
+_EXPORTS = {
+    # the Problem/Session API
+    **{name: _M + "api" for name in (
+        "Problem", "Session", "open_session", "Scalar", "Path", "Fleet",
+        "CV", "lasso", "LassoPenalty", "FusedPenalty", "GroupPenalty",
+        "GroupPathResult", "CompileStats", "unified_compile_count",
+        "SESSION_KWARG_DEFAULTS", "session_kwargs")},
+    # NOTE: the fused(parent)/group(gsize) penalty factories are not
+    # exported here: they would shadow the repro_torch.core.fused
+    # submodule. Use repro_torch.fused / repro_torch.group or
+    # repro_torch.core.api.fused / .group.
+    # admission control
+    **{name: _M + "serving" for name in (
+        "ServingError", "RequestError", "NumericalError", "BackendFault",
+        "DeadlineExceeded", "validate_problem", "validate_request")},
+    # streaming and model selection (import-light)
+    "Update": _M + "online",
+    **{name: _M + "select" for name in (
+        "Select", "SelectionReport", "select_solve", "subsample_weights",
+        "stability_frequencies")},
+    **{name: _M + "warm_cache" for name in (
+        "WarmCache", "WarmCacheConfig", "WarmCacheStats", "problem_digest")},
+    # serial solver
+    **{name: _M + "saif" for name in (
+        "saif", "solve_scalar", "SaifConfig", "SaifResult", "PathState",
+        "prepare_path", "pad_path_state")},
+    # path engine
+    **{name: _M + "path" for name in (
+        "run_path", "saif_path", "saif_path_naive", "SaifPathResult",
+        "lambda_grid")},
+    # fleet engines
+    **{name: _M + "batch" for name in (
+        "fleet_solve", "saif_batch", "prepare_fleet", "pad_fleet_prep",
+        "FleetPrep", "resolve_batch_inner")},
+    "solve_fleet_fast": _M + "batch_fast",
+    # cross-validation
+    **{name: _M + "cv" for name in (
+        "cv_solve", "cv_path", "CVPathResult", "kfold_weights",
+        "one_se_lambda")},
+    # oracle and inner machinery
+    **{name: _M + "cm" for name in ("solve_lasso_cm", "cm_epoch")},
+    **{name: _M + "inner_backend" for name in (
+        "InnerBackend", "InnerCarry", "InnerOut", "resolve_inner_backend")},
+    # screening backends and rules
+    **{name: _M + "screen_backend" for name in (
+        "ScreenFn", "ScreenOut", "BatchScreenFn", "make_screen_torch",
+        "make_screen_cuda", "make_screen_from_scan", "resolve_backend")},
+    **{name: _M + "screen_rule" for name in (
+        "ScreenRule", "SCREEN_RULES", "resolve_screen_rule")},
+    # duality and losses
+    **{name: _M + "duality" for name in (
+        "kkt_residual", "lambda_max", "dual_point", "unit_roundoff",
+        "dot_error_gamma", "mixed_precision_gamma", "widened_radius")},
+    "get_loss": _M + "losses",
+    # baselines
+    **{name: _M + "dynamic" for name in (
+        "dynamic_screening", "DynConfig", "DynResult")},
+    **{name: _M + "sequential" for name in ("sequential_path", "SeqConfig")},
+    **{name: _M + "homotopy" for name in (
+        "homotopy_path", "HomotopyConfig", "HomotopyResult",
+        "support_metrics")},
+    # fused subsystem
+    **{name: _M + "fused" for name in (
+        "saif_fused", "saif_fused_eliminated", "fused_baseline_cm",
+        "fused_objective", "fused_path", "fused_lambda_max", "FusedDesign",
+        "FusedPathResult", "prepare_fused", "build_tree", "build_schedule",
+        "transform_design", "transform_design_scan",
+        "transform_design_device", "recover_beta", "recover_beta_device",
+        "recover_from_transformed", "eliminate_b_ls", "recover_b_ls")},
+}
+
+_SUBMODULES = {
+    "_compat", "active_set", "api", "batch", "batch_fast", "cm", "cv",
+    "duality", "dynamic", "fused", "homotopy", "inner_backend", "losses",
+    "online", "path", "saif", "screen_backend", "screen_rule", "select",
+    "sequential", "serving", "warm_cache",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name: str):
+    if name in _EXPORTS:
+        return getattr(importlib.import_module(_EXPORTS[name]), name)
+    if name in _SUBMODULES:
+        return importlib.import_module(_M + name)
+    raise AttributeError(f"module 'repro_torch.core' has no attribute "
+                         f"{name!r}")
+
+
+def __dir__():
+    return sorted(set(__all__) | _SUBMODULES | set(globals()))
+
+
+class _LazyCoreModule(types.ModuleType):
+    """Keeps ``from repro_torch.core import saif`` resolving to the
+    *function*. ``saif`` is both a submodule and a public export; the
+    import machinery sets the submodule as a package attribute at its
+    first load, which would then shadow ``__getattr__``. Dropping exactly
+    that setattr keeps every access on the lazy resolver (``from
+    repro_torch.core.saif import ...`` goes through ``sys.modules`` and is
+    unaffected)."""
+
+    def __setattr__(self, name, value):
+        if name == "saif" and isinstance(value, types.ModuleType):
+            return
+        super().__setattr__(name, value)
+
+
+sys.modules[__name__].__class__ = _LazyCoreModule

@@ -38,11 +38,17 @@ off (it assumes the unweighted null dual). The weighted contract: row b of
 a weighted fleet equals the fleet of one of problem b, bit for bit.
 
 ``SaifConfig(parity="fast")`` sends a least-squares fleet to the lockstep
-engine of ``core/batch_fast.py`` (any other loss keeps this engine, as in
-the reference) and, for every loss, prepares the fleet the fast way: c0 as
-one product, the h formula's median on float32 scores. Not ported yet:
-bucket padding (``pad_mask``, ``pad_fleet_prep``, ROADMAP A6), which
-raises.
+engine of ``core/batch_fast.py`` (any other loss, and a caller's own
+``screen_fn``, keep this engine, as in the reference) and, for every loss,
+prepares the fleet the fast way: c0 as one product, the h formula's median
+on float32 scores.
+
+Bucket padding (:func:`pad_fleet_prep`, the reference's DESIGN.md §12): a
+padded preparation carries zero rows and columns up to a bucket shape with
+the real problems' statistics; the pad columns are born active without a
+slot in every problem, in both engines, so no screen scores them, and
+every policy formula (h, capacity, the inner routing) reads the real
+``n_true``/``p_true``. A p-only padded fleet is bitwise the unpadded one.
 """
 from __future__ import annotations
 
@@ -71,11 +77,6 @@ from repro_torch.core.duality import null_gradient
 Tensor = torch.Tensor
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"repro_torch's fleet does not take {what} yet (ROADMAP {item})")
-
-
 class FleetPrep(NamedTuple):
     """One-time per-fleet preparation (one host read for the h formula).
     ``c0_max`` is each problem's lambda_max."""
@@ -85,7 +86,7 @@ class FleetPrep(NamedTuple):
     col_norm: Tensor        # (p,) shared column norms, or (B, p) weighted
     c0_max: list            # B host floats (= per-problem lambda_max)
     c0_median: list
-    n_true: int = 0         # 0 = unpadded (bucket padding: ROADMAP A6)
+    n_true: int = 0         # 0 = unpadded (see pad_fleet_prep)
     p_true: int = 0
     W: Optional[Tensor] = None  # (B, n) sample weights, None = unweighted
 
@@ -136,10 +137,28 @@ def prepare_fleet(X, Y, config: SaifConfig = SaifConfig(), weights=None,
                      c0_median=[s[1] for s in stats], W=W)
 
 
-def pad_fleet_prep(prep: FleetPrep, n_bucket: int, p_bucket: int):
-    """Bucket padding of a fleet preparation: not ported yet (it comes
-    with the Session and serving slice)."""
-    raise _not_ported("bucket padding", "A6")
+def pad_fleet_prep(prep: FleetPrep, n_bucket: int,
+                   p_bucket: int) -> FleetPrep:
+    """Zero-pad a real fleet preparation up to a bucket shape, the fleet
+    edition of :func:`~repro_torch.core.saif.pad_path_state`: the
+    per-problem statistics stay those of the real problems (c0 pads at
+    -inf, column-norm pads at 1.0, zero pad rows with weight 0), and
+    ``n_true``/``p_true`` feed every policy formula."""
+    n, p = prep.X.shape
+    if n_bucket < n or p_bucket < p:
+        raise ValueError(
+            f"bucket ({n_bucket}, {p_bucket}) must dominate the fleet "
+            f"design shape ({n}, {p})")
+    if (n_bucket, p_bucket) == (n, p):
+        return prep
+    dn, dp = n_bucket - n, p_bucket - p
+    pad = torch.nn.functional.pad
+    return prep._replace(
+        X=pad(prep.X, (0, dp, 0, dn)), Y=pad(prep.Y, (0, dn)),
+        W=None if prep.W is None else pad(prep.W, (0, dn)),
+        c0=pad(prep.c0, (0, dp), value=-math.inf),
+        col_norm=pad(prep.col_norm, (0, dp), value=1.0),
+        n_true=n, p_true=p)
 
 
 def fleet_batch_sizes(prep: FleetPrep, lams, config: SaifConfig):
@@ -177,7 +196,8 @@ def _delta0s(prep: FleetPrep, lams, config: SaifConfig):
 
 def resolve_batch_inner(config: SaifConfig, n: int, k_max: int, b: int,
                         device, itemsize: int = 8,
-                        weighted: bool = False) -> str:
+                        weighted: bool = False,
+                        n_pad: Optional[int] = None) -> str:
     """Fleet inner policy: the serial one. On a card ``auto`` takes the
     Gram engine (K6b) for least squares under the crossover, as the
     reference does, and otherwise K3b while one problem's burst fits K3's
@@ -190,7 +210,10 @@ def resolve_batch_inner(config: SaifConfig, n: int, k_max: int, b: int,
     (K6b) for least squares while GRAM_CROSSOVER * n >= k_max and raises
     otherwise (logistic: the reference's ``auto`` on its accelerator
     picks the kernel, which refuses weights), naming
-    ``inner_backend="torch"``; on the CPU ``auto`` keeps torch/gram."""
+    ``inner_backend="torch"``; on the CPU ``auto`` keeps torch/gram.
+    ``n`` is the real row count; ``n_pad`` the padded one the kernels
+    get (see :func:`~repro_torch.core.inner_backend.resolve_inner_backend`).
+    """
     del b                                   # no fleet factor on the card
     ls = config.loss == "least_squares"
     name = config.inner_backend
@@ -207,7 +230,7 @@ def resolve_batch_inner(config: SaifConfig, n: int, k_max: int, b: int,
                   "card)")
         name = "gram"
     name = resolve_inner_backend(name, config.loss, n, k_max, device,
-                                 itemsize)
+                                 itemsize, n_pad=n_pad)
     if weighted and name == "cuda":
         raise ValueError("the batched cuda inner backend does not take "
                          "sample weights; use 'torch' or 'gram' for CV "
@@ -217,13 +240,17 @@ def resolve_batch_inner(config: SaifConfig, n: int, k_max: int, b: int,
 
 def _solve_fleet(prep: FleetPrep, lams, config: SaifConfig, *, hs, h, k_max,
                  init_idx, init_beta, init_mask, inner: str, screen: str,
-                 use_seq: bool, rule, carries=None) -> List[SaifResult]:
+                 use_seq: bool, rule, carries=None, screen_fn=None,
+                 pad_mask: Optional[Tensor] = None) -> List[SaifResult]:
     """One pass of the fleet at capacity ``k_max`` (the reference's
     ``_saif_batch_jit``): per-problem states advanced by one host loop,
     from the (B, k_max) slot buffers ``init_*`` and, for a warm entry, the
     problems' inbound inner ``carries`` (None = cold; a Gram carry whose
     live slots still back the same features is kept, else rebuilt once).
-    Returns one serial-form result per problem."""
+    ``screen_fn`` is a caller's :data:`BatchScreenFn` (else the resolved
+    ``screen``'s); ``pad_mask`` (p,) flags bucket-pad columns, born
+    active without a slot in every problem. Returns one serial-form
+    result per problem."""
     loss = get_loss(config.loss)
     X, col_norm = prep.X, prep.col_norm
     p, dt = X.shape[1], X.dtype
@@ -236,6 +263,8 @@ def _solve_fleet(prep: FleetPrep, lams, config: SaifConfig, *, hs, h, k_max,
                               None if prep.W is None else ws)
     asets = aset_lib.init_active_set_batch(p, k_max, init_idx, dt, init_beta,
                                            init_mask)
+    if pad_mask is not None:
+        asets = [a._replace(in_active=a.in_active | pad_mask) for a in asets]
     if carries is None:
         carries = cold_inner_carry_batch(b, k_max, dt, X.device, inner)
     carries = binner.init(asets, carries,
@@ -252,7 +281,8 @@ def _solve_fleet(prep: FleetPrep, lams, config: SaifConfig, *, hs, h, k_max,
              inner_epochs=config.inner_epochs,
              polish_factor=config.polish_factor, max_outer=config.max_outer,
              use_seq_ball=use_seq,
-             screen=make_batch_screen(screen, X, col_norm, h),
+             screen=(make_batch_screen(screen, X, col_norm, h)
+                     if screen_fn is None else screen_fn),
              fleet_step=binner.fleet_step, screen_rule=rule,
              newton=(rule.newton_polish and inner == "gram"
                      and config.loss == "least_squares"))
@@ -277,25 +307,29 @@ def stack_results(results: List[SaifResult]) -> SaifResult:
 
 
 def fleet_solve(X, Y, lams, config: SaifConfig = SaifConfig(), device=None,
-                weights=None, prep: Optional[FleetPrep] = None
-                ) -> SaifResult:
+                weights=None, prep: Optional[FleetPrep] = None,
+                screen_fn=None) -> SaifResult:
     """Solve B LASSO problems over one shared design together.
 
     X (n, p) shared design; Y (B, n) responses (an (n,) vector is a fleet
     of one); ``lams`` a scalar or B per-problem lambdas; ``weights``
     optional (B, n) per-problem sample weights (binary row masks: the
     K-fold CV trick; the Thm-2 sequential ball is then off); ``prep`` a
-    :class:`FleetPrep` made before (X, Y and weights are then ignored).
-    ``device=None`` runs on the card; pass ``device="cpu"`` for the plain
-    path on the CPU.
+    :class:`FleetPrep` made before, perhaps bucket-padded by
+    :func:`pad_fleet_prep` (X, Y and weights are then ignored);
+    ``screen_fn`` a custom
+    :data:`~repro_torch.core.screen_backend.BatchScreenFn` sized for the
+    fleet's h. ``device=None`` runs on the card; pass ``device="cpu"`` for
+    the plain path on the CPU.
 
     Returns a :class:`~repro_torch.core.saif.SaifResult` whose every field
     has a leading problem axis; row b is bitwise the serial
     ``saif(X, Y[b], lams[b], config)`` (weighted: bitwise the fleet of one
     of problem b). Under ``parity="fast"`` a least-squares fleet runs the
-    lockstep engine of ``core/batch_fast.py`` instead: each row has the
-    bitwise engine's support, gap <= eps and a passing KKT residual, not
-    its bits. When any problem's ADD overflows
+    lockstep engine of ``core/batch_fast.py`` instead, unless a
+    ``screen_fn`` is given (it owns its scores, so the bitwise engine
+    serves it): each row has the bitwise engine's support, gap <= eps and
+    a passing KKT residual, not its bits. When any problem's ADD overflows
     the shared capacity, the whole fleet starts over cold at twice the
     capacity from the same initial supports, as the reference does.
     """
@@ -306,27 +340,32 @@ def fleet_solve(X, Y, lams, config: SaifConfig = SaifConfig(), device=None,
     dev = resolve_device(device)
     if prep is None:
         prep = prepare_fleet(X, Y, config, weights=weights, device=dev)
-    if prep.n_true or prep.p_true:
-        raise _not_ported("a padded preparation", "A6")
     n, p = prep.X.shape
+    # a padded preparation: every policy reads the real dims
+    n_eff = prep.n_true or n
+    p_eff = prep.p_true or p
+    pad_mask = (torch.arange(p, device=prep.X.device) >= p_eff
+                if p_eff < p else None)
     b = prep.Y.shape[0]
     lam_list = torch.as_tensor(lams, dtype=torch.float64).reshape(-1)
     lam_list = lam_list.expand(b).tolist()
     rule = resolve_screen_rule(config.screen_rule)
     use_seq = config.use_seq_ball and rule.use_seq_ball and prep.W is None
     screen = resolve_batch_screen(config.screen_backend, prep.X.device, b=b,
-                                  p=p)
+                                  p=p_eff)
     hs, h = fleet_batch_sizes(prep, lam_list, config)
-    k_max = config.k_max or default_capacity(h, p)
-    # the lockstep engine: least squares only, as in the reference
-    fast = config.parity == "fast" and config.loss == "least_squares"
+    k_max = config.k_max or default_capacity(h, p_eff)
+    # the lockstep engine: least squares with the built-in screen only, as
+    # in the reference
+    fast = (config.parity == "fast" and config.loss == "least_squares"
+            and screen_fn is None)
     # the cold start is made once, at the first capacity: a regrown fleet
     # restarts from the same (possibly capacity-truncated) supports, as
     # solve_scalar does, so its problems replay their serial regrowths. A
     # low-precision fast screen also selects the cold start on float32 c0
     low = fast and config.screen_dtype != "working"
     init = initial_support_batch(prep.c0.float() if low else prep.c0, hs,
-                                 k_max, p, prep.X.dtype)
+                                 k_max, p_eff, prep.X.dtype)
     while True:
         pad = k_max - init[0].shape[1]
         init = tuple(torch.nn.functional.pad(t, (0, pad)) for t in init)
@@ -335,28 +374,42 @@ def fleet_solve(X, Y, lams, config: SaifConfig = SaifConfig(), device=None,
                 prep, lam_list, config, hs=hs, h=h, k_max=k_max,
                 init_idx=init[0], init_beta=init[1], init_mask=init[2],
                 use_seq=use_seq, rule=rule,
-                delta0=_delta0s(prep, lam_list, config))
-            if not bool(res.overflowed.any()) or k_max >= p:
+                delta0=_delta0s(prep, lam_list, config), pad_mask=pad_mask)
+            if not bool(res.overflowed.any()) or k_max >= p_eff:
                 return res
         else:
-            inner = resolve_batch_inner(config, n, k_max, b, prep.X.device,
-                                        prep.X.element_size(),
-                                        weighted=prep.W is not None)
+            # routed on the real rows; a padded block's kernel gate reads
+            # the padded ones
+            padded_rows = {} if n == n_eff else {"n_pad": n}
+            inner = resolve_batch_inner(config, n_eff, k_max, b,
+                                        prep.X.device, prep.X.element_size(),
+                                        weighted=prep.W is not None,
+                                        **padded_rows)
             results = _solve_fleet(prep, lam_list, config, hs=hs, h=h,
                                    k_max=k_max, init_idx=init[0],
                                    init_beta=init[1], init_mask=init[2],
                                    inner=inner, screen=screen,
-                                   use_seq=use_seq, rule=rule)
-            if not any(r.overflowed for r in results) or k_max >= p:
+                                   use_seq=use_seq, rule=rule,
+                                   screen_fn=screen_fn, pad_mask=pad_mask)
+            if not any(r.overflowed for r in results) or k_max >= p_eff:
                 return stack_results(results)
-        k_max = min(2 * k_max, p)
+        k_max = min(2 * k_max, p_eff)
 
 
 def saif_batch(X, Y, lams, config: SaifConfig = SaifConfig(),
-               weights=None, device=None) -> SaifResult:
-    """Thin frontend of :func:`fleet_solve` (the reference's legacy name;
-    the port has no Session yet)."""
-    return fleet_solve(X, Y, lams, config, device=device, weights=weights)
+               weights=None, device=None, screen_fn=None) -> SaifResult:
+    """DEPRECATED legacy frontend: a one-shot session over
+    :func:`fleet_solve`. Use
+    ``repro_torch.open_session(Problem(X), config).solve(Fleet(Y, lams))``.
+    """
+    from repro_torch.core._compat import warn_deprecated
+    from repro_torch.core.api import Fleet, Problem, open_session
+    warn_deprecated("repro_torch.saif_batch",
+                    "session.solve(Fleet(Y, lams))")
+    sess = open_session(Problem(X=X, loss=config.loss), config,
+                        device=device)
+    return sess.solve(Fleet(Y=Y, lams=lams, weights=weights,
+                            screen_fn=screen_fn))
 
 
 def fleet_warm_state(results: List[SaifResult]):

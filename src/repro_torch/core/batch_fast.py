@@ -244,7 +244,8 @@ def _newton_fleet(loss, carry, aset, Xa, Y, W, lam, beta, theta, gap,
 def solve_fleet_fast(prep, lams, config: SaifConfig, *, hs, h: int,
                      k_max: int, init_idx: Tensor, init_beta: Tensor,
                      init_mask: Tensor, use_seq: bool, rule,
-                     delta0) -> SaifResult:
+                     delta0, pad_mask: Optional[Tensor] = None
+                     ) -> SaifResult:
     """One pass of the fast fleet at capacity ``k_max`` (the reference's
     ``_saif_batch_fast_jit``): the outer loop as a host loop of batch-axis
     ops over the (B, ...) state. Returns a :class:`SaifResult` whose every
@@ -254,7 +255,9 @@ def solve_fleet_fast(prep, lams, config: SaifConfig, *, hs, h: int,
     The kernels run on a card: K1b (mixed mode for a low-precision
     ``screen_dtype``) with K2b for the screen, K6b for the sweep. An
     explicit ``screen_backend="torch"`` / ``inner_backend="torch"`` takes
-    the screen's / the sweep's plain version instead, on any device."""
+    the screen's / the sweep's plain version instead, on any device.
+    ``pad_mask`` (p,) flags a padded preparation's bucket-pad columns,
+    born active without a slot in every problem."""
     from repro_torch.kernels.gram.gram import gram_smem_ok
 
     loss = get_loss(config.loss)
@@ -288,6 +291,8 @@ def solve_fleet_fast(prep, lams, config: SaifConfig, *, hs, h: int,
 
     aset = aset_lib.init_active_set_stacked(p, k_max, init_idx, dt,
                                             init_beta, init_mask)
+    if pad_mask is not None:
+        aset = aset._replace(in_active=aset.in_active | pad_mask)
     carry, _ = _gram_rebuild_fast(X, Y, W, aset)
     is_add = torch.ones(b, dtype=torch.bool, device=dev)
     gap = torch.full((b,), math.inf, dtype=dt, device=dev)

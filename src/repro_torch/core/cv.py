@@ -173,3 +173,21 @@ def one_se_lambda(lams: np.ndarray, cv_mean: np.ndarray,
     # descending grid: the first index within the threshold is the largest
     # eligible lambda (i_min itself qualifies, so one exists)
     return float(lams[int(np.argmax(cv_mean <= thresh))])
+
+
+def cv_path(X, y, lams: Sequence[float], n_folds: int = 5,
+            config: SaifConfig = SaifConfig(), seed: int = 0,
+            keep_fold_betas: bool = False, refit: bool = True,
+            device=None) -> CVPathResult:
+    """DEPRECATED legacy frontend: a one-shot session over
+    :func:`cv_solve`. Use ``repro_torch.open_session(Problem(X, y),
+    config).solve(CV(n_folds, lams))``."""
+    from repro_torch.core._compat import warn_deprecated
+    from repro_torch.core.api import CV, Problem, open_session
+    warn_deprecated("repro_torch.cv_path",
+                    "session.solve(CV(n_folds, lams))")
+    sess = open_session(Problem(X=X, y=y, loss=config.loss), config,
+                        device=device)
+    return sess.solve(CV(n_folds=n_folds,
+                         lams=tuple(float(l) for l in lams), seed=seed,
+                         keep_fold_betas=keep_fold_betas, refit=refit))

@@ -22,14 +22,14 @@ unpenalized coordinate b.
     smooth loss, logistic included. Theorem 7's exact least-squares
     elimination (:func:`eliminate_b_ls`) stays as a parity oracle.
 
-:func:`saif_fused` and :func:`fused_path` do what the reference's session
-does for a fused penalty: transform once, solve (or run the path engine)
-on the transformed design with the b column last, recover node-space
-coefficients.
+A fused session (``repro_torch.core.api``, ``penalty=fused(parent)``)
+transforms once at ``open_session``, solves (or runs the path engine) on
+the transformed design with the b column last, and recovers node-space
+coefficients; :func:`saif_fused` and :func:`fused_path` are deprecated
+shims over a one-shot session.
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -38,10 +38,9 @@ import torch
 from repro_torch.core.cm import solve_lasso_cm
 from repro_torch.core.duality import null_gradient
 from repro_torch.core.losses import get_loss
-from repro_torch.core.path import SaifPathResult, run_path
+from repro_torch.core.path import SaifPathResult
 from repro_torch.core.saif import (SaifConfig, SaifResult, as_tensor,
-                                   prepare_path, resolve_device, saif,
-                                   solve_scalar)
+                                   resolve_device, saif)
 
 Tensor = torch.Tensor
 
@@ -276,39 +275,43 @@ def recover_from_transformed(beta_t: Tensor,
                                design.schedule)
 
 
-def _fused_problem(X, y, parent, config: SaifConfig, transform_backend,
-                   device):
-    design = prepare_fused(X, parent, transform_backend, device)
-    cfg = dataclasses.replace(config, unpen_idx=design.unpen_idx)
-    y = as_tensor(y, design.Xt.device, design.Xt.dtype)
-    return design, cfg, prepare_path(design.Xt, y, cfg, design.Xt.device)
-
-
 def saif_fused(X, y, parent, lam: float,
                config: SaifConfig = SaifConfig(),
                transform_backend: str = "auto",
                device=None) -> Tuple[Tensor, SaifResult]:
-    """Fused LASSO at ``lam`` on the tree ``parent``: transform once, solve
-    the transformed problem with b as the unpenalized slot, recover. Returns
-    (node-space beta, the transformed-space SaifResult)."""
-    design, cfg, prep = _fused_problem(X, y, parent, config,
-                                       transform_backend, device)
-    res = solve_scalar(prep, float(lam), cfg, device=design.Xt.device)
-    return recover_from_transformed(res.beta, design), res
+    """DEPRECATED legacy frontend: a one-shot fused session. Use
+    ``repro_torch.open_session(Problem(X, y, penalty=fused(parent)),
+    config).solve(Scalar(lam))``; the session transforms once and serves
+    every later request from it. Returns (node-space beta, the
+    transformed-space SaifResult)."""
+    from repro_torch.core._compat import warn_deprecated
+    from repro_torch.core.api import Problem, Scalar, open_session
+    from repro_torch.core.api import fused as fused_penalty
+    warn_deprecated("repro_torch.saif_fused",
+                    "session.solve(Scalar(lam)) with penalty=fused(parent)")
+    sess = open_session(
+        Problem(X=X, y=y, loss=config.loss,
+                penalty=fused_penalty(parent, transform_backend)),
+        config, device=device)
+    return sess.solve(Scalar(lam=float(lam)))
 
 
 def fused_path(X, y, parent, lams, config: SaifConfig = SaifConfig(),
                transform_backend: str = "auto", segment_len: int = 16,
                device=None) -> FusedPathResult:
-    """Fused LASSO over the descending grid ``lams``: one transform, then
-    the warm-started path engine with b pinned resident."""
-    design, cfg, prep = _fused_problem(X, y, parent, config,
-                                       transform_backend, device)
-    pr, _, _ = run_path(prep, [float(l) for l in lams], cfg,
-                        segment_len=segment_len)
-    return FusedPathResult(
-        lams=pr.lams, path=pr,
-        betas=[recover_from_transformed(b, design) for b in pr.betas])
+    """DEPRECATED legacy frontend: a one-shot fused session over the path
+    engine, b pinned resident. Use ``open_session(Problem(X, y,
+    penalty=fused(parent)), config).solve(Path(lams))``."""
+    from repro_torch.core._compat import warn_deprecated
+    from repro_torch.core.api import Path, Problem, open_session
+    from repro_torch.core.api import fused as fused_penalty
+    warn_deprecated("repro_torch.fused_path",
+                    "session.solve(Path(lams)) with penalty=fused(parent)")
+    sess = open_session(
+        Problem(X=X, y=y, loss=config.loss,
+                penalty=fused_penalty(parent, transform_backend)),
+        config, segment_len=segment_len, device=device)
+    return sess.solve(Path(lams=tuple(float(l) for l in lams)))
 
 
 def fused_lambda_max(X, y, parent, loss: str = "least_squares",

@@ -481,7 +481,8 @@ GRAM_CROSSOVER = 4.0
 
 def resolve_inner_backend(name: str, loss_name: str, n: int, k_max: int,
                           device: torch.device, itemsize: int = 8,
-                          unpen: bool = False) -> str:
+                          unpen: bool = False,
+                          n_pad: Optional[int] = None) -> str:
     """Inner-backend policy: an explicit name wins. ``auto`` takes the
     reference's choice first: the Gram engine for least squares while
     GRAM_CROSSOVER * n >= k_max (on a CUDA device, kernel K6, which also
@@ -491,7 +492,11 @@ def resolve_inner_backend(name: str, loss_name: str, n: int, k_max: int,
     ``unpen``: with the unpenalized slot's weights), and on the CPU the
     plain path. A burst that fits neither raises on a CUDA device, under
     ``auto`` as under ``cuda``: the plain path there is a host loop that
-    the caller must ask for by name."""
+    the caller must ask for by name.
+
+    A bucket-padded problem routes on its real rows ``n`` while the
+    kernel's shared-memory gate reads the rows it is handed, ``n_pad``
+    (default ``n``): a route that the padded block does not fit raises."""
     from repro_torch.kernels.cm.cm import cm_smem_ok
     from repro_torch.kernels.gram.gram import gram_smem_ok
 
@@ -514,9 +519,10 @@ def resolve_inner_backend(name: str, loss_name: str, n: int, k_max: int,
             f"Gram inner backend: capacity {k_max} exceeds the Gram-sweep "
             f"kernel's shared-memory budget; shrink k_max, or pass "
             f"inner_backend='torch' (a host loop on the card)")
-    if name == "cuda" and not cm_smem_ok(n, k_max, itemsize, unpen):
+    rows = n if n_pad is None else n_pad
+    if name == "cuda" and not cm_smem_ok(rows, k_max, itemsize, unpen):
         raise ValueError(
-            f"CUDA inner backend: a {n}x{k_max} active block exceeds the "
+            f"CUDA inner backend: a {rows}x{k_max} active block exceeds the "
             f"CM kernel's shared-memory budget; shrink k_max, or pass "
             f"inner_backend='torch' (a host loop on the card) or, for "
             f"least squares, 'gram'")

@@ -22,12 +22,14 @@ the last:
     segment re-runs from its entry state.
 
 The reference routes each engine call through a fault-injection seam; the
-port has no fault runtime yet (the Session slice), so it has no seam.
+port has no fault runtime yet (ROADMAP A6.2), so it has no seam. The
+legacy frontend :func:`saif_path` is a deprecated shim over a one-shot
+session (``repro_torch.core.api``).
 """
 from __future__ import annotations
 
 import math
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,9 +41,8 @@ from repro_torch.core.inner_backend import (InnerCarry, cold_inner_carry,
 from repro_torch.core.losses import get_loss
 from repro_torch.core.saif import (PathState, SaifConfig, SaifResult, _solve,
                                    add_batch_size_static, default_capacity,
-                                   initial_support, prepare_path,
-                                   resolve_device, saif)
-from repro_torch.core.screen_backend import (resolve_backend,
+                                   initial_support, resolve_device, saif)
+from repro_torch.core.screen_backend import (ScreenFn, resolve_backend,
                                              resolve_screen_rule)
 
 Tensor = torch.Tensor
@@ -72,7 +73,8 @@ def _inner_name(prep: PathState, config: SaifConfig, k: int) -> str:
     n = prep.n_true or prep.X.shape[0]
     return resolve_inner_backend(config.inner_backend, config.loss, n, k,
                                  prep.X.device, prep.X.element_size(),
-                                 config.unpen_idx is not None)
+                                 config.unpen_idx is not None,
+                                 n_pad=prep.X.shape[0])
 
 
 def cold_start(prep: PathState, h0: int, k: int,
@@ -171,12 +173,17 @@ def _segments(n_lams: int, segment_len: int) -> List[slice]:
 
 
 def run_path(prep: PathState, lams: Sequence[float],
-             config: SaifConfig = SaifConfig(), segment_len: int = 16,
+             config: SaifConfig = SaifConfig(),
+             make_screen: Optional[Callable[[int], ScreenFn]] = None,
+             segment_len: int = 16,
              warm0: Optional[WarmState] = None,
              k_max0: Optional[int] = None
              ) -> Tuple[SaifPathResult, WarmState, int]:
     """The path engine: solve the grid ``lams`` (sorted descending) from
-    ``prep``, each solve warm-starting from the last. ``warm0``/``k_max0``
+    ``prep``, each solve warm-starting from the last. ``make_screen`` threads
+    a custom screen through every solve: it is called once with the
+    engine's grid-max candidate count h and returns the ScreenFn (else
+    ``config.screen_backend`` picks a built-in one). ``warm0``/``k_max0``
     are an entry warm state and the capacity it was built at (None = a cold
     entry, the same as a standalone solve at the first lambda). Returns
     (result, exit warm state, capacity)."""
@@ -198,6 +205,8 @@ def run_path(prep: PathState, lams: Sequence[float],
         k_max = max(k_max, k_max0)
     if warm0 is not None:
         k_max = max(k_max, int(warm0[0].shape[0]))
+    # the custom screen's candidate buffer is the grid-max h
+    screen_fn = make_screen(h) if make_screen is not None else None
 
     def run_lam(lam: float, h_lam: int, warm: WarmState) -> SaifResult:
         delta0 = config.delta0 if config.delta0 is not None else \
@@ -211,7 +220,8 @@ def run_path(prep: PathState, lams: Sequence[float],
             polish_factor=config.polish_factor, max_outer=config.max_outer,
             use_seq_ball=use_seq, screen_backend=screen,
             inner_backend=_inner_name(prep, config, k_max),
-            screen_rule=rule, unpen_idx=unpen_i, p_true=p_true)
+            screen_rule=rule, unpen_idx=unpen_i, p_true=p_true,
+            screen_fn=screen_fn)
 
     results: List[SaifResult] = [None] * len(lams_np)
     if warm0 is not None:
@@ -240,14 +250,22 @@ def run_path(prep: PathState, lams: Sequence[float],
 
 
 def saif_path(X, y, lams: Sequence[float],
-              config: SaifConfig = SaifConfig(), segment_len: int = 16,
-              device=None) -> SaifPathResult:
-    """Solve the descending grid ``lams`` with the warm-started path engine:
-    prepare once, then :func:`run_path` from a cold entry. ``device=None``
-    runs on the card."""
-    dev = resolve_device(device)
-    prep = prepare_path(X, y, config, dev)
-    return run_path(prep, lams, config, segment_len=segment_len)[0]
+              config: SaifConfig = SaifConfig(),
+              make_screen: Optional[Callable[[int], ScreenFn]] = None,
+              segment_len: int = 16, device=None) -> SaifPathResult:
+    """DEPRECATED legacy frontend: a one-shot session over
+    :func:`run_path` from a cold entry. Use
+    ``repro_torch.open_session(Problem(X, y), config).solve(Path(lams))``;
+    a held-open session keeps the preparation and the warm buffers for the
+    next request. ``device=None`` runs on the card."""
+    from repro_torch.core._compat import warn_deprecated
+    from repro_torch.core.api import Path as PathRequest
+    from repro_torch.core.api import Problem, open_session
+    warn_deprecated("repro_torch.saif_path", "session.solve(Path(lams))")
+    sess = open_session(Problem(X=X, y=y, loss=config.loss), config,
+                        make_screen=make_screen, segment_len=segment_len,
+                        device=device)
+    return sess.solve(PathRequest(lams=tuple(float(l) for l in lams)))
 
 
 def saif_path_naive(X, y, lams: Sequence[float],

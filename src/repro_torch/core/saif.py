@@ -38,6 +38,7 @@ from repro_torch.core.inner_backend import (InnerCarry, _dual_and_gap,
 from repro_torch.core.losses import get_loss, mv_last, per_problem
 from repro_torch.core.screen_backend import (BatchScreenFn, ScreenFn,
                                              ScreenRule, make_screen_cuda,
+                                             make_screen_from_scan,
                                              make_screen_torch,
                                              resolve_backend,
                                              resolve_screen_rule)
@@ -456,15 +457,18 @@ def _solve(X, y, col_norm, c0, lam, eps, delta0, init_idx, init_beta,
            init_mask, carry_in: InnerCarry, h_tilde, h_cap, *, loss_name,
            h, k_max, inner_epochs, polish_factor, max_outer, use_seq_ball,
            screen_backend, inner_backend, screen_rule: ScreenRule,
-           unpen_idx: int = -1, p_true: int = 0) -> SaifResult:
+           unpen_idx: int = -1, p_true: int = 0,
+           screen_fn: Optional[ScreenFn] = None) -> SaifResult:
     """One serial solve (the reference's ``_saif_jit``): the engine
-    :func:`_advance` on a fleet of one, with the serial screen and inner
-    backend. With ``p_true < p`` the columns from ``p_true`` on are
-    bucket padding."""
+    :func:`_advance` on a fleet of one, with the serial screen (a caller's
+    ``screen_fn``, else ``screen_backend``'s) and inner backend. With
+    ``p_true < p`` the columns from ``p_true`` on are bucket padding."""
     loss = get_loss(loss_name)
     p = X.shape[1]
-    make_screen = (make_screen_cuda if screen_backend == "cuda"
-                   else make_screen_torch)
+    if screen_fn is None:
+        make_screen = (make_screen_cuda if screen_backend == "cuda"
+                       else make_screen_torch)
+        screen_fn = make_screen(X, col_norm, h)
     inner = make_inner(inner_backend, loss, X, y, col_norm, h, unpen_idx)
     aset = aset_lib.init_active_set(p, k_max, init_idx, X.dtype, init_beta,
                                     live_mask=init_mask)
@@ -481,7 +485,7 @@ def _solve(X, y, col_norm, c0, lam, eps, delta0, init_idx, init_beta,
     _advance([prob], X, loss=loss, h=h, inner_epochs=inner_epochs,
              polish_factor=polish_factor, max_outer=max_outer,
              use_seq_ball=use_seq_ball,
-             screen=one_problem_screen(make_screen(X, col_norm, h)),
+             screen=one_problem_screen(screen_fn),
              fleet_step=None, screen_rule=screen_rule,
              newton=(screen_rule.newton_polish and inner_backend == "gram"
                      and loss_name == "least_squares" and unpen_idx < 0),
@@ -550,12 +554,47 @@ def prepare_path(X, y, config: SaifConfig = SaifConfig(),
                      b0=float(b0))
 
 
+def pad_path_state(prep: PathState, n_bucket: int,
+                   p_bucket: int) -> PathState:
+    """Zero-pad a real preparation up to a bucket shape (the reference's
+    DESIGN.md §12).
+
+    The statistics stay those of the REAL problem: c0 pads sit at -inf
+    (they never win a top-h or a max), column-norm pads at 1.0 (never
+    read, since every screen masks the pads, but finite), and
+    ``n_true``/``p_true`` record the real dims for every policy formula.
+    Zero pad rows are inert for least squares in exact arithmetic (each
+    adds 0 to the primal, the gradient and the column norms), but they
+    change the rounding of sums over n. Column padding is bitwise inert:
+    no engine reduction runs over the feature axis (a screen scores each
+    column on its own, selection is a stable sort or a max)."""
+    n, p = prep.X.shape
+    if n_bucket < n or p_bucket < p:
+        raise ValueError(
+            f"bucket ({n_bucket}, {p_bucket}) must dominate the problem "
+            f"shape ({n}, {p})")
+    if (n_bucket, p_bucket) == (n, p):
+        return prep
+    dn, dp = n_bucket - n, p_bucket - p
+    pad = torch.nn.functional.pad
+    return prep._replace(
+        X=pad(prep.X, (0, dp, 0, dn)), y=pad(prep.y, (0, dn)),
+        c0=pad(prep.c0, (0, dp), value=-math.inf),
+        col_norm=pad(prep.col_norm, (0, dp), value=1.0),
+        n_true=n, p_true=p)
+
+
 def solve_scalar(prep: PathState, lam: float,
                  config: SaifConfig = SaifConfig(),
-                 warm_idx=None, warm_beta=None, device=None) -> SaifResult:
+                 warm_idx=None, warm_beta=None, device=None, *,
+                 scan_fn=None, screen_fn: Optional[ScreenFn] = None
+                 ) -> SaifResult:
     """Solve LASSO at ``lam`` from an existing preparation (the host side):
     h, capacity, the initial active set, the backend choice and the
-    capacity-overflow regrowth loop."""
+    capacity-overflow regrowth loop. ``screen_fn`` plugs a whole custom
+    :data:`ScreenFn`; ``scan_fn`` (``theta -> |X^T theta|``) a bare scan,
+    adapted by :func:`make_screen_from_scan`. A session
+    (``repro_torch.core.api``) prepares once and calls this per request."""
     dev = resolve_device(device)
     X, y, c0, col_norm = (t.to(dev) for t in
                           (prep.X, prep.y, prep.c0, prep.col_norm))
@@ -574,6 +613,8 @@ def solve_scalar(prep: PathState, lam: float,
     delta0 = config.delta0 if config.delta0 is not None else \
         min(max(lam / prep.lam_max, 1e-3), 1.0)
     screen = resolve_backend(config.screen_backend, dev)
+    if screen_fn is None and scan_fn is not None:
+        screen_fn = make_screen_from_scan(scan_fn, col_norm, h)
 
     if warm_idx is not None:
         k_max = max(k_max, default_capacity(h, p_true))
@@ -606,7 +647,7 @@ def solve_scalar(prep: PathState, lam: float,
         # capacity growth can move the auto crossover
         inner = resolve_inner_backend(config.inner_backend, config.loss,
                                       n_true, k_max, dev, X.element_size(),
-                                      unpen is not None)
+                                      unpen is not None, n_pad=n)
         res = _solve(
             X, y, col_norm, c0, lam, config.eps, delta0, init_idx,
             init_beta, torch.arange(k_max, device=dev) < n_init,
@@ -616,17 +657,22 @@ def solve_scalar(prep: PathState, lam: float,
             polish_factor=config.polish_factor, max_outer=config.max_outer,
             use_seq_ball=use_seq, screen_backend=screen,
             inner_backend=inner, screen_rule=rule,
-            unpen_idx=-1 if unpen is None else unpen, p_true=p_true)
+            unpen_idx=-1 if unpen is None else unpen, p_true=p_true,
+            screen_fn=screen_fn)
         if not res.overflowed or k_max >= p_true:
             return res
         k_max = min(2 * k_max, p_true)  # elastic capacity growth
 
 
 def saif(X, y, lam: float, config: SaifConfig = SaifConfig(),
-         warm_idx=None, warm_beta=None, device=None) -> SaifResult:
-    """Solve LASSO at ``lam`` with SAIF: prepare + solve. ``device=None``
-    runs on the card; pass ``device="cpu"`` for the plain path on the
-    CPU."""
+         warm_idx=None, warm_beta=None, device=None, *, scan_fn=None,
+         screen_fn: Optional[ScreenFn] = None) -> SaifResult:
+    """Solve LASSO at ``lam`` with SAIF: one-shot prepare + solve (the
+    hooks as in :func:`solve_scalar`). ``device=None`` runs on the card;
+    pass ``device="cpu"`` for the plain path on the CPU. Callers with more
+    than one request on a problem should hold a session
+    (``repro_torch.open_session``), which prepares once."""
     dev = resolve_device(device)
     return solve_scalar(prepare_path(X, y, config, dev), lam, config,
-                        warm_idx=warm_idx, warm_beta=warm_beta, device=dev)
+                        warm_idx=warm_idx, warm_beta=warm_beta, device=dev,
+                        scan_fn=scan_fn, screen_fn=screen_fn)

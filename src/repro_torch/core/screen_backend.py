@@ -5,7 +5,8 @@ Per outer iteration the ADD decision needs, from the full feature set R_t:
 the ADD-stop reduction max ub, the top-h candidates (score, feature id),
 their lower bounds lb_l = |score_l - ||x_l|| r| and their violation counts
 |V_l| = #{i in R_t : ub_i >= lb_l}. A :data:`ScreenFn` returns all of them
-as one :class:`ScreenOut`. Two backends:
+as one :class:`ScreenOut`. Two backends (and
+:func:`make_screen_from_scan`, which wraps a caller's own scan):
 
   * ``torch`` — one matvec, a stable descending sort for the top-h, and
                 searchsorted/bincount counts (the reference's ``jnp``);
@@ -84,14 +85,24 @@ def _candidate_out(scores_masked, ub, col_norm, r, h) -> ScreenOut:
                      n_surv=survivor_count(ub))
 
 
-def make_screen_torch(X: Tensor, col_norm: Tensor, h: int) -> ScreenFn:
-    """Plain backend: one matvec (``theta @ X``) + cheap reductions."""
+def make_screen_from_scan(scan_fn: Callable[[Tensor], Tensor],
+                          col_norm: Tensor, h: int) -> ScreenFn:
+    """Adapt a bare ``theta -> |X^T theta|`` scan to the full backend
+    interface; everything past the scan is the plain screen's O(p) tail."""
     def screen(theta, r, in_active):
-        score = torch.abs(theta @ X)
-        masked = torch.where(in_active, -torch.inf, score)
+        masked = torch.where(in_active, -torch.inf, scan_fn(theta))
         ub = masked + col_norm * r
         return _candidate_out(masked, ub, col_norm, r, h)
     return screen
+
+
+def make_screen_torch(X: Tensor, col_norm: Tensor, h: int) -> ScreenFn:
+    """Plain backend: one matvec (``theta @ X``) + cheap reductions. The
+    row-vector orientation keeps each column's sum independent of how
+    many columns follow it, so p-bucket padding leaves every real
+    column's score bitwise unchanged."""
+    return make_screen_from_scan(lambda theta: torch.abs(theta @ X),
+                                 col_norm, h)
 
 
 def make_screen_cuda(X: Tensor, col_norm: Tensor, h: int) -> ScreenFn:

@@ -14,81 +14,28 @@ without asking them to pick a lambda:
   4. a full-data refit at the chosen lambda (the serial engine).
 
 On a card the CV and stability fleets of least squares run K1b + K2b +
-K6b and the refit K1/K2/K3. The reference validates a :class:`Select` in
-its serving layer (``validate_request``); the port keeps its own copy of
-those checks and raises ``ValueError`` where the reference raises its
-``RequestError`` (a ``ValueError``).
+K6b and the refit K1/K2/K3. A :class:`Select` is checked at construction
+by the admission control of ``core/serving.py`` (``RequestError``, a
+``ValueError``). Module scope stays numpy and stdlib only (the lazy public
+surface); torch loads with the functions that solve.
 """
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Any, NamedTuple, Optional, Tuple
 
 import numpy as np
-import torch
 
 __all__ = ["Select", "SelectionReport", "subsample_weights",
            "stability_frequencies", "select_solve"]
-
-
-def _require_lam(lam, what: str) -> None:
-    arr = np.asarray(lam, dtype=np.float64)
-    if arr.ndim > 1:
-        raise ValueError(f"{what} must be a scalar or 1-D grid, got "
-                         f"shape {arr.shape}")
-    if not np.all(np.isfinite(arr)):
-        raise ValueError(f"{what} must be finite, got {lam!r}")
-    if not np.all(arr > 0.0):
-        raise ValueError(
-            f"{what} must be > 0 (lam = 0 is an unregularized fit the "
-            f"screening certificate does not cover), got {lam!r}")
-
-
-def validate_select(req: "Select") -> None:
-    """The reference's checks of a Select request
-    (``repro/core/serving.py``), raising ``ValueError``."""
-    lams = np.asarray(req.lams, dtype=np.float64)
-    if lams.size == 0:
-        raise ValueError("Select.lams must be a non-empty grid")
-    _require_lam(lams, "Select.lams")
-    if int(req.n_folds) < 2:
-        raise ValueError(f"Select.n_folds must be >= 2, got {req.n_folds}")
-    if req.rule not in ("1se", "min"):
-        raise ValueError(
-            f"Select.rule must be '1se' or 'min', got {req.rule!r}")
-    if req.stability:
-        if int(req.n_subsamples) < 2:
-            raise ValueError(
-                f"Select.n_subsamples must be >= 2 (selection frequencies "
-                f"need >= 2 subsamples), got {req.n_subsamples}")
-        frac = float(req.subsample_frac)
-        if not (0.0 < frac < 1.0):
-            raise ValueError(f"Select.subsample_frac must lie in (0, 1), "
-                             f"got {req.subsample_frac!r}")
-    pi = float(req.pi_threshold)
-    if not (0.0 < pi <= 1.0):
-        raise ValueError(f"Select.pi_threshold must lie in (0, 1], got "
-                         f"{req.pi_threshold!r}")
-    if req.deadline_s is not None:
-        d = float(req.deadline_s)
-        if not math.isfinite(d) or d <= 0.0:
-            raise ValueError(
-                f"Select.deadline_s must be a finite positive number of "
-                f"seconds (or None), got {req.deadline_s!r}")
-    if not isinstance(req.priority, (int, np.integer)) or isinstance(
-            req.priority, bool):
-        raise ValueError(f"Select.priority must be an int (higher dequeues "
-                         f"first), got {req.priority!r}")
 
 
 @dataclasses.dataclass(frozen=True)
 class Select:
     """Model-selection request: CV over ``lams``, 1-SE choice, optional
     stability selection, full-data refit. ``deadline_s`` and ``priority``
-    are the reference's serving knobs: nothing in the port reads them (it
-    has no serving layer yet, ROADMAP A6); they stay only so that the
-    requests the reference refuses are refused here too."""
+    are the serving knobs every request carries (validated here; the
+    serving layer that reads them is ROADMAP A6.2)."""
     lams: Any
     n_folds: int = 5
     rule: str = "1se"                 # "1se" | "min"
@@ -103,7 +50,8 @@ class Select:
     priority: int = 0
 
     def __post_init__(self):
-        validate_select(self)
+        from repro_torch.core.serving import validate_request
+        validate_request(self)
 
 
 class SelectionReport(NamedTuple):
@@ -125,11 +73,13 @@ class SelectionReport(NamedTuple):
 
 
 def subsample_weights(n: int, n_subsamples: int, frac: float,
-                      seed: int = 0, dtype=torch.float64) -> torch.Tensor:
+                      seed: int = 0, dtype=None) -> "torch.Tensor":
     """(B, n) binary row masks, each keeping ``floor(frac * n)`` rows drawn
     without replacement (numpy's RNG, bitwise the reference's masks for
     the same seed): the stability-selection analogue of
-    :func:`~repro_torch.core.cv.kfold_weights`. A CPU tensor."""
+    :func:`~repro_torch.core.cv.kfold_weights`. A CPU tensor, float64
+    unless ``dtype`` says otherwise."""
+    import torch
     m = int(frac * n)
     if not 1 <= m < n:
         raise ValueError(f"subsample_frac={frac} keeps {m} of {n} rows; "
@@ -138,7 +88,7 @@ def subsample_weights(n: int, n_subsamples: int, frac: float,
     W = np.zeros((n_subsamples, n))
     for b in range(n_subsamples):
         W[b, rng.choice(n, size=m, replace=False)] = 1.0
-    return torch.from_numpy(W).to(dtype)
+    return torch.from_numpy(W).to(dtype or torch.float64)
 
 
 def stability_frequencies(X, y, lam: float, config, n_subsamples: int,
@@ -146,6 +96,7 @@ def stability_frequencies(X, y, lam: float, config, n_subsamples: int,
                           ) -> Tuple[np.ndarray, Any]:
     """Selection frequency per feature over B subsample solves, run as ONE
     weighted fleet. Returns ``(freq (p,), the fleet's SaifResult)``."""
+    import torch
     from repro_torch.core.batch import fleet_solve
     from repro_torch.core.saif import as_tensor, resolve_device
 

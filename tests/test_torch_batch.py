@@ -283,13 +283,14 @@ def test_unported_fleet_options_raise():
                        device="cpu", weights=np.ones_like(Y))
     with pytest.raises(NotImplementedError):
         rt.fleet_solve(X, Y, lams, rt.SaifConfig(unpen_idx=0), device="cpu")
+    # bucket padding is ported (tests/test_torch_bucket.py); a bucket that
+    # would crop the design is refused
     prep = rt.prepare_fleet(X, Y, device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        rt.fleet_solve(X, Y, lams, rt.SaifConfig(), device="cpu",
-                       prep=prep._replace(p_true=25))
     from repro_torch.core.batch import pad_fleet_prep
-    with pytest.raises(NotImplementedError, match="A6"):
-        pad_fleet_prep(prep, 32, 64)
+    with pytest.raises(ValueError, match="must dominate"):
+        pad_fleet_prep(prep, 16, 64)
+    with pytest.raises(ValueError, match="must dominate"):
+        pad_fleet_prep(prep, 32, 16)
 
 
 def test_fleet_refuses_to_fall_back(monkeypatch):
