@@ -153,12 +153,27 @@ Phases (each one fails the run by raising):
    steps against the cold solve's, the digest's cost, the cache's stats
    and events; ``[session-fused]``: phase 5's chain problem through
    ``Problem(penalty=fused(parent))``, K4 once at open, a Scalar and
-   phase 7's Path bit for bit ``saif_fused`` / ``fused_path``.
+   phase 7's Path bit for bit ``saif_fused`` / ``fused_path``;
+21. the fault-tolerant serving runtime, after the sessions:
+   ``[serving-ls]``: phase 20's request mix once through ``open_serving``
+   on phase 2's problem, every verdict ok and not degraded, no retry, the
+   breaker closed, each value bit for bit and each request's launches
+   equal to phase 20's first pass, each request's ``kkt_check_ms`` beside
+   its wall; ``[serving-drill]`` under a ``FaultInjector``: a NaN poke on
+   Scalar(0.3) with ``ladder=("oracle",)`` (ok, degraded, the rung K7 and
+   no other kernel, the cold support, the rung's wall), ``fail_at={1}``
+   (one retry, then the cold Scalar bit for bit), the breaker
+   (``fail_at={1, 2, 3}``: a typed ``BackendFault``, recorded in
+   ``stats()``, the next request refused, no launch and no plain solve
+   after it), and a full-width warm
+   checkpoint restored by a second ``open_serving`` whose warm Scalar is
+   bit for bit the uninterrupted one's (digest, write and restore times).
+   Every phase but the drill's breaker fails if the breaker opens.
 
 Launch counters are zeroed just before each solve (and the transform of
 phase 4, the CV fleets, the CV refit, the selection, the K5 call, each
-baseline, each session request and the fused session's open) and read
-just after; the
+baseline, each session and serving request, the oracle rung and the
+fused session's open) and read just after; the
 kernel launches of phases 8, 12, 17 and 18, of the checks of phases 13-14, of
 the comparisons of phase 4, of the serial solves that phases 9-10 compare
 with, of the lambda_max helpers and of one extra solve
@@ -1258,7 +1273,8 @@ def session_ls_phase(X, y, lm, ls_auto, Yf, fl_lams, fl_res, fl_wall,
     its direct call (phases 2 and 9's results where they match), and in
     the second pass bit for bit its first; the preparation counted (one,
     at open); each request's hot wall beside its direct call's; one hot
-    Scalar profiled later. Returns (the session, launch counts)."""
+    Scalar profiled later. Returns (the session, launch counts, and the
+    first pass: the requests, their results, walls and launch counts)."""
     import numpy as np
     import torch
     import repro_torch as rt
@@ -1361,7 +1377,7 @@ def session_ls_phase(X, y, lm, ls_auto, Yf, fl_lams, fl_res, fl_wall,
         X, y, cv_lams, CV_FOLDS, cfg, keep_fold_betas=True, refit=False))
 
     total = {k: 0 for k in ops.KERNELS}
-    first, walls, hot = {}, {}, {}
+    first, walls, hot, first_counts = {}, {}, {}, {}
     saif_mod.prepare_path = counted
     try:
         for rnd in (1, 2):
@@ -1377,6 +1393,7 @@ def session_ls_phase(X, y, lm, ls_auto, Yf, fl_lams, fl_res, fl_wall,
                 cold = name in direct
                 if rnd == 1:
                     first[name], walls[name] = res, wall
+                    first_counts[name] = counts
                     ok = same(name, res, direct[name][0]) if cold else None
                     line = (f"bitwise_direct={ok} direct_wall_s="
                             f"{direct[name][1]:.4f}" if cold else
@@ -1414,7 +1431,7 @@ def session_ls_phase(X, y, lm, ls_auto, Yf, fl_lams, fl_res, fl_wall,
     DEFERRED_PROFILES.append(
         ("session-ls/scalar", lambda: sess.solve(rt.Scalar(lam)), hot,
          ("screen_fused_kernel", "screen_tail_kernel", "gram_sweep_kernel")))
-    return sess, total
+    return sess, total, (reqs, first, walls, first_counts)
 
 
 def session_pad_phase(X, y, lm, ls_auto, Yf, fl_lams, fl_res,
@@ -1586,6 +1603,247 @@ def session_fused_phase(fused_ls):
         raise RuntimeError("session-fused: not bit for bit saif_fused / "
                            "fused_path")
     return {k: open_counts[k] + counts[k] for k in counts}
+
+
+
+def check_no_breaker(tag, srv, verdicts):
+    """A non-drill phase must not open the circuit breaker: the plain path
+    on the card is never a silent fallback."""
+    opened = [e for v in verdicts for e in v.events
+              if e.startswith("breaker_open")]
+    if srv.stats().breaker_open or srv.breaker_open or opened:
+        raise RuntimeError(f"{tag}: the circuit breaker opened ({opened})")
+
+
+def serving_ls_phase(X, y, first_pass, serial_expect, fleet_expect):
+    """``[serving-ls]``: phase 20's request mix once through
+    ``open_serving`` on phase 2's problem: every verdict ok, not degraded,
+    no retry, the breaker closed; each value bit for bit the plain
+    session's first pass; each request's launches equal to that pass's
+    (K1/K2/K6 serial, K1b/K2b/K6b for Fleet and CV); each request's
+    ``kkt_check_ms`` beside its wall. Returns the launch counts."""
+    import numpy as np
+    import torch
+    import repro_torch as rt
+    from repro_torch.kernels import ops
+
+    reqs, first, walls, first_counts = first_pass
+    cfg = rt.SaifConfig(eps=1e-6)
+    srv, t_open = timed(lambda: rt.open_serving(rt.Problem(X=X, y=y), cfg))
+    print(f"[serving-ls] open_s={t_open:.4f}", flush=True)
+    total = {k: 0 for k in ops.KERNELS}
+    verdicts = []
+    for name, req, expect in reqs:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        out, wall = timed(lambda: srv.solve(req))
+        counts = ops.launch_counts()
+        check_launches(f"serving-ls/{name}", counts, expect)
+        for k in total:
+            total[k] += counts[k]
+        v = out.verdict
+        verdicts.append(v)
+        if name == "path":
+            same = all(results_equal(u, w) for u, w in
+                       zip(out.value.results, first[name].results))
+        elif name == "cv":
+            a, b = out.value, first[name]
+            same = (np.array_equal(a.cv_mean, b.cv_mean)
+                    and a.best_lam == b.best_lam
+                    and all(torch.equal(u, w)
+                            for u, w in zip(a.fold_betas, b.fold_betas)))
+        else:
+            same = results_equal(out.value, first[name])
+        print(f"[serving-ls/{name}] wall_s={wall:.4f} session_wall_s="
+              f"{walls[name]:.4f} kkt_check_ms={v.kkt_check_ms:.3f} "
+              f"ok={v.ok} degraded={v.degraded} retries={v.retries} "
+              f"gap={v.gap:.3e} kkt={v.kkt_residual:.3e} kkt_tol="
+              f"{v.kkt_tol:.3e} units={len(v.unit_ok or ())} events="
+              f"{list(v.events)} bitwise_session={same} "
+              f"launches_equal_session={counts == first_counts[name]}",
+              flush=True)
+        if not (v.ok and not v.degraded and v.retries == 0 and not v.rungs
+                and same and counts == first_counts[name]):
+            raise RuntimeError(f"serving-ls/{name}: not served as the "
+                               f"plain session served it")
+    check_no_breaker("serving-ls", srv, verdicts)
+    st = srv.stats()
+    print(f"[serving-ls] stats={st._asdict()}", flush=True)
+    return total
+
+
+def serving_drill_phase(X, y, lm, ls_auto, serial_expect):
+    """``[serving-drill]``, under a ``FaultInjector``: (1) NaN poked into
+    every engine call of Scalar(0.3) with ``ladder=("oracle",)``: ok,
+    degraded, the rung K7
+    and no other kernel, the cold support, the rung's wall; (2)
+    ``fail_at={1}``: one retry, then bit for bit the cold Scalar; (3) the
+    breaker: three failures raise a typed ``BackendFault`` and open it,
+    recorded in ``stats()``, the backends untouched, and the next request
+    is refused with no kernel launched and no plain solve; (4) a warm checkpoint at full width into a temporary
+    directory, then a second ``open_serving`` restored from it whose warm
+    Scalar is bit for bit the uninterrupted one's, with the write,
+    restore and digest times. Returns the launch counts of (1), (2) and
+    (4)."""
+    import tempfile
+    import torch
+    import repro_torch as rt
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.inject import FaultInjector
+
+    ls = rt.get_loss("least_squares")
+    cfg = rt.SaifConfig(eps=1e-6)
+    lam = LS_LAM * lm
+    prob = rt.Problem(X=X, y=y)
+    total = {k: 0 for k in ops.KERNELS}
+
+    def add(counts):
+        for k in total:
+            total[k] += counts[k]
+
+    # (1) a poisoned result: the screening-free oracle rung (K7)
+    srv = rt.open_serving(prob, cfg,
+                          serving=rt.ServingConfig(ladder=("oracle",)))
+    rung = {}
+    real_oracle = srv._oracle_solve
+
+    def oracle(*a, **k):
+        torch.cuda.synchronize()
+        rung["primary"] = ops.launch_counts()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = real_oracle(*a, **k)
+        torch.cuda.synchronize()
+        rung["wall"] = time.perf_counter() - t0
+        rung["counts"] = ops.launch_counts()
+        return out
+    srv._oracle_solve = oracle
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    # every engine call poked: the cold solve overflows its first capacity
+    # and regrows, so its answer comes from the second call
+    with FaultInjector(nan_at=set(range(1, 9))) as inj:
+        out, wall = timed(lambda: srv.solve(rt.Scalar(lam)))
+    v = out.verdict
+    if "counts" not in rung:
+        raise RuntimeError(f"serving-drill/nan-oracle: the oracle rung did "
+                           f"not finish: rungs={v.rungs} events={v.events}")
+    rc = rung["counts"]
+    check_launches("serving-drill/nan-oracle primary", rung["primary"],
+                   serial_expect)
+    add(rung["primary"])
+    add(rc)
+    only_k7 = rc["cm_sweep_wide"] > 0 and all(
+        c == 0 for k, c in rc.items() if k != "cm_sweep_wide")
+    kkt = float(rt.kkt_residual(ls, X, y, out.value.beta, lam))
+    cold_sup = support(out.value.beta) == support(ls_auto.beta)
+    print(f"[serving-drill/nan-oracle] log={inj.log} ok={v.ok} degraded="
+          f"{v.degraded} rungs={[(r.name, r.ok) for r in v.rungs]} events="
+          f"{list(v.events)} rung_wall_s={rung['wall']:.3f} request_wall_s="
+          f"{wall:.3f} rung_launches={rc} only_k7={only_k7} gap={v.gap:.3e} "
+          f"kkt={kkt:.3e} kkt_limit={1e-3 * lam:.3e} cold_support={cold_sup} "
+          f"kkt_check_ms={v.kkt_check_ms:.3f}", flush=True)
+    if not (v.ok and v.degraded and [r.name for r in v.rungs] == ["oracle"]
+            and only_k7 and cold_sup and kkt <= 1e-3 * lam
+            and "degraded:oracle" in v.events):
+        raise RuntimeError("serving-drill/nan-oracle: not certified by the "
+                           "oracle rung alone, or off the cold support")
+    check_no_breaker("serving-drill/nan-oracle", srv, [v])
+
+    # (2) a transient launch fault: one retry, then the cold solve
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with FaultInjector(fail_at={1}) as inj:
+        out, wall = timed(lambda: srv.solve(rt.Scalar(lam)))
+    counts = ops.launch_counts()
+    check_launches("serving-drill/retry", counts, serial_expect)
+    add(counts)
+    v = out.verdict
+    same = results_equal(out.value, ls_auto)
+    print(f"[serving-drill/retry] log={inj.log} ok={v.ok} retries="
+          f"{v.retries} events={list(v.events)} wall_s={wall:.3f} "
+          f"bitwise_cold={same} launches={counts}", flush=True)
+    if not (v.ok and v.retries == 1 and not v.degraded and same
+            and v.events == ("retry:1:RuntimeError",)):
+        raise RuntimeError("serving-drill/retry: not one retry then the "
+                           "cold solve bit for bit")
+    check_no_breaker("serving-drill/retry", srv, [v])
+
+    # (3) the breaker: retries exhausted on the card raise a typed
+    # BackendFault, the breaker opens and the session refuses the next
+    # request; no plain solve anywhere, no launch after it
+    c0 = srv.session.config
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with FaultInjector(fail_at={1, 2, 3}) as inj:
+        try:
+            srv.solve(rt.Scalar(lam))
+            fault = None
+        except rt.BackendFault as e:
+            fault = str(e)
+    torch.cuda.synchronize()
+    t_trip = time.perf_counter() - t0
+    tripped = ops.launch_counts()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        srv.solve(rt.Scalar(lam))
+        refused = None
+    except rt.BackendFault as e:
+        refused = str(e)
+    torch.cuda.synchronize()
+    t_refuse = time.perf_counter() - t0
+    after = ops.launch_counts()
+    c = srv.session.config
+    print(f"[serving-drill/breaker] log={inj.log} fault={fault!r} "
+          f"refused={refused!r} breaker_open={srv.stats().breaker_open} "
+          f"backends={(c.screen_backend, c.inner_backend)} trip_s="
+          f"{t_trip:.4f} refuse_ms={t_refuse * 1e3:.3f} "
+          f"launches_tripping={tripped} launches_after={after}", flush=True)
+    check_launches("serving-drill/breaker after", after,
+                   {k: False for k in ops.KERNELS})
+    if not (fault and "retries exhausted" in fault and refused
+            and "breaker is open" in refused and srv.stats().breaker_open
+            and inj.calls == 3 and c is c0):
+        raise RuntimeError("serving-drill/breaker: no typed BackendFault, "
+                           "not recorded, or a request served after it")
+    del srv
+
+    # (4) warm checkpoint / restore at full width
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="serving-ckpt-",
+                                     dir=ROOT / "build") as d:
+        sc = rt.ServingConfig(ckpt_dir=d)
+        a = rt.open_serving(prob, cfg, serving=sc)
+        ops.reset_launch_counts()
+        a.solve(rt.Scalar(lam))
+        _, t_digest = timed(a._digest)
+        path, t_write = timed(a.checkpoint)
+        torch.cuda.synchronize()
+        want = a.solve(rt.Scalar(lam, warm=True))
+        b, t_open = timed(lambda: rt.open_serving(prob, cfg, serving=sc))
+        restored = b.restored
+        _, t_restore = timed(b._maybe_restore)
+        got, wall = timed(lambda: b.solve(rt.Scalar(lam, warm=True)))
+        counts = ops.launch_counts()
+        check_launches("serving-drill/ckpt", counts, serial_expect)
+        add(counts)
+        k_max = a.session.warm_capacity
+        mb = sum(f.stat().st_size for f in Path(path).iterdir()) / 2**20
+        same = results_equal(got.value, want.value)
+        print(f"[serving-drill/ckpt] k_max={k_max} files_MiB={mb:.3f} "
+              f"digest_s={t_digest:.4f} write_ms={t_write * 1e3:.2f} "
+              f"open_restored_s={t_open:.4f} restore_ms="
+              f"{t_restore * 1e3:.2f} restored={restored} warm_outer="
+              f"{got.value.n_outer} warm_wall_s={wall:.4f} "
+              f"bitwise_uninterrupted={same} ok={got.verdict.ok}",
+              flush=True)
+        if not (restored and same and got.verdict.ok and want.verdict.ok):
+            raise RuntimeError("serving-drill/ckpt: the restored session's "
+                               "warm Scalar is not the uninterrupted one's")
+        check_no_breaker("serving-drill/ckpt", b, [got.verdict])
+    return total
 
 
 MIXED = (("bfloat16", "bf16"), ("float32", "f32"))
@@ -3128,14 +3386,17 @@ def main() -> int:
     # the Session front door at full width, on the engines above; last, so
     # that the kernel rows' short profiler sessions run in a younger
     # process (the profiler misses launches late in a run)
-    sess_ls, sess_counts = session_ls_phase(
+    _, sess_counts, sess_first = session_ls_phase(
         X, y, lm, ls_res["auto"], Yf, fl_lams, fl_res, fl_wall, serial_ls,
         fleet_ls)
     sess_counts = [sess_counts,
                    session_pad_phase(X, y, lm, ls_res["auto"], Yf, fl_lams,
                                      fl_res, serial_ls, fleet_ls),
                    session_cache_phase(X, y, lm, ls_res["auto"], serial_ls),
-                   session_fused_phase(fused_ls)]
+                   session_fused_phase(fused_ls),
+                   # the fault-tolerant serving runtime (phase 21)
+                   serving_ls_phase(X, y, sess_first, serial_ls, fleet_ls),
+                   serving_drill_phase(X, y, lm, ls_res["auto"], serial_ls)]
     fast_counts = [c for _, c, _ in fast.values()]
     runs = [ls_counts["auto"], ls_counts["cuda"], lg_counts["auto"],
             *fused_counts, fl_counts, flc_counts, flg_counts, *fast_counts,

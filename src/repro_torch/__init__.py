@@ -7,6 +7,9 @@ The public serving surface::
     session = open_session(Problem(X=X, y=y), SaifConfig(eps=1e-7))
     res = session.solve(Scalar(lam))          # ... and keep serving
 
+    srv = open_serving(Problem(X=X, y=y), SaifConfig(eps=1e-7))
+    value, verdict = srv.solve(Scalar(lam))   # certified, retried, degraded
+
 Behind it: the serial SAIF solve, the fleet (B problems over one design,
 solved together, with optional sample weights), the warm-started lambda
 path, K-fold cross-validation and model selection (1-SE rule, stability

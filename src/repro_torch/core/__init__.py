@@ -2,6 +2,7 @@
 
 Primary surface:
   Problem, open_session, Session          — declarative spec + serving
+  open_serving, ServingSession, Verdict   — the fault-tolerant runtime
   Scalar, Path, Fleet, CV, Select         — the request types
   saif, SaifConfig, SaifResult            — one-shot Algorithm 1/2
 
@@ -37,8 +38,10 @@ _EXPORTS = {
     # exported here: they would shadow the repro_torch.core.fused
     # submodule. Use repro_torch.fused / repro_torch.group or
     # repro_torch.core.api.fused / .group.
-    # admission control
+    # the fault-tolerant serving runtime and admission control
     **{name: _M + "serving" for name in (
+        "open_serving", "ServingSession", "ServingConfig", "ServingResult",
+        "ServingStats", "Verdict", "Rung",
         "ServingError", "RequestError", "NumericalError", "BackendFault",
         "DeadlineExceeded", "validate_problem", "validate_request")},
     # streaming and model selection (import-light)

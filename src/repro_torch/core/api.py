@@ -153,8 +153,8 @@ class Scalar:
     """One solve at ``lam``. ``warm=True`` seeds from the session's warm
     state (slot layout and inner carry of the previous serial solve); the
     default is a cold, bitwise-reproducible solve. ``deadline_s`` and
-    ``priority`` are the serving knobs every request carries (the serving
-    layer that reads them is ROADMAP A6.2)."""
+    ``priority`` are the serving knobs every request carries (read by
+    :class:`~repro_torch.core.serving.ServingSession`)."""
     lam: float
     warm: bool = False
     sharded: bool = False
@@ -504,6 +504,21 @@ class Session:
         events, self._pending_events = tuple(self._pending_events), []
         return events
 
+    def content_digest(self) -> str:
+        """Content digest of the (design, response) the session solves
+        (:func:`~repro_torch.core.warm_cache.problem_digest` of its
+        preparation: the padded arrays of a bucket-padded session, the
+        transformed design of a fused one), computed once: a design on the
+        card costs one host copy and its SHA-256. The warm cache's key and
+        the serving checkpoints' gate."""
+        if self._digest_memo is None:
+            from repro_torch.core.warm_cache import problem_digest
+            src = self._prep
+            self._digest_memo = (problem_digest(self._X, self._y)
+                                 if src is None
+                                 else problem_digest(src.X, src.y))
+        return self._digest_memo
+
     def drop_cache_entry(self) -> int:
         """Invalidate the warm-cache entry stored by the most recent
         cache-routed solve (for a result that failed certification)."""
@@ -528,11 +543,8 @@ class Session:
         miss, run the bitwise cold path. Either way the exit warm state is
         stored for the next request."""
         from repro_torch.core.path import run_path, seq_warm_entry
-        from repro_torch.core.warm_cache import problem_digest
         cache = self._warm_cache
-        if self._digest_memo is None:
-            self._digest_memo = problem_digest(self._prep.X, self._prep.y)
-        digest = self._digest_memo
+        digest = self.content_digest()
         lam_hi = max(lams)
         entry = cache.lookup(digest, lam_hi)
         if entry is not None:

@@ -73,6 +73,7 @@ from repro_torch.core.screen_backend import (make_batch_screen,
                                              resolve_batch_screen,
                                              resolve_screen_rule)
 from repro_torch.core.duality import null_gradient
+from repro_torch.runtime.inject import seam as _fault_seam
 
 Tensor = torch.Tensor
 
@@ -369,14 +370,14 @@ def fleet_solve(X, Y, lams, config: SaifConfig = SaifConfig(), device=None,
     while True:
         pad = k_max - init[0].shape[1]
         init = tuple(torch.nn.functional.pad(t, (0, pad)) for t in init)
+        # the fleet dispatch routes through the fault-injection seam
+        # (repro_torch.runtime.inject): one None-check when disarmed
         if fast:
-            res = solve_fleet_fast(
+            res = _fault_seam("fleet", lambda: solve_fleet_fast(
                 prep, lam_list, config, hs=hs, h=h, k_max=k_max,
                 init_idx=init[0], init_beta=init[1], init_mask=init[2],
                 use_seq=use_seq, rule=rule,
-                delta0=_delta0s(prep, lam_list, config), pad_mask=pad_mask)
-            if not bool(res.overflowed.any()) or k_max >= p_eff:
-                return res
+                delta0=_delta0s(prep, lam_list, config), pad_mask=pad_mask))
         else:
             # routed on the real rows; a padded block's kernel gate reads
             # the padded ones
@@ -385,14 +386,13 @@ def fleet_solve(X, Y, lams, config: SaifConfig = SaifConfig(), device=None,
                                         prep.X.device, prep.X.element_size(),
                                         weighted=prep.W is not None,
                                         **padded_rows)
-            results = _solve_fleet(prep, lam_list, config, hs=hs, h=h,
-                                   k_max=k_max, init_idx=init[0],
-                                   init_beta=init[1], init_mask=init[2],
-                                   inner=inner, screen=screen,
-                                   use_seq=use_seq, rule=rule,
-                                   screen_fn=screen_fn, pad_mask=pad_mask)
-            if not any(r.overflowed for r in results) or k_max >= p_eff:
-                return stack_results(results)
+            res = _fault_seam("fleet", lambda: stack_results(_solve_fleet(
+                prep, lam_list, config, hs=hs, h=h, k_max=k_max,
+                init_idx=init[0], init_beta=init[1], init_mask=init[2],
+                inner=inner, screen=screen, use_seq=use_seq, rule=rule,
+                screen_fn=screen_fn, pad_mask=pad_mask)))
+        if not bool(res.overflowed.any()) or k_max >= p_eff:
+            return res
         k_max = min(2 * k_max, p_eff)
 
 

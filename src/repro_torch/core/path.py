@@ -21,8 +21,8 @@ the last:
     segment; when one overflowed its capacity, the capacity doubles and the
     segment re-runs from its entry state.
 
-The reference routes each engine call through a fault-injection seam; the
-port has no fault runtime yet (ROADMAP A6.2), so it has no seam. The
+Each per-lambda solve routes through the fault-injection seam
+(``repro_torch.runtime.inject``, tag ``"path"``), as in the reference. The
 legacy frontend :func:`saif_path` is a deprecated shim over a one-shot
 session (``repro_torch.core.api``).
 """
@@ -44,6 +44,7 @@ from repro_torch.core.saif import (PathState, SaifConfig, SaifResult, _solve,
                                    initial_support, resolve_device, saif)
 from repro_torch.core.screen_backend import (ScreenFn, resolve_backend,
                                              resolve_screen_rule)
+from repro_torch.runtime.inject import seam as _fault_seam
 
 Tensor = torch.Tensor
 # Inter-solve handoff: (idx (k,), beta (k,), live-mask (k,), InnerCarry)
@@ -212,7 +213,8 @@ def run_path(prep: PathState, lams: Sequence[float],
         delta0 = config.delta0 if config.delta0 is not None else \
             min(max(lam / prep.lam_max, 1e-3), 1.0)
         idx, beta, mask, carry = warm
-        return _solve(
+        # per-lambda engine dispatch through the fault-injection seam
+        return _fault_seam("path", lambda: _solve(
             X, prep.y, prep.col_norm, prep.c0, lam, config.eps, delta0, idx,
             beta, mask, carry, max(int(math.ceil(config.zeta * h_lam)), 1),
             h_lam, loss_name=config.loss, h=h, k_max=k_max,
@@ -221,7 +223,7 @@ def run_path(prep: PathState, lams: Sequence[float],
             use_seq_ball=use_seq, screen_backend=screen,
             inner_backend=_inner_name(prep, config, k_max),
             screen_rule=rule, unpen_idx=unpen_i, p_true=p_true,
-            screen_fn=screen_fn)
+            screen_fn=screen_fn))
 
     results: List[SaifResult] = [None] * len(lams_np)
     if warm0 is not None:

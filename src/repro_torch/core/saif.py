@@ -42,6 +42,7 @@ from repro_torch.core.screen_backend import (BatchScreenFn, ScreenFn,
                                              make_screen_torch,
                                              resolve_backend,
                                              resolve_screen_rule)
+from repro_torch.runtime.inject import seam as _fault_seam
 
 Tensor = torch.Tensor
 
@@ -648,7 +649,9 @@ def solve_scalar(prep: PathState, lam: float,
         inner = resolve_inner_backend(config.inner_backend, config.loss,
                                       n_true, k_max, dev, X.element_size(),
                                       unpen is not None, n_pad=n)
-        res = _solve(
+        # the engine dispatch routes through the fault-injection seam
+        # (repro_torch.runtime.inject): one None-check when disarmed
+        res = _fault_seam("serial", lambda: _solve(
             X, y, col_norm, c0, lam, config.eps, delta0, init_idx,
             init_beta, torch.arange(k_max, device=dev) < n_init,
             cold_inner_carry(k_max, X.dtype, dev, backend=inner),
@@ -658,7 +661,7 @@ def solve_scalar(prep: PathState, lam: float,
             use_seq_ball=use_seq, screen_backend=screen,
             inner_backend=inner, screen_rule=rule,
             unpen_idx=-1 if unpen is None else unpen, p_true=p_true,
-            screen_fn=screen_fn)
+            screen_fn=screen_fn))
         if not res.overflowed or k_max >= p_true:
             return res
         k_max = min(2 * k_max, p_true)  # elastic capacity growth

@@ -34,8 +34,8 @@ __all__ = ["Select", "SelectionReport", "subsample_weights",
 class Select:
     """Model-selection request: CV over ``lams``, 1-SE choice, optional
     stability selection, full-data refit. ``deadline_s`` and ``priority``
-    are the serving knobs every request carries (validated here; the
-    serving layer that reads them is ROADMAP A6.2)."""
+    are the serving knobs every request carries (validated here, read by
+    :class:`~repro_torch.core.serving.ServingSession`)."""
     lams: Any
     n_folds: int = 5
     rule: str = "1se"                 # "1se" | "min"

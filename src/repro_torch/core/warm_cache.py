@@ -86,6 +86,9 @@ def problem_digest(X, y) -> str:
     on the card), so a CPU tensor and its numpy array share a digest."""
     h = hashlib.sha256()
     for arr in (X, y):
+        if arr is None:                     # a fleet-only session's y
+            h.update(b"<none>")
+            continue
         if hasattr(arr, "detach"):          # a torch tensor
             arr = arr.detach().cpu().numpy()
         a = np.asarray(arr)

@@ -78,11 +78,18 @@ _SIGNATURES = {
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
+class KernelBuildError(RuntimeError):
+    """A kernel library could not be built (no nvcc, or nvcc refused a
+    source). Not transient: the serving runtime passes it up unretried and
+    never answers it by switching to the plain path."""
+
+
 def nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA kernels are built on "
-                           "the machine with the card (CUDA toolkit needed)")
+        raise KernelBuildError(
+            "nvcc not found: the CUDA kernels are built on the machine with "
+            "the card (CUDA toolkit needed)")
     return path
 
 
@@ -118,7 +125,7 @@ def build(names=SOURCES) -> float:
         else:
             os.replace(tmp, _lib_path(name))
     if errors:
-        raise RuntimeError("\n".join(errors))
+        raise KernelBuildError("\n".join(errors))
     return time.perf_counter() - t0
 
 

@@ -77,8 +77,9 @@ def test_config_and_backend_names():
 
 def test_port_imports_no_jax_and_no_reference():
     """Importing every repro_torch module, the fleet's, CV's, selection's,
-    the baselines' and the kernels' among them, pulls in neither jax nor
-    repro."""
+    the baselines', the kernels', the serving runtime's, the fault seam's
+    and the checkpoints' among them, and ``open_serving``, pulls in
+    neither jax nor repro."""
     src = os.path.join(os.path.dirname(rt.__file__), os.pardir)
     code = (
         "import pkgutil, sys, importlib, repro_torch\n"
@@ -95,8 +96,13 @@ def test_port_imports_no_jax_and_no_reference():
         "         'repro_torch.kernels.gram.ref', 'repro_torch.core.dynamic',\n"
         "         'repro_torch.core.sequential', 'repro_torch.core.homotopy',\n"
         "         'repro_torch.kernels.cm.wide',\n"
-        "         'repro_torch.core.batch_fast']\n"
+        "         'repro_torch.core.batch_fast',\n"
+        "         'repro_torch.runtime.fault', 'repro_torch.runtime.inject',\n"
+        "         'repro_torch.ckpt.checkpoint', 'repro_torch.core.serving']\n"
         "assert all(m in sys.modules for m in fleet), fleet\n"
+        "from repro_torch import open_serving, ServingSession, Verdict\n"
+        "from repro_torch.core.serving import open_serving as o2\n"
+        "assert open_serving is o2 and Verdict._fields[0] == 'ok'\n"
         "from repro_torch.kernels import ops\n"
         "assert {'screen_fused_batch', 'ub_histogram_batch',\n"
         "        'cm_burst_batch', 'cm_epochs', 'gram_sweep',\n"
