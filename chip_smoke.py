@@ -168,13 +168,39 @@ Phases (each one fails the run by raising):
    after it), and a full-width warm
    checkpoint restored by a second ``open_serving`` whose warm Scalar is
    bit for bit the uninterrupted one's (digest, write and restore times).
-   Every phase but the drill's breaker fails if the breaker opens.
+   Every phase but the drill's breaker fails if the breaker opens;
+22. ``[online-ls]``, online row updates: phase 2's problem through
+   ``open_session`` and Scalar(0.3 lambda_max), then four ``Update``s of
+   STREAM_M = 64 rows of the Sec 5.1.1 law (phase 2's true beta, seeded
+   rows; capacity 2,048 rows), a STREAM_WINDOW = 1,000-row ring streamed
+   four times on a second session, and the guard drill on the ring (64
+   rows scaled by 1e8 ingested with ``resolve=False``, then normal rows
+   until they leave the ring, the last re-solving): every re-solve counted
+   (K1/K2/K6), certified on the card over the resident rows (gap <= eps,
+   KKT <= 1e-3 lambda over all p), no Gram carry rebuild but the drill's
+   one (``online_downdate_rebuild``), each stream's last re-solve with the
+   support of the cold session on its rows (max |dbeta| printed); each
+   update's wall beside the cold solve's, K1 on the padded design beside
+   its bound at the capacity and at the resident rows;
+23. ``[server-ls]``, the async front end: ``open_server(autostart=False,
+   max_batch=16, max_sessions=2)``, phase 9's 16 responses and lambdas
+   submitted as 16 Scalars of ``Problem(X, Y[b])``, then ``run``: one
+   coalesced batch in the p bucket 131,072, each rider ok and bit for bit
+   phase 9's fleet row, the launches ``[session-pad]``'s Fleet's; the
+   submit time (the design digest, hashed once) and the wall from ``run``
+   to the last future beside phase 9's fleet and serial walls; a
+   ``deadline_s=0.001`` Scalar expiring in the queue with no launch; on a
+   second server a priority-5 Scalar on a second design dispatched before
+   a priority-0 one submitted first; on a third a poisoned rider
+   (``FaultInjector(nan_at={1}, nan_unit=3, tags={"fleet"})``, no ladder,
+   no retry) failing alone, the other 15 bit for bit their rows; the
+   servers' stats.
 
 Launch counters are zeroed just before each solve (and the transform of
 phase 4, the CV fleets, the CV refit, the selection, the K5 call, each
-baseline, each session and serving request, the oracle rung and the
-fused session's open) and read just after; the
-kernel launches of phases 8, 12, 17 and 18, of the checks of phases 13-14, of
+baseline, each session, serving and streaming request, each server's
+run, the oracle rung and the fused session's open) and read just after;
+the kernel launches of phases 8, 12, 17 and 18, of the checks of phases 13-14, of
 the comparisons of phase 4, of the serial solves that phases 9-10 compare
 with, of the lambda_max helpers and of one extra solve
 under torch.profiler (the device's busy time and idle share; these run
@@ -231,6 +257,11 @@ BASE_PATH = (0.95, LS_LAM, 5)
 # step s + 2 read behind step s's barrier (in hand up to a count of 2), the
 # slot of step s + 5; all shorter than the prefetch warp's 32 records a batch
 WIDE_COUNTS = (3, 4, 5, 6, 8, 9)
+# [online-ls]: row blocks of this many rows from the Sec 5.1.1 simulation,
+# appended four times, then a 1,000-row ring streamed four times
+STREAM_M = 64
+STREAM_UPDATES = 4
+STREAM_WINDOW = N
 
 
 def nvidia_smi_line() -> str:
@@ -240,8 +271,9 @@ def nvidia_smi_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def simulation_data(n, p, seed=0):
-    """Paper Sec 5.1.1: X ~ U[-10,10], 20% active betas in [-1,1], N(0,1)."""
+def simulation_data(n, p, seed=0, with_beta=False):
+    """Paper Sec 5.1.1: X ~ U[-10,10], 20% active betas in [-1,1], N(0,1).
+    ``with_beta``: the true beta too, for more rows of the same law."""
     import numpy as np
     rng = np.random.default_rng(seed)
     X = rng.uniform(-10, 10, (n, p))
@@ -249,7 +281,28 @@ def simulation_data(n, p, seed=0):
     idx = rng.choice(p, int(0.2 * p), replace=False)
     beta[idx] = rng.uniform(-1, 1, len(idx))
     y = X @ beta + rng.normal(0, 1, n)
-    return X, y
+    return (X, y, beta) if with_beta else (X, y)
+
+
+def stream_shape(n):
+    """(row capacity, resident rows) of ``[online-ls]``'s append stream
+    from n rows (the power-of-two headroom of ``core/online.py``)."""
+    filled = n + STREAM_UPDATES * STREAM_M
+    return 1 << (max(2 * n, n + 4 * STREAM_M) - 1).bit_length(), filled
+
+
+def simulation_rows(beta, m, seed, device, scale=1.0):
+    """``m`` more rows of the Sec 5.1.1 law for the true ``beta`` (numpy),
+    on ``device``: X ~ U[-10, 10] (times ``scale``), y = X beta + N(0, 1)
+    (no noise when ``scale`` is not 1: the guard drill's rows)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    Xn = scale * rng.uniform(-10, 10, (m, beta.shape[0]))
+    yn = Xn @ beta
+    if scale == 1.0:
+        yn = yn + rng.normal(0, 1, m)
+    return torch.from_numpy(Xn).to(device), torch.from_numpy(yn).to(device)
 
 
 def logistic_data(n, p, seed=2, k=40):
@@ -428,6 +481,8 @@ def profile_solve(tag, solve, wall, kernels=()):
 DEFERRED_PROFILES = []
 # unprofiled wall of each counted solve of solve_phase, by "name/label"
 WALLS = {}
+# launch counts kept for a later phase's comparison
+COUNTS = {}
 
 
 def run_deferred_profiles():
@@ -757,6 +812,25 @@ def check_kernels(dtype, X, y, lam, h, ls_res, logit, logit_res, fused,
     if not (err1 <= tol and err1u <= tol and ids_ok):
         raise RuntimeError(f"screen_fused {dtype} disagrees with its plain "
                            f"version")
+    if dtype == "float64":
+        # K1 at [online-ls]'s padded shape (the scan reads every row, zero
+        # or not), timed here: the profiler keeps launches early in a run
+        n_cap, filled = stream_shape(n)
+        Xp = torch.cat([Xd, Xd.new_zeros((n_cap - n, p))])
+        thp = torch.cat([theta, theta.new_zeros(n_cap - n)])
+        ms_cap, call_cap = kernel_ms(lambda: ops.screen_fused(
+            Xp, thp, col_norm, active, r, h=h), 20, "screen_fused_kernel")
+        del Xp
+        bounds = [bound_ms(rows * p * isz + rows * isz + p * isz + p
+                           + 3 * p * isz + pb * h_tile * (isz + 4)
+                           + pb * isz, 2 * rows * p, dtype)[0]
+                  for rows in (n_cap, filled)]
+        WALLS["k1/n_cap"] = (ms_cap, call_cap, *bounds)
+        print(f"[kernel screen_fused {dtype} n_cap] rows={n_cap} (of which "
+              f"{filled} resident at [online-ls]'s end) p={p} h={h} "
+              f"ms={ms_cap:.4f} call_ms={call_cap:.4f} bound_ms_at_n_cap="
+              f"{bounds[0]:.4f} bound_ms_at_resident={bounds[1]:.4f} (bytes)",
+              flush=True)
 
     # K2: the histogram entry at the screen's candidate count on the
     # scan's ub; the tail entry as the screen calls it, on the scan's
@@ -1168,6 +1242,7 @@ def fleet_phase(name, X, Y, fracs, loss_name, serial_expect, fleet_expect,
     ops.reset_launch_counts()
     rt.saif(X, Y[0], lams[0], cfg)
     check_launches(f"{name}/serial", ops.launch_counts(), serial_expect)
+    WALLS[f"{name}/serial_sum"] = sum(walls)
     print(f"[{name}] fleet_wall_s={wall:.3f} serial_walls_sum_s="
           f"{sum(walls):.3f} outer_per_problem="
           f"{res.n_outer.tolist()}", flush=True)
@@ -1487,7 +1562,7 @@ def session_pad_phase(X, y, lm, ls_auto, Yf, fl_lams, fl_res,
             ops.reset_launch_counts()
             fl, wall = timed(lambda: sess.solve(rt.Fleet(Y=Yf,
                                                          lams=fl_lams)))
-            counts = ops.launch_counts()
+            counts = COUNTS["session-pad/fleet"] = ops.launch_counts()
             check_launches("session-pad/fleet", counts, fleet_expect)
             for k in total:
                 total[k] += counts[k]
@@ -1843,6 +1918,385 @@ def serving_drill_phase(X, y, lm, ls_auto, serial_expect):
             raise RuntimeError("serving-drill/ckpt: the restored session's "
                                "warm Scalar is not the uninterrupted one's")
         check_no_breaker("serving-drill/ckpt", b, [got.verdict])
+    return total
+
+
+def stream_step(tag, sess, req, expect, total):
+    """One counted Update (or Scalar) on ``sess``: the launches (checked
+    against ``expect``), the Gram carry rebuilds and the wall."""
+    import torch
+    from repro_torch.core.inner_backend import make_inner_gram
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    r0 = make_inner_gram.rebuilds
+    res, wall = timed(lambda: sess.solve(req))
+    counts = ops.launch_counts()
+    check_launches(tag, counts, expect)
+    for k in total:
+        total[k] += counts[k]
+    return res, wall, make_inner_gram.rebuilds - r0, counts
+
+
+def resident_cert(tag, sess, res, lam, eps):
+    """Certify a streamed solve on the card over the session's resident
+    rows (the zero capacity rows are exact): gap <= eps, KKT <= 1e-3 lam
+    over all p. Returns (gap, kkt)."""
+    import repro_torch as rt
+    prep = sess._prep
+    kkt = float(rt.kkt_residual(rt.get_loss("least_squares"), prep.X,
+                                prep.y, res.beta, lam))
+    gap = float(res.gap)
+    if not (gap <= eps and kkt <= 1e-3 * lam):
+        raise RuntimeError(f"{tag}: not certified on the resident rows "
+                           f"(gap {gap:.3e}, kkt {kkt:.3e})")
+    return gap, kkt
+
+
+def cold_against(tag, Xc, yc, lam, cfg, res, serial_expect, total):
+    """The cold session solve of the rows ``Xc``/``yc`` (counted), held
+    against the streamed ``res``: the same support; prints max |dbeta|.
+    Returns the cold wall."""
+    import torch
+    import repro_torch as rt
+    sess = rt.open_session(rt.Problem(X=Xc, y=yc), cfg)
+    cold, wall, _, counts = stream_step(f"{tag}/cold", sess, rt.Scalar(lam),
+                                        serial_expect, total)
+    ls = rt.get_loss("least_squares")
+    kkt = float(rt.kkt_residual(ls, Xc, yc, cold.beta, lam))
+    same = support(res.beta) == support(cold.beta)
+    diff = float((res.beta - cold.beta).abs().max())
+    print(f"[{tag}/cold] n={Xc.shape[0]} wall_s={wall:.4f} outer="
+          f"{cold.n_outer} n_active={cold.n_active} gap={float(cold.gap):.3e}"
+          f" kkt={kkt:.3e} same_support={same} max_abs_dbeta={diff:.3e} "
+          f"launches={counts}", flush=True)
+    if not (same and float(cold.gap) <= cfg.eps and kkt <= 1e-3 * lam):
+        raise RuntimeError(f"{tag}: the streamed solve's support is not the "
+                           f"cold solve's, or the cold solve not certified")
+    del sess
+    torch.cuda.empty_cache()
+    return wall
+
+
+def online_ls_phase(X, y, lm, beta_true, serial_expect):
+    """``[online-ls]``, phase 22: phase 2's problem through
+    ``open_session(Problem(X, y), SaifConfig(eps=1e-6))`` and
+    Scalar(0.3 lambda_max), then (1) four appended Updates of STREAM_M rows
+    of the Sec 5.1.1 law (capacity 2,048 rows), (2) a STREAM_WINDOW-row ring
+    streamed four times on a second session, (3) the guard drill on the
+    ring: STREAM_M rows scaled by 1e8 ingested (``resolve=False``), then
+    normal rows until they leave the ring, the last re-solving. Every
+    re-solve counted (K1/K2/K6), certified on the card over the resident
+    rows (gap <= eps, KKT <= 1e-3 lambda over all p), no Gram carry
+    rebuild but the drill's one; each stream's last re-solve has the
+    support of the cold session on its rows. Prints each update's wall
+    beside the cold solve's, and K1's device time on the capacity-padded
+    design beside its bound at the capacity and at the resident rows.
+    Returns the launch counts."""
+    import numpy as np
+    import torch
+    import repro_torch as rt
+    from repro_torch.core.saif import add_batch_size_static
+    from repro_torch.kernels import ops
+
+    cfg = rt.SaifConfig(eps=1e-6)
+    lam = LS_LAM * lm
+    n, p = X.shape
+    total = {k: 0 for k in ops.KERNELS}
+    batches = [simulation_rows(beta_true, STREAM_M, 700 + i, X.device)
+               for i in range(STREAM_UPDATES)]
+    n_cap = stream_shape(n)[0]
+
+    # (1) the append stream
+    sess = rt.open_session(rt.Problem(X=X, y=y), cfg)
+    stream_step("online-ls/scalar", sess, rt.Scalar(lam), serial_expect,
+                total)
+    walls, rebuilds = [], 0
+    for i, (Xn, yn) in enumerate(batches):
+        res, wall, rb, counts = stream_step(
+            f"online-ls/append{i}", sess,
+            rt.Update(rows=Xn, responses=yn, lam=lam), serial_expect, total)
+        gap, kkt = resident_cert(f"online-ls/append{i}", sess, res, lam,
+                                 cfg.eps)
+        walls.append(wall)
+        rebuilds += rb
+        st = sess._online
+        print(f"[online-ls/append{i}] m={STREAM_M} filled={st.filled} "
+              f"n_cap={st.n_cap} wall_s={wall:.4f} outer={res.n_outer} "
+              f"n_active={res.n_active} gap={gap:.3e} kkt={kkt:.3e} "
+              f"gram_rebuilds={rb} launches={counts}", flush=True)
+    events = sess.drain_events()
+    st = sess._online
+    Xc = torch.cat([X] + [b[0] for b in batches])
+    yc = torch.cat([y] + [b[1] for b in batches])
+    cold_wall = cold_against("online-ls/append", Xc, yc, lam, cfg, res,
+                             serial_expect, total)
+    print(f"[online-ls/append] update_walls_s={[round(w, 4) for w in walls]}"
+          f" cold_wall_s={cold_wall:.4f} update_over_cold="
+          f"{[round(w / cold_wall, 3) for w in walls]} gram_rebuilds="
+          f"{rebuilds} events={list(events)} grows={st.grows}", flush=True)
+    if not (rebuilds == 0 and st.n_cap == n_cap and st.filled == Xc.shape[0]
+            and events == (f"online_stream_entered:n_cap={n_cap}",)):
+        raise RuntimeError("online-ls/append: a Gram rebuild, or not the "
+                           "expected capacity and events")
+    # K1 on the capacity-padded design (the stream's scan reads every row):
+    # a call's time here by CUDA events, its device time at this shape
+    # from phase 8 (the profiler loses launches late in a run)
+    prep = sess._prep
+    h = add_batch_size_static(cfg.c, lam, prep.c0_max, prep.c0_median, p)
+    g = torch.Generator(device="cpu").manual_seed(0)
+    theta = (torch.randn(st.n_cap, generator=g, dtype=torch.float64)
+             / st.n_cap).to(X.device)
+    theta[st.filled:] = 0.0
+    active = torch.zeros(p, dtype=torch.bool, device=X.device)
+    active[res.active_idx[res.active_mask]] = True
+    call = time_ms(lambda: ops.screen_fused(
+        prep.X, theta, prep.col_norm, active, 0.05, h=h), 20)
+    ms, _, b_cap, b_res = WALLS["k1/n_cap"]
+    print(f"[online-ls/k1] n_cap={st.n_cap} filled={st.filled} p={p} h={h} "
+          f"call_ms={call:.4f} ms(phase 8, this shape)={ms:.4f} "
+          f"bound_ms_at_n_cap={b_cap:.4f} bound_ms_at_filled={b_res:.4f} "
+          f"(bytes)", flush=True)
+    del sess, prep, Xc, yc
+    torch.cuda.empty_cache()
+
+    # (2) the ring, on a second session
+    sess = rt.open_session(rt.Problem(X=X, y=y), cfg)
+    stream_step("online-ls/ring-scalar", sess, rt.Scalar(lam), serial_expect,
+                total)
+    walls, rebuilds = [], 0
+    for i, (Xn, yn) in enumerate(batches):
+        res, wall, rb, counts = stream_step(
+            f"online-ls/ring{i}", sess,
+            rt.Update(rows=Xn, responses=yn, lam=lam, window=STREAM_WINDOW),
+            serial_expect, total)
+        gap, kkt = resident_cert(f"online-ls/ring{i}", sess, res, lam,
+                                 cfg.eps)
+        walls.append(wall)
+        rebuilds += rb
+        print(f"[online-ls/ring{i}] head={sess._online.head} wall_s="
+              f"{wall:.4f} outer={res.n_outer} n_active={res.n_active} "
+              f"gap={gap:.3e} kkt={kkt:.3e} gram_rebuilds={rb}", flush=True)
+    rows = [X] + [b[0] for b in batches]
+    resp = [y] + [b[1] for b in batches]
+    cold_wall = cold_against(
+        "online-ls/ring", torch.cat(rows)[-STREAM_WINDOW:].contiguous(),
+        torch.cat(resp)[-STREAM_WINDOW:].contiguous(), lam, cfg, res,
+        serial_expect, total)
+    print(f"[online-ls/ring] window={STREAM_WINDOW} update_walls_s="
+          f"{[round(w, 4) for w in walls]} cold_wall_s={cold_wall:.4f} "
+          f"gram_rebuilds={rebuilds} downdate_rebuilds="
+          f"{sess._online.rebuilds}", flush=True)
+    if rebuilds or sess._online.rebuilds or sess._online.n_cap != \
+            STREAM_WINDOW:
+        raise RuntimeError("online-ls/ring: a rebuild in a clean ring")
+
+    # (3) the guard drill: 1e8-scale rows in, then pushed out of the ring
+    Xb, yb = simulation_rows(beta_true, STREAM_M, 800, X.device, scale=1e8)
+    stream_step("online-ls/guard-in", sess, rt.Update(
+        rows=Xb, responses=yb, window=STREAM_WINDOW, resolve=False),
+        {k: False for k in ops.KERNELS}, total)
+    rows.append(Xb)
+    resp.append(yb)
+    sess.drain_events()
+    left, i, trips, walls = STREAM_WINDOW, 0, [], []
+    while left:
+        m = min(STREAM_M, left)
+        left -= m
+        Xn, yn = simulation_rows(beta_true, m, 900 + i, X.device)
+        rows.append(Xn)
+        resp.append(yn)
+        last = left == 0
+        res, wall, rb, counts = stream_step(
+            f"online-ls/guard{i}", sess, rt.Update(
+                rows=Xn, responses=yn, lam=lam, window=STREAM_WINDOW,
+                resolve=last),
+            serial_expect if last else {k: False for k in ops.KERNELS},
+            total)
+        trips.append(sess._online.rebuilds)
+        walls.append(wall)
+        i += 1
+    events = sess.drain_events()
+    gap, kkt = resident_cert("online-ls/guard", sess, res, lam, cfg.eps)
+    print(f"[online-ls/guard] updates={i} downdate_rebuilds_by_update="
+          f"{trips} events={list(events)} resolve_wall_s={walls[-1]:.4f} "
+          f"ingest_walls_s_max={max(walls[:-1]):.4f} gram_rebuilds={rb} "
+          f"outer={res.n_outer} gap={gap:.3e} kkt={kkt:.3e}", flush=True)
+    cold_against("online-ls/guard",
+                 torch.cat(rows)[-STREAM_WINDOW:].contiguous(),
+                 torch.cat(resp)[-STREAM_WINDOW:].contiguous(), lam, cfg,
+                 res, serial_expect, total)
+    if not (trips[-1] >= 1 and "online_downdate_rebuild" in events
+            and rb == 1):
+        raise RuntimeError("online-ls/guard: the downdate guard did not "
+                           "rebuild the statistics and the carry")
+    del sess, rows, resp
+    torch.cuda.empty_cache()
+    return total
+
+
+def server_ls_phase(X, Yf, fl_lams, fl_res, fl_wall, fleet_expect):
+    """``[server-ls]``, phase 23: ``open_server(autostart=False,
+    max_batch=16, max_sessions=2)`` on the card: (1) phase 9's 16 responses
+    and lambdas as 16 Scalars of ``Problem(X, Y[b])``, then ``run``: one
+    coalesced batch of 16 in the p bucket 131,072, each rider ok and bit
+    for bit phase 9's fleet row, the launches those of ``[session-pad]``'s
+    Fleet; the submit time (the design digest memo), the wall from ``run``
+    to the last future beside phase 9's fleet wall and its 16 serial walls;
+    (3) on the same server, its dispatcher running, a ``deadline_s=0.001``
+    Scalar expiring in the queue, no launch; (2) on a second server, a
+    priority-5 Scalar on a second design dispatched before a priority-0
+    one submitted first (the done callbacks); (4) on a third server with
+    ``ladder=()`` and ``max_retries=0``, ``FaultInjector(nan_at={1},
+    nan_unit=3, tags={"fleet"})``: rider 3 fails alone, the other 15 bit
+    for bit their rows. Each server starts its dispatcher after its
+    requests are in. Returns the launch counts."""
+    import torch
+    import repro_torch as rt
+    from repro_torch.core import server as S
+    from repro_torch.core.api import _row
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.inject import FaultInjector
+
+    cfg = rt.SaifConfig(eps=1e-6)
+    B = Yf.shape[0]
+    n, p = X.shape
+    p_bucket = 1 << (p - 1).bit_length()
+    total = {k: 0 for k in ops.KERNELS}
+    rows = [S._to_host(_row(fl_res, i)) for i in range(B)]
+
+    def add(counts):
+        for k in total:
+            total[k] += counts[k]
+
+    def riders(srv, stamps):
+        futs = []
+        for b in range(B):
+            f = srv.submit(rt.Problem(X=X, y=Yf[b]), rt.Scalar(fl_lams[b]))
+            f.add_done_callback(lambda f: stamps.append(time.perf_counter()))
+            futs.append(f)
+        return futs
+
+    # (1) the coalesced fleet
+    srv = rt.open_server(autostart=False, max_batch=B, max_sessions=2,
+                         solver=cfg)
+    try:
+        stamps = []
+        futs, t_submit = timed(lambda: riders(srv, stamps))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        srv.run(timeout=0)
+        outs = [f.result(timeout=300) for f in futs]
+        torch.cuda.synchronize()
+        wall = max(stamps) - t0
+        counts = ops.launch_counts()
+        check_launches("server-ls/fleet", counts, fleet_expect)
+        add(counts)
+        same = [results_equal(o.value, r) for o, r in zip(outs, rows)]
+        ok = [o.verdict.ok for o in outs]
+        srv.drain(timeout=60)
+        st = srv.stats()
+        want = COUNTS["session-pad/fleet"]
+        print(f"[server-ls/fleet] B={B} p_bucket={next(iter(srv._lru))[-1]} "
+              f"submit_s={t_submit:.4f} run_to_last_future_s={wall:.4f} "
+              f"fleet_wall_s={fl_wall:.4f} serial_walls_sum_s="
+              f"{WALLS['fleet-ls/serial_sum']:.4f} all_ok={all(ok)} "
+              f"bitwise_fleet_rows={all(same)} launches_equal_session_pad="
+              f"{counts == want} launches={counts}", flush=True)
+        if not (all(ok) and all(same) and counts == want
+                and st.coalesced_batches == 1 and st.coalesced_requests == B
+                and st.sessions_opened == 1
+                and next(iter(srv._lru))[-1] == p_bucket):
+            raise RuntimeError("server-ls/fleet: not one coalesced batch of "
+                               "the fleet's rows, bit for bit")
+
+        # (3) a deadline that expires in the queue (the dispatcher runs)
+        ops.reset_launch_counts()
+        fd = srv.submit(rt.Problem(X=X, y=Yf[1]),
+                        rt.Scalar(fl_lams[1], deadline_s=0.001))
+        exc = fd.exception(timeout=60)
+        srv.drain(timeout=60)
+        counts = ops.launch_counts()
+        dl_ok = isinstance(exc, rt.DeadlineExceeded) and \
+            not any(counts.values())
+        st = srv.stats()
+        print(f"[server-ls/deadline] exception={type(exc).__name__} "
+              f"launches={sum(counts.values())} deadline_misses="
+              f"{st.deadline_misses} ok={dl_ok}", flush=True)
+        print(f"[server-ls] stats={st._asdict()}", flush=True)
+        if not (dl_ok and st.deadline_misses == 1):
+            raise RuntimeError("server-ls/deadline: not expired in the queue")
+    finally:
+        srv.close()
+
+    # (2) priority, on a server whose dispatcher starts after both are in
+    X2n, y2n = simulation_data(n, p // 5, seed=5)
+    X2 = torch.from_numpy(X2n).to(X.device)
+    y2 = torch.from_numpy(y2n).to(X.device)
+    lm2 = float(rt.lambda_max(rt.get_loss("least_squares"), X2, y2))
+    srv = rt.open_server(autostart=False, max_batch=B, max_sessions=2,
+                         solver=cfg)
+    try:
+        order = []
+        f0 = srv.submit(rt.Problem(X=X, y=Yf[0]),
+                        rt.Scalar(fl_lams[0], priority=0))
+        f5 = srv.submit(rt.Problem(X=X2, y=y2),
+                        rt.Scalar(LS_LAM * lm2, priority=5))
+        f0.add_done_callback(lambda f: order.append(0))
+        f5.add_done_callback(lambda f: order.append(5))
+        ops.reset_launch_counts()
+        srv.run(timeout=0)
+        o0, o5 = f0.result(timeout=300), f5.result(timeout=300)
+        srv.drain(timeout=60)
+        counts = ops.launch_counts()
+        check_launches("server-ls/priority", counts, fleet_expect)
+        add(counts)
+        # a fleet of one: row 0's coefficients and gap (its capacity is
+        # its own)
+        prio_ok = (order == [5, 0] and o0.verdict.ok and o5.verdict.ok
+                   and torch.equal(o0.value.beta, rows[0].beta)
+                   and torch.equal(o0.value.gap, rows[0].gap))
+        print(f"[server-ls/priority] order={order} ok={prio_ok} "
+              f"stats={srv.stats()._asdict()}", flush=True)
+        if not prio_ok:
+            raise RuntimeError("server-ls/priority: the priority-5 request "
+                               "was not dispatched first")
+    finally:
+        srv.close()
+    del X2, y2
+    torch.cuda.empty_cache()
+
+    # (4) a poisoned rider, contained
+    srv = rt.open_server(autostart=False, max_batch=B, max_sessions=2,
+                         solver=cfg, serving=rt.ServingConfig(
+                             ladder=(), max_retries=0))
+    try:
+        stamps = []
+        futs = riders(srv, stamps)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        with FaultInjector(nan_at={1}, nan_unit=3, tags={"fleet"}) as inj:
+            srv.run(timeout=0)
+            outs = [f.result(timeout=300) for f in futs]
+        srv.drain(timeout=60)
+        counts = ops.launch_counts()
+        check_launches("server-ls/poisoned", counts, fleet_expect)
+        add(counts)
+        bad = [i for i, o in enumerate(outs) if not o.verdict.ok]
+        same = all(results_equal(o.value, r) for i, (o, r) in
+                   enumerate(zip(outs, rows)) if i != 3)
+        v3 = outs[3].verdict
+        st = srv.stats()
+        print(f"[server-ls/poisoned] log={inj.log} failed_riders={bad} "
+              f"rider3_events={list(v3.events)} rider3_unit_ok={v3.unit_ok} "
+              f"others_bitwise={same} stats={st._asdict()}", flush=True)
+        if not (bad == [3] and same and "nonfinite" in v3.events
+                and st.coalesced_batches == 1):
+            raise RuntimeError("server-ls/poisoned: the poisoned rider was "
+                               "not contained to itself")
+    finally:
+        srv.close()
     return total
 
 
@@ -3180,7 +3634,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    Xn, yn = simulation_data(N, args.p)
+    Xn, yn, beta_true = simulation_data(N, args.p, with_beta=True)
     X = torch.from_numpy(Xn).to(dev)
     y = torch.from_numpy(yn).to(dev)
     Ln, yl = logistic_data(N, args.p)
@@ -3396,7 +3850,11 @@ def main() -> int:
                    session_fused_phase(fused_ls),
                    # the fault-tolerant serving runtime (phase 21)
                    serving_ls_phase(X, y, sess_first, serial_ls, fleet_ls),
-                   serving_drill_phase(X, y, lm, ls_res["auto"], serial_ls)]
+                   serving_drill_phase(X, y, lm, ls_res["auto"], serial_ls),
+                   # online row updates and the async front end (22, 23)
+                   online_ls_phase(X, y, lm, beta_true, serial_ls),
+                   server_ls_phase(X, Yf, fl_lams, fl_res, fl_wall,
+                                   fleet_ls)]
     fast_counts = [c for _, c, _ in fast.values()]
     runs = [ls_counts["auto"], ls_counts["cuda"], lg_counts["auto"],
             *fused_counts, fl_counts, flc_counts, flg_counts, *fast_counts,

@@ -9,6 +9,10 @@ The public serving surface::
 
     srv = open_serving(Problem(X=X, y=y), SaifConfig(eps=1e-7))
     value, verdict = srv.solve(Scalar(lam))   # certified, retried, degraded
+    srv.solve(Update(rows, responses))        # stream rows, re-solve warm
+
+    server = open_server(max_batch=16)        # queue -> bucket -> fleet
+    value, verdict = server.submit(Problem(X=X, y=y), Scalar(lam)).result()
 
 Behind it: the serial SAIF solve, the fleet (B problems over one design,
 solved together, with optional sample weights), the warm-started lambda

@@ -3,7 +3,8 @@
 Primary surface:
   Problem, open_session, Session          — declarative spec + serving
   open_serving, ServingSession, Verdict   — the fault-tolerant runtime
-  Scalar, Path, Fleet, CV, Select         — the request types
+  open_server, Server, ServingFuture      — the async front end
+  Scalar, Path, Fleet, CV, Select, Update — the request types
   saif, SaifConfig, SaifResult            — one-shot Algorithm 1/2
 
 Engines: the serial solve, the fleet (weighted too; the fast-parity
@@ -44,8 +45,13 @@ _EXPORTS = {
         "ServingStats", "Verdict", "Rung",
         "ServingError", "RequestError", "NumericalError", "BackendFault",
         "DeadlineExceeded", "validate_problem", "validate_request")},
+    # the async front end: queue -> bucket -> microbatch -> fleet
+    **{name: _M + "server" for name in (
+        "open_server", "Server", "ServerConfig", "ServerStats",
+        "ServingFuture")},
     # streaming and model selection (import-light)
-    "Update": _M + "online",
+    **{name: _M + "online" for name in (
+        "Update", "OnlineState", "apply_update", "online_compile_count")},
     **{name: _M + "select" for name in (
         "Select", "SelectionReport", "select_solve", "subsample_weights",
         "stability_frequencies")},
@@ -104,7 +110,7 @@ _SUBMODULES = {
     "_compat", "active_set", "api", "batch", "batch_fast", "cm", "cv",
     "duality", "dynamic", "fused", "homotopy", "inner_backend", "losses",
     "online", "path", "saif", "screen_backend", "screen_rule", "select",
-    "sequential", "serving", "warm_cache",
+    "sequential", "server", "serving", "warm_cache",
 }
 
 __all__ = sorted(_EXPORTS)

@@ -16,8 +16,8 @@ session is the object that owns that state across calls:
     resolves the screen backend and rule, and returns a :class:`Session`.
   * ``session.solve(request)``: ONE entry point for every workload:
     :class:`Scalar`, :class:`Path`, :class:`Fleet`, :class:`CV`,
-    :class:`~repro_torch.core.select.Select` (and
-    :class:`~repro_torch.core.online.Update`, ROADMAP A6.3).
+    :class:`~repro_torch.core.select.Select` and
+    :class:`~repro_torch.core.online.Update` (online row updates).
 
 Dispatch lands on the port's engines (``solve_scalar``, ``run_path``,
 ``fleet_solve``, ``cv_solve``, ``select_solve``), so a cold request is
@@ -38,9 +38,12 @@ Where the port differs from the reference:
     ``None`` means the card, and opening raises without one; ``"cpu"``
     runs the plain path. The session prepares once there, and every
     request runs there.
-  * Group penalties raise at ``open_session`` (ROADMAP A7b), ``sharded``
-    requests raise without a mesh as the reference does and with one name
-    ROADMAP A8, and ``Update`` requests name ROADMAP A6.3.
+  * Group penalties raise at ``open_session`` (ROADMAP A7b), and
+    ``sharded`` requests raise without a mesh as the reference does and
+    with one name ROADMAP A8.
+  * :meth:`Session.content_digest` is reset by every committed
+    ``Update``, so a digest never names rows the session no longer
+    holds.
   * The port is eager: it has no compilation cache per static key, so
     :class:`CompileStats` reads 0 compilations and
     :func:`unified_compile_count` returns 0.
@@ -317,10 +320,11 @@ class Session:
         self._warm_k = None
         self._requests = 0
         self._warm_cache = kw["warm_cache"]  # shared WarmCache or None
-        self._last_lam = None           # last solved lambda
+        self._online = None             # OnlineState once streaming
+        self._last_lam = None           # last solved lambda (Update default)
         self._pending_events = []       # provenance, drained by serving
         self._cache_last = None         # (digest, lam) of last cache store
-        self._digest_memo = None        # problem digest, computed once
+        self._digest_memo = None        # problem digest, reset per Update
 
         if problem.X is None:
             raise ValueError("Problem.X is required")
@@ -440,9 +444,7 @@ class Session:
         if isinstance(request, CV):
             return self._solve_cv(request)
         if isinstance(request, Update):
-            raise NotImplementedError(
-                "online row updates: repro_torch's sessions do not stream "
-                "yet (ROADMAP A6.3)")
+            return self._solve_update(request)
         if isinstance(request, Select):
             return self._solve_select(request)
         raise TypeError(f"unknown request {request!r}: expected Scalar, "
@@ -508,9 +510,10 @@ class Session:
         """Content digest of the (design, response) the session solves
         (:func:`~repro_torch.core.warm_cache.problem_digest` of its
         preparation: the padded arrays of a bucket-padded session, the
-        transformed design of a fused one), computed once: a design on the
-        card costs one host copy and its SHA-256. The warm cache's key and
-        the serving checkpoints' gate."""
+        transformed design of a fused one, the resident rows of a
+        streaming one), memoized until an ``Update`` changes the rows: a
+        design on the card costs one host copy and its SHA-256. The warm
+        cache's key and the serving checkpoints' gate."""
         if self._digest_memo is None:
             from repro_torch.core.warm_cache import problem_digest
             src = self._prep
@@ -529,11 +532,12 @@ class Session:
         return self._warm_cache.invalidate(digest, lam)
 
     def _cache_eligible(self, req) -> bool:
-        """The homotopy cache serves cold plain-LASSO requests on an
-        unweighted design with the built-in screens; everything else keeps
-        its path."""
+        """The homotopy cache serves cold plain-LASSO requests on a
+        static (non-streaming), unweighted design with the built-in
+        screens; everything else keeps its path."""
         return (self._warm_cache is not None and not req.warm
                 and self._make_screen is None and self._design is None
+                and self._online is None
                 and self.problem.weights is None
                 and isinstance(self.penalty, LassoPenalty))
 
@@ -714,6 +718,13 @@ class Session:
                         keep_fold_betas=req.keep_fold_betas,
                         refit=req.refit, device=self.device)
 
+    def _solve_update(self, req: Update):
+        if not isinstance(self.penalty, LassoPenalty):
+            raise NotImplementedError(
+                "online row updates serve plain-LASSO sessions")
+        from repro_torch.core.online import apply_update
+        return apply_update(self, req)
+
     def _solve_select(self, req: Select) -> SelectionReport:
         if not isinstance(self.penalty, LassoPenalty):
             raise NotImplementedError(
@@ -724,8 +735,14 @@ class Session:
                 "selection build their own binary row weights")
         self._require_y()
         from repro_torch.core.select import select_solve
-        report = select_solve(self._X, self._y, req, self.config,
-                              device=self.device)
+        if self._online is not None:
+            # a streaming session selects on its CURRENT resident rows
+            # (the first `filled` buffer rows hold exactly the live data)
+            n = self._prep.n_true or self._prep.X.shape[0]
+            X, y = self._prep.X[:n], self._prep.y[:n]
+        else:
+            X, y = self._X, self._y
+        report = select_solve(X, y, req, self.config, device=self.device)
         self._last_lam = float(report.lam)
         return report
 

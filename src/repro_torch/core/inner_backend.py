@@ -279,6 +279,38 @@ def _gram_tail(loss, Xa, y, live, lam, beta, pen=None, x_unpen=None,
     return InnerOut(beta=beta, z=z, theta=theta, gap=gap)
 
 
+def gram_block_update(G: Tensor, rho: Tensor, gidx: Tensor,
+                      rows_new: Tensor, y_new: Tensor, rows_old: Tensor,
+                      y_old: Tensor, live: Optional[Tensor] = None):
+    """Rank-m streaming update/downdate of a resident Gram carry: replace
+    the (m, p) rows ``rows_old`` (responses ``y_old``) with ``rows_new``
+    (``y_new``) in the active-block state,
+
+        G   += C_new^T C_new - C_old^T C_old
+        rho += C_new^T y_new - C_old^T y_old
+
+    where ``C = rows[:, gidx]`` gathers the per-slot feature columns of
+    the row block. Only the live slots (``gidx >= 0``; ``live``: their
+    slot ids, found here when None, which reads their count on the host)
+    are gathered and updated: the products' shapes follow the live count,
+    not the capacity, and every other entry of G and rho is left as it
+    was (stale entries are allowed: ``init`` / ``refresh`` never read a
+    slot before reconciling it). An append-only stream passes zero rows
+    as ``rows_old``/``y_old``, an exact no-op on the subtracted terms.
+
+    ``gidx`` is returned unchanged: live slots keep ``gidx == idx``, so
+    the warm re-solve's ``init`` finds no dirty slot and keeps the
+    updated carry without the O(n k^2) rebuild."""
+    if live is None:
+        live = torch.nonzero(gidx >= 0).flatten()
+    ids = gidx[live]
+    c_new, c_old = rows_new[:, ids], rows_old[:, ids]
+    G2, rho2 = G.clone(), rho.clone()
+    G2[live[:, None], live[None, :]] += c_new.T @ c_new - c_old.T @ c_old
+    rho2[live] += c_new.T @ y_new - c_old.T @ y_old
+    return G2, rho2
+
+
 def make_inner_cuda(loss: Loss, X: Tensor, y: Tensor, col_norm: Tensor,
                     unpen_idx: int = -1) -> InnerBackend:
     """Kernel backend: one K3 launch per burst, on the transposed active

@@ -93,12 +93,19 @@ def cold_start(prep: PathState, h0: int, k: int,
 
 def grow_warm(warm: WarmState, k: int, inner_name: str) -> WarmState:
     """Pad a warm state to capacity ``k``; a Gram carry is padded in place
-    (new slots dead, gidx -1), any other carry rebuilt cold."""
+    (new slots dead, gidx -1), any other carry rebuilt cold. A Gram
+    engine handed another backend's carry (the crossover flipped, e.g. as
+    a row stream grew n) gets a cold Gram carry, which its ``init``
+    rebuilds."""
     idx, vals, mask, carry = warm
-    pad = k - idx.shape[0]
+    k0 = idx.shape[0]
+    if inner_name == "gram" and tuple(carry.G.shape) != (k0, k0):
+        carry = cold_inner_carry(k0, vals.dtype, vals.device)
+        warm = (idx, vals, mask, carry)
+    pad = k - k0
     if pad <= 0:
         return warm
-    if inner_name == "gram" and carry.G.shape[0] == idx.shape[0]:
+    if inner_name == "gram":
         carry = InnerCarry(
             G=torch.nn.functional.pad(carry.G, (0, pad, 0, pad)),
             rho=torch.nn.functional.pad(carry.rho, (0, pad)),

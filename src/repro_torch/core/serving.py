@@ -28,7 +28,10 @@ every failure between the request and the result:
   (re-solve with grown capacity and outer budget), ``oracle`` (the
   unscreened CM solve, K7 on a card: screening-free, so a screening bug
   cannot survive it), ``x64`` (re-solve in float64). Each rung is
-  re-verified and recorded in ``verdict.rungs``.
+  re-verified and recorded in ``verdict.rungs``. A streaming session's
+  answers (``Update`` and the Scalar, Path and Select after one) are
+  certified against the rows it holds; the grow and x64 rungs, which
+  re-open the original problem, skip them.
 * **Fault containment**: transient ``RuntimeError``s (a failed kernel
   launch) are retried with jittered exponential backoff under a
   per-request deadline (:func:`repro_torch.runtime.fault.retry_step`);
@@ -517,6 +520,7 @@ class ServingSession:
         self._rng = random.Random(self.serving.seed)
         self._monitors: Dict[tuple, Any] = {}
         self.breaker_open = False
+        self._refusing = False          # the breaker opened by refusing
         self.restored = False
         self._preempt_ckpt = False
         self._requests = 0
@@ -657,7 +661,7 @@ class ServingSession:
         from repro_torch.runtime.fault import (RetryDeadlineExceeded,
                                                StepFailed, StragglerMonitor,
                                                retry_step)
-        if self.breaker_open and self.session.device.type == "cuda":
+        if self._refusing:
             raise BackendFault(
                 f"the breaker is open on {self.session.device}: the session "
                 f"refuses requests after a persistent backend fault")
@@ -668,10 +672,17 @@ class ServingSession:
             mon = self._monitors[bucket] = StragglerMonitor(
                 factor=ser.straggler_factor)
 
+        updates0 = self._online_updates()
+
         def attempt():
             tA = time.monotonic()
             try:
-                out = self.session.solve(request)
+                if self._online_updates() != updates0:
+                    # an Update's rows were committed before the fault:
+                    # the retry re-solves, it never applies them twice
+                    out = self._resolve_committed(request)
+                else:
+                    out = self.session.solve(request)
             except (NotImplementedError, ServingError,
                     KernelBuildError) as e:
                 raise _NonRetriable(e) from e
@@ -699,15 +710,29 @@ class ServingSession:
         except StepFailed as e:
             return self._trip_breaker(request, e, events)
 
+    def _online_updates(self) -> int:
+        st = getattr(self.session, "_online", None)
+        return 0 if st is None else st.updates
+
+    def _resolve_committed(self, request):
+        """The warm re-solve of an Update whose rows are in already."""
+        from repro_torch.core.online import _resolve
+        lam = request.lam if request.lam is not None \
+            else self.session._last_lam
+        return _resolve(self.session, float(lam))
+
     def _trip_breaker(self, request, err, events):
-        """Retries exhausted. On a card the breaker opens and the fault is
-        a typed BackendFault: the session refuses every later request
-        rather than serve it on the plain path. Elsewhere the backends are
-        durably pinned to the plain path and the degraded session gets one
-        clean shot; anything else is a typed BackendFault."""
+        """Retries exhausted. On a card, and on a streaming session (an
+        Update's engine faults come after its rows are in), the breaker
+        opens and the fault is a typed BackendFault: the session refuses
+        every later request rather than serve it on the plain path or on
+        the original rows. Elsewhere the backends are durably pinned to
+        the plain path and the degraded session gets one clean shot;
+        anything else is a typed BackendFault."""
         events.append("backend_fault")
-        if self.session.device.type == "cuda":
-            self.breaker_open = True
+        if self.session.device.type == "cuda" or \
+                self._streamed(self.session):
+            self.breaker_open = self._refusing = True
             raise BackendFault(
                 f"persistent backend fault on {self.session.device} "
                 f"(retries exhausted); the breaker is open and the session "
@@ -849,6 +874,21 @@ class ServingSession:
         return ok, converged, gap_w, kkt_w, tol_w, events
 
     @staticmethod
+    def _streamed(sess) -> bool:
+        return getattr(sess, "_online", None) is not None
+
+    @classmethod
+    def _solved_design(cls, sess):
+        """The (X, y, pen) a serial request (Scalar, Path, Select) was
+        solved on: a streaming session's resident rows (``_prep``; its
+        zero capacity-padding rows are exact for least squares), else
+        :meth:`_device_design`. Fleet and CV requests solve on the
+        session's original design, as in the reference."""
+        if cls._streamed(sess):
+            return sess._prep.X, sess._prep.y, None
+        return cls._device_design(sess)
+
+    @staticmethod
     def _device_design(sess):
         """The session's device-resident (X, y, pen) the certificate and
         the oracle use: the transformed design with b's l1 weight 0 for a
@@ -879,7 +919,7 @@ class ServingSession:
                 return [dict(beta=value.beta, gap=value.gap,
                              lam=request.lam, kkt=False,
                              n_outer=int(value.n_outer))]
-            X, y, pen = self._device_design(sess)
+            X, y, pen = self._solved_design(sess)
             res = value[1] if fusedp else value
             sw = None if sess.problem.weights is None \
                 else as_tensor(sess.problem.weights, X.device, X.dtype)
@@ -893,7 +933,7 @@ class ServingSession:
                 return [dict(beta=r.beta, gap=r.gap, lam=float(lam),
                              kkt=False, n_outer=int(r.n_outer))
                         for lam, r in zip(value.lams, value.results)]
-            X, y, pen = self._device_design(sess)
+            X, y, pen = self._solved_design(sess)
             pr = value.path if fusedp else value
             return [dict(beta=b, gap=r.gap, lam=float(lam), kkt=True,
                          X=X, y=y, pen=pen, sample_w=None,
@@ -952,7 +992,7 @@ class ServingSession:
                 # finiteness at the chosen lambda (the CV idiom above)
                 return [dict(beta=np.asarray(value.cv_mean), gap=0.0,
                              lam=float(value.lam), kkt=False)]
-            X, y, pen = self._device_design(sess)
+            X, y, pen = self._solved_design(sess)
             res = value.best_result
             return [dict(beta=value.beta,
                          gap=(0.0 if res is None else res.gap),
@@ -962,7 +1002,16 @@ class ServingSession:
                          else bool(res.overflowed),
                          n_outer=0 if res is None else int(res.n_outer))]
 
-        # an Update never gets here: the session refuses it (ROADMAP A6.3)
+        if isinstance(request, api.Update):
+            if value is None:        # resolve=False: ingest only, nothing
+                return []            # to certify until the next solve
+            X, y, _ = self._solved_design(sess)
+            return [dict(beta=value.beta, gap=value.gap,
+                         lam=float(sess._last_lam), kkt=True, X=X, y=y,
+                         pen=None, sample_w=None,
+                         overflowed=bool(value.overflowed),
+                         n_outer=int(value.n_outer))]
+
         raise RequestError(f"unknown request {request!r}")
 
     def _scrub_warm(self, request, events) -> None:
@@ -970,7 +1019,7 @@ class ServingSession:
         coefficients in the slot buffers); reset the warm surface so later
         warm=True requests re-enter cold."""
         from repro_torch.core import api
-        if not isinstance(request, (api.Scalar, api.Path)):
+        if not isinstance(request, (api.Scalar, api.Path, api.Update)):
             return
         s = self.session
         if isinstance(s.penalty, api.GroupPenalty):
@@ -1015,6 +1064,8 @@ class ServingSession:
         sess = self.session
         if isinstance(sess.penalty, api.GroupPenalty):
             return None              # no group engine yet (A7b)
+        if self._reopens_another_problem(request):
+            return None
         if getattr(request, "sharded", False):
             return None
         if isinstance(request, api.Fleet) and request.screen_fn is not None:
@@ -1041,10 +1092,24 @@ class ServingSession:
         fusedp = isinstance(sess.penalty, api.FusedPenalty)
         failed = self._last_unit_ok
         X, y, _ = self._device_design(sess)
+        Xs, ys, _ = self._solved_design(sess)
+
+        if isinstance(request, api.Update):
+            lam = getattr(sess, "_last_lam", None)
+            if value is None or lam is None:
+                return None
+            # the streamed problem lives in the session's padded
+            # preparation; zero pad rows make the unscreened LS oracle
+            # exact there
+            out = self._oracle_solve(Xs, ys, float(lam), None)
+            if out is None:
+                return None
+            beta, gap = out
+            return _result_like(value, beta, gap), sess
 
         if isinstance(request, api.Scalar):
             w = None if fusedp else self.problem.weights
-            out = self._oracle_solve(X, y, float(request.lam), w)
+            out = self._oracle_solve(Xs, ys, float(request.lam), w)
             if out is None:
                 return None
             beta, gap = out
@@ -1061,7 +1126,7 @@ class ServingSession:
             for i, lam in enumerate(pr.lams):
                 if i < len(failed) and failed[i]:
                     continue
-                out = self._oracle_solve(X, y, float(lam), None)
+                out = self._oracle_solve(Xs, ys, float(lam), None)
                 if out is None:
                     return None
                 b, g = out
@@ -1110,9 +1175,11 @@ class ServingSession:
         if isinstance(request, (api.CV, api.Select)):
             if value.beta is None:
                 return None
-            lam = value.best_lam if isinstance(request, api.CV) \
-                else value.lam
-            out = self._oracle_solve(X, y, float(lam), None)
+            if isinstance(request, api.CV):
+                lam, Xo, yo = value.best_lam, X, y
+            else:
+                lam, Xo, yo = value.lam, Xs, ys
+            out = self._oracle_solve(Xo, yo, float(lam), None)
             if out is None:
                 return None
             beta, gap = out
@@ -1122,6 +1189,17 @@ class ServingSession:
             return value._replace(beta=beta, best_result=res), sess
 
         return None
+
+    def _reopens_another_problem(self, request) -> bool:
+        """The grow and x64 rungs re-open ``self.problem``. Replaying an
+        Update there would apply its rows to the original design, and a
+        streaming session's Scalar, Path or Select answers its resident
+        rows, not the original ones: neither rung applies (the oracle
+        rung re-solves the resident rows instead)."""
+        from repro_torch.core import api
+        return isinstance(request, api.Update) or (
+            self._streamed(self.session)
+            and isinstance(request, (api.Scalar, api.Path, api.Select)))
 
     def _oracle_solve(self, X, y, lam: float, sample_w):
         """One unscreened CM solve to the serving tolerance, plus its own
@@ -1163,6 +1241,8 @@ class ServingSession:
         from repro_torch.core import api
         if isinstance(self.session.penalty, api.GroupPenalty):
             return None              # no group engine yet (A7b)
+        if self._reopens_another_problem(request):
+            return None
         pb = self.problem
 
         def f64(a):

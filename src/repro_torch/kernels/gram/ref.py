@@ -45,8 +45,13 @@ def gram_sweep_batch_ref(G: Tensor, rho: Tensor, beta: Tensor, mask: Tensor,
                          smoothness: float = 1.0,
                          pen: Tensor | None = None) -> Tensor:
     """:func:`gram_sweep_ref` per problem: G (m, k, k), rho/beta/mask/order
-    (and ``pen``) (m, k), lam/count/n_epochs (m,). Returns beta (m, k)."""
+    (and ``pen``) (m, k), lam/count/n_epochs (m,). Returns beta (m, k).
+    Each problem's G, rho and beta are copied out first: a CPU matvec's
+    summation order follows its operand's memory alignment, and a fresh
+    tensor is aligned as the serial sweep's own carry is, so each row is
+    bit for bit the serial sweep whatever its index in the stack."""
     return torch.stack([gram_sweep_ref(
-        G[b], rho[b], beta[b], mask[b], lam[b], order[b], int(count[b]),
-        int(n_epochs[b]), smoothness, None if pen is None else pen[b])
+        G[b].clone(), rho[b].clone(), beta[b].clone(), mask[b], lam[b],
+        order[b], int(count[b]), int(n_epochs[b]), smoothness,
+        None if pen is None else pen[b])
         for b in range(G.shape[0])])

@@ -16,9 +16,9 @@ p = 160, float64, ``device="cpu"``):
     residual <= 1e-3 lambda.
 
 Plus the hooks (``make_screen``, ``Fleet(screen_fn=)``, ``scan_fn``), the
-warm handoff, the refusals (group: A7b, sharded: a mesh then A8, Update:
-A6.3), the one-shot deprecation warnings, and the lazy public surface in a
-fresh interpreter.
+warm handoff, an ``Update`` served, the refusals (group: A7b, sharded: a
+mesh then A8), the one-shot deprecation warnings, and the lazy public
+surface in a fresh interpreter.
 """
 import os
 import subprocess
@@ -444,13 +444,25 @@ def test_sharded_requests(kind):
         _open(X, y, mesh=object()).solve(reqs[kind])
 
 
-def test_update_raises_naming_a6_3():
+def test_update_is_served_by_the_session():
+    """``solve(Update)`` and the ``update`` verb stream rows into the
+    session: the warm re-solve is the reference session's, and
+    ``update(rows, responses)`` re-solves at the last lambda."""
     X, y, lm = _problem(14)
-    sess = _open(X, y)
-    with pytest.raises(NotImplementedError, match="A6.3"):
-        sess.solve(rt.Update(rows=X[:2], responses=y[:2], lam=0.3 * lm))
-    with pytest.raises(NotImplementedError, match="A6.3"):
-        sess.update(X[:2], y[:2])
+    cfg = rt.SaifConfig(eps=EPS, inner_backend="gram")
+    sess = _open(X, y, cfg)
+    jsess = J.open_session(J.Problem(X=X, y=y),
+                           J.SaifConfig(eps=EPS, inner_backend="gram"))
+    lam = 0.3 * lm
+    res = sess.solve(rt.Update(rows=X[:2], responses=y[:2], lam=lam))
+    jres = jsess.solve(J.Update(rows=X[:2], responses=y[:2], lam=lam))
+    Xs, ys = np.vstack([X, X[:2]]), np.r_[y, y[:2]]
+    _against_reference(res, jres, Xs, ys, lam)
+    res2 = sess.update(X[2:4], y[2:4])
+    jres2 = jsess.update(X[2:4], y[2:4])
+    Xs, ys = np.vstack([Xs, X[2:4]]), np.r_[ys, y[2:4]]
+    _against_reference(res2, jres2, Xs, ys, lam)
+    assert sess._online.filled == 44 and sess.compile_stats().requests == 2
 
 
 def test_unknown_request_penalty_and_kwargs():

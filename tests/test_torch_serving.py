@@ -521,9 +521,143 @@ def test_group_and_update_refusals():
         rt.open_serving(rt.Problem(X=X, y=y, penalty=group(8)),
                         device="cpu")
     srv = _serve(X, y)
-    with pytest.raises(NotImplementedError, match="A6.3"):
+    # an Update is served; with no lambda anywhere it is a typed refusal
+    with pytest.raises(rt.RequestError, match="first resolving update"):
         srv.solve(rt.Update(rows=X[:2], responses=y[:2]))
     assert srv.stats().retries == 0 and not srv.breaker_open
+    out = srv.solve(rt.Update(rows=X[2:4], responses=y[2:4],
+                              lam=0.3 * lmax))
+    v = out.verdict
+    assert v.ok and not v.degraded and not v.rungs and v.unit_ok == (True,)
+    assert v.kkt_residual <= v.kkt_tol
+    Xs, ys = np.vstack([X, X[:4]]), np.r_[y, y[:4]]
+    assert _kkt(Xs, ys, out.value.beta, 0.3 * lmax) <= v.kkt_tol
+    # resolve=False ingests only: nothing to certify
+    v = srv.solve(rt.Update(rows=X[4:6], responses=y[4:6],
+                            resolve=False)).verdict
+    assert v.ok and v.unit_ok is None and srv.session._online.filled == 36
+    assert srv.stats().retries == 0 and not srv.breaker_open
+
+
+# ---------------------------------------------------------------------------
+# streamed sessions: certified on the resident rows
+# ---------------------------------------------------------------------------
+
+def _stream_problem(seed=0, n0=40, p=120, k=5, noise=0.1):
+    """tests/test_online.py's stream."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n0, p))
+    beta = np.zeros(p)
+    beta[:k] = rng.uniform(0.8, 1.6, k)
+    y = X @ beta + noise * rng.normal(size=n0)
+    return X, y, beta, rng
+
+
+def test_streamed_scalar_is_certified_on_the_resident_rows():
+    """The reference certifies a streamed session's Scalar against the
+    ORIGINAL design: it fails KKT and its grow rung re-opens the original
+    problem, whose answer it serves as ok (degraded), 0.09 away from the
+    cold solve of the streamed rows. The port certifies the resident rows:
+    ok with no rung, the cold concatenated solve's answer (ROADMAP
+    section C)."""
+    X, y, bt, rng = _stream_problem(seed=0)
+    lam = 0.2 * float(np.abs(X.T @ y).max())
+    Xn = rng.normal(size=(8, X.shape[1]))
+    yn = Xn @ bt + 0.1 * rng.normal(size=8)
+    Xs, ys = np.vstack([X, Xn]), np.r_[y, yn]
+    cfg = dict(eps=1e-8, inner_backend="gram")
+    jsrv = JS.open_serving(J.Problem(X=X, y=y), JConfig(**cfg))
+    jsrv.solve(J.Update(rows=Xn, responses=yn, lam=lam))
+    jout = jsrv.solve(J.Scalar(lam))
+    srv = _serve(X, y, rt.SaifConfig(**cfg))
+    srv.solve(rt.Update(rows=Xn, responses=yn, lam=lam))
+    out = srv.solve(rt.Scalar(lam))
+    cold = rt.open_session(rt.Problem(X=Xs, y=ys), rt.SaifConfig(**cfg),
+                           device="cpu").solve(rt.Scalar(lam))
+    jv, v = jout.verdict, out.verdict
+    assert jv.ok and jv.degraded
+    assert jv.events == ("kkt_violation", "warm_state_reset",
+                         "degraded:grow")
+    jerr = float(np.abs(np.asarray(jout.value.beta) - cold.beta.numpy())
+                 .max())
+    assert 0.09 < jerr < 0.1
+    assert v.ok and not v.degraded and not v.rungs and v.events == ()
+    b = out.value.beta.numpy()
+    assert _support(b) == _support(cold.beta)
+    np.testing.assert_allclose(b, cold.beta.numpy(), rtol=0, atol=1e-6)
+    assert _kkt(Xs, ys, b, lam) <= 1e-3 * lam
+    # a Path too, and the grow / x64 rungs never re-open the original
+    pr = srv.solve(rt.Path([0.3 * lam / 0.2, lam]))
+    assert pr.verdict.ok and not pr.verdict.rungs
+    assert srv._rung_grow(rt.Scalar(lam)) is None
+    assert srv._rung_x64(rt.Path([lam])) is None
+
+
+def test_update_ladder_equals_reference():
+    """NaN poked into an Update's re-solve: the grow rung is skipped (it
+    would replay the rows on the original problem), the oracle re-solves
+    the resident rows (K7's twin here) and certifies; the events, rungs
+    and unit flags are the reference's, the value its value."""
+    X, y, bt, rng = _stream_problem(seed=1)
+    lam = 0.25 * float(np.abs(X.T @ y).max())
+    Xn = rng.normal(size=(8, X.shape[1]))
+    yn = Xn @ bt + 0.1 * rng.normal(size=8)
+    srv = _serve(X, y)
+    jsrv = JS.open_serving(J.Problem(X=X, y=y), JConfig(eps=EPS))
+    srv.solve(rt.Scalar(lam))
+    jsrv.solve(J.Scalar(lam))
+    with FaultInjector(nan_at={1}) as inj:
+        out = srv.solve(rt.Update(rows=Xn, responses=yn))
+    with JInjector(nan_at={1}) as jinj:
+        jout = jsrv.solve(J.Update(rows=Xn, responses=yn))
+    v, jv = out.verdict, jout.verdict
+    assert inj.log == jinj.log == [(1, "path", "nan")]
+    assert v.ok and v.degraded
+    assert v.events == jv.events and "warm_state_reset" in v.events
+    assert [(r.name, r.ok, r.note) for r in v.rungs] == \
+        [(r.name, r.ok, r.note) for r in jv.rungs] == \
+        [("grow", False, "skipped"), ("oracle", True, "")]
+    assert (v.unit_ok, v.unit_degraded) == (jv.unit_ok, jv.unit_degraded)
+    np.testing.assert_allclose(out.value.beta.numpy(),
+                               np.asarray(jout.value.beta), rtol=1e-8,
+                               atol=1e-12)
+    Xs, ys = np.vstack([X, Xn]), np.r_[y, yn]
+    assert _kkt(Xs, ys, out.value.beta, lam) <= 1e-3 * lam
+    assert srv.session.warm_state is None       # scrubbed
+    assert srv.solve(rt.Scalar(lam, warm=True)).verdict.ok
+
+
+def test_update_retry_applies_the_rows_once():
+    """A transient fault in an Update's re-solve retries the re-solve
+    only: the rows are in once, the answer is the unfaulted stream's.
+    (The reference's retry replays the whole Update and applies the rows
+    twice; ROADMAP section C.) A persistent one opens the breaker as a
+    typed BackendFault: a streaming session is never re-opened from the
+    original problem."""
+    X, y, bt, rng = _stream_problem(seed=2)
+    lam = 0.25 * float(np.abs(X.T @ y).max())
+    Xn = rng.normal(size=(8, X.shape[1]))
+    yn = Xn @ bt + 0.1 * rng.normal(size=8)
+    sc = rt.ServingConfig(backoff_base_s=0.0)
+    want = _serve(X, y).solve(rt.Update(rows=Xn, responses=yn, lam=lam))
+    srv = _serve(X, y, serving=sc)
+    with FaultInjector(fail_at={1}) as inj:
+        out = srv.solve(rt.Update(rows=Xn, responses=yn, lam=lam))
+    assert inj.log == [(1, "path", "fail")] and out.verdict.retries == 1
+    assert srv.session._online.filled == 48
+    assert srv.session._online.updates == 1
+    _same_result(out.value, want.value)
+    jsrv = JS.open_serving(J.Problem(X=X, y=y), JConfig(eps=EPS),
+                           serving=JS.ServingConfig(backoff_base_s=0.0))
+    with JInjector(fail_at={1}):
+        jsrv.solve(J.Update(rows=Xn, responses=yn, lam=lam))
+    assert jsrv.session._online.filled == 56        # the rows twice
+    with FaultInjector(fail_at={1, 2, 3}):
+        with pytest.raises(rt.BackendFault, match="retries exhausted"):
+            srv.solve(rt.Scalar(lam))
+    assert srv.breaker_open and srv.session._online.filled == 48
+    with pytest.raises(rt.BackendFault, match="breaker is open"):
+        srv.solve(rt.Scalar(lam))
 
 
 def test_kernel_build_error_passes_up_unretried(monkeypatch, tmp_path):
