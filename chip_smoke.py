@@ -194,19 +194,54 @@ Phases (each one fails the run by raising):
    a priority-0 one submitted first; on a third a poisoned rider
    (``FaultInjector(nan_at={1}, nan_unit=3, tags={"fleet"})``, no ladder,
    no retry) failing alone, the other 15 bit for bit their rows; the
-   servers' stats.
+   servers' stats;
+24. ``[group-ls]`` and ``[group-logit]``, the group LASSO: phase 2's and
+   phase 3's designs in 10,000 groups of GROUP_SIZE = 10 consecutive
+   columns, a response from 50 true groups with N(0, 1) coefficients
+   (least squares y = X beta + N(0, 1); logistic labels sign(X beta + 0.3
+   noise)), ``prepare_group`` on the card (h = 128, k_max = 1024), a
+   Scalar at GROUP_LAM (GROUP_LOGIT_LAM) of the group lambda_max and a
+   4-point Path from GROUP_PATH_HI down to it (each point entered from
+   the last), eps = 1e-6, through ``group_solve`` under ``auto`` (B-n3
+   and no other kernel), and the Path's first GROUP_PLAIN_POINTS points
+   (least squares two, a cold solve and a warm one; logistic the cold
+   one) again under ``backend="torch"`` (no kernel; the plain burst's
+   block step takes 30-45 times B-n3's, so the rest of the Path and the
+   Scalar would take many minutes, PERF.md section 6): every solve
+   certified on the card (gap <= eps, max_g ||X_g^T theta|| <= 1 + 1e-3
+   over all groups at its final dual point), the two backends' group
+   supports equal, their outer steps and live groups side by side;
+25. ``[group-oracle]``: the unscreened ``solve_group_lasso_bcd`` (a B-n3
+   launch an epoch) on the first 2,000 columns with ``group_solve``'s
+   group support there; ``group_solve`` opens at the default 128 slots,
+   which the support outgrows, and must flag the overflow and grow;
+26. ``[session-group]`` and ``[serving-group]``: ``open_session(Problem(X,
+   y, penalty=group(10)))`` serving phase 24's Scalar, a warm Scalar and
+   its Path, each certified, bit for bit and launch for launch the
+   direct ``group_solve`` calls; the same requests through
+   ``open_serving``: every verdict ok, gap-certified with
+   ``kkt_residual == 0.0``, no rung, no retry, the breaker shut, bit for
+   bit and launch for launch the session's;
+27. B-n3 against its plain version on the card in float64 and float32
+   (rel 1e-12 and 1e-5): a 40-epoch burst from beta = 0 on phase 24's
+   final live blocks (least squares and logistic), gsize 1, 3 and 17, one
+   live slot, every slot masked, n = 1,023 and 1,025. Its device time per
+   launch, microseconds per block step, the plain version's time and the
+   bound are taken after phase 8's kernel rows, on blocks of the two
+   cells' sizes (their groups of largest c0).
 
 Launch counters are zeroed just before each solve (and the transform of
 phase 4, the CV fleets, the CV refit, the selection, the K5 call, each
-baseline, each session, serving and streaming request, each server's
-run, the oracle rung and the fused session's open) and read just after;
-the kernel launches of phases 8, 12, 17 and 18, of the checks of phases 13-14, of
-the comparisons of phase 4, of the serial solves that phases 9-10 compare
-with, of the lambda_max helpers and of one extra solve
-under torch.profiler (the device's busy time and idle share; these run
-after phase 18, the baselines' after phase 19) do not count. The last two lines are the card's name and power limit and
-``{"ok": true, "device": {...}}``; the line before them is the per-kernel
-JSON record.
+baseline, each session, serving and streaming request, each server's run,
+the oracle rung, the fused session's open and each group solve, path and
+oracle) and read just after; the kernel launches of phases 8, 12, 17, 18
+and 27, of the checks of phases 13-14, of the comparisons of phase 4, of
+the serial solves that phases 9-10 compare with, of the lambda_max helpers
+and of one extra solve under torch.profiler (the device's busy time and
+idle share; these run after phase 18, the baselines' after phase 19, the
+group solves' after phase 27) do not count. The last two lines are the
+card's name and power limit and ``{"ok": true, "device": {...}}``; the line
+before them is the per-kernel JSON record.
 """
 from __future__ import annotations
 
@@ -247,6 +282,7 @@ FLEET_LOGIT = (0.5, 0.2, 8)
 # folds; the stability selection's subsamples and their row fraction
 CV_GRID = (0.9, 0.004, 24)
 CV_FOLDS = 5
+CV_PROFILE_POINTS = 8
 SELECT_SUBSAMPLES = (16, 0.5)
 # [baselines-ls]: the sequential and homotopy paths run geometric from 0.95
 # to LS_LAM lambda_max in 5 points (benchmarks/bench_baselines.py:106),
@@ -262,6 +298,24 @@ WIDE_COUNTS = (3, 4, 5, 6, 8, 9)
 STREAM_M = 64
 STREAM_UPDATES = 4
 STREAM_WINDOW = N
+# the group phases: phase 2's and phase 3's designs in groups of 10
+# consecutive columns (10,000 groups; the defaults give h = 128 and k_max
+# = 1024 groups), 50 true groups; a Scalar at GROUP_LAM (least squares) or
+# GROUP_LOGIT_LAM (logistic) times the group lambda_max and a 4-point Path
+# from GROUP_PATH_HI down to it, eps = 1e-6
+# (scripts/group_lambda_probe_torch.py sets the fractions)
+GROUP_SIZE = 10
+GROUP_TRUE = 50
+GROUP_LAM = 0.1
+GROUP_LOGIT_LAM = 0.3
+GROUP_PATH_HI = 0.6
+GROUP_EPS = 1e-6
+# live groups of B-n3's timing blocks: the group cells' Scalars end with
+# these many (PERF.md section 6)
+GROUP_TIMING_LIVE = {"least_squares": 314, "logistic": 250}
+# the Path's leading points that the plain burst solves too, by loss (its
+# block step takes 30-45 times B-n3's)
+GROUP_PLAIN_POINTS = {"least_squares": 2, "logistic": 1}
 
 
 def nvidia_smi_line() -> str:
@@ -332,6 +386,47 @@ def fused_chain_data(n, p, seed=0, logistic=False):
     y = np.sign(X @ beta + 0.3 * rng.normal(size=n))
     y[y == 0] = 1.0
     return X, y
+
+
+def group_response(X, seed, logistic=False, gsize=GROUP_SIZE,
+                   k=GROUP_TRUE):
+    """A response over the design ``X`` (on its device) from ``k`` true
+    groups of ``gsize`` consecutive columns with N(0, 1) coefficients:
+    y = X beta + N(0, 1), or with ``logistic`` the labels
+    sign(X beta + 0.3 noise). Seeded with numpy."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    n, p = X.shape
+    beta = np.zeros(p)
+    for g in rng.choice(p // gsize, k, replace=False):
+        beta[g * gsize:(g + 1) * gsize] = rng.normal(size=gsize)
+    noise = torch.from_numpy(rng.normal(size=n)).to(X.device)
+    z = X @ torch.from_numpy(beta).to(X.device)
+    if not logistic:
+        return z + noise
+    y = torch.sign(z + 0.3 * noise)
+    y[y == 0] = 1.0
+    return y
+
+
+def group_kkt(loss, X, y, res, lam, gsize=GROUP_SIZE):
+    """max_g ||X_g^T theta|| over every group at the dual point of a group
+    solve's final step: hat = -f'(X beta) / lam scaled by 1 / max(1, the
+    largest live group's ||X_g^T hat||). At most 1 (+ rounding) when the
+    solve is optimal."""
+    import torch
+    hat = -loss.grad(X @ res.beta, y) / lam
+    s = torch.linalg.vector_norm((X.T @ hat).view(-1, gsize), dim=1)
+    live = res.gidx[res.gmask]
+    top = float(s[live].max()) if live.numel() else 0.0
+    return float(s.max()) / max(top, 1.0)
+
+
+def group_support(beta, gsize=GROUP_SIZE, tol=1e-8):
+    import torch
+    return set(torch.nonzero(torch.linalg.vector_norm(
+        beta.view(-1, gsize), dim=1) > tol).flatten().tolist())
 
 
 # K4's edge shapes: one column, a tile less one, one tile, a tile plus one,
@@ -479,6 +574,8 @@ def profile_solve(tag, solve, wall, kernels=()):
 # profiled re-runs of the solves, (tag, solve, wall[, kernels]), run after
 # the kernel checks: the kernel rows' short profiler sessions come first
 DEFERRED_PROFILES = []
+# (start, last mark) of the run, for :func:`mark`
+MARKS = [0.0, 0.0]
 # unprofiled wall of each counted solve of solve_phase, by "name/label"
 WALLS = {}
 # launch counts kept for a later phase's comparison
@@ -539,8 +636,10 @@ def solve_phase(name, lam, cfg, runs, expect, solve, kkt, profiled=()):
 def check_launches(tag, counts, expect):
     """``expect``: kernel -> True (launched at least once), False (never)
     or an int (exactly that many times). K7 (``cm_sweep_wide``), the
-    baselines' sweep, must not launch where ``expect`` does not name it."""
-    for kname, must in {"cm_sweep_wide": False, **expect}.items():
+    baselines' sweep, and B-n3 (``group_bcd``), the group engine's, must
+    not launch where ``expect`` does not name them."""
+    for kname, must in {"cm_sweep_wide": False, "group_bcd": False,
+                        **expect}.items():
         got = counts[kname]
         if must is True and got == 0:
             raise RuntimeError(f"{tag}: kernel {kname} was never launched "
@@ -551,6 +650,14 @@ def check_launches(tag, counts, expect):
         if not isinstance(must, bool) and got != must:
             raise RuntimeError(f"{tag}: kernel {kname} launched {got} times,"
                                f" expected {must}")
+
+
+def mark(label):
+    """Print the seconds since the run started and since the last mark."""
+    now = time.perf_counter()
+    print(f"[time] {label} at_s={now - MARKS[0]:.1f} took_s="
+          f"{now - MARKS[1]:.1f}", flush=True)
+    MARKS[1] = now
 
 
 def errs(pairs):
@@ -3027,8 +3134,15 @@ def cv_phase(X, y, fleet_expect, refit_expect):
     if not ok:
         raise RuntimeError("cv-ls: fold 1 differs from its row-subsampled "
                            "serial solve")
-    DEFERRED_PROFILES.append(("cv-ls", lambda: rt.cv_solve(
-        X, y, lams, n_folds=CV_FOLDS, config=cfg, refit=False), wall))
+    # the profile reads the grid's first CV_PROFILE_POINTS lambdas: the
+    # profiler's own processing of the whole grid's 370,000 device events
+    # took minutes of the run
+    head = lams[:CV_PROFILE_POINTS]
+    _, wall_h = timed(lambda: rt.cv_solve(X, y, head, n_folds=CV_FOLDS,
+                                          config=cfg, refit=False))
+    DEFERRED_PROFILES.append((f"cv-ls (first {len(head)} of {len(lams)} "
+                              f"lambdas)", lambda: rt.cv_solve(
+        X, y, head, n_folds=CV_FOLDS, config=cfg, refit=False), wall_h))
     return cv, lams, {k: counts[k] + refit_counts[k] for k in counts}, lm
 
 
@@ -3602,6 +3716,432 @@ def check_cm_wide(X, y, lam, XL, yL, lamL, records):
         full_width_bound_ms=full[3])
 
 
+def group_results_equal(a, b):
+    """Two GroupSaifResults bit for bit (every tensor field)."""
+    import torch
+    return (a.n_outer == b.n_outer
+            and a.n_active_groups == b.n_active_groups
+            and all(torch.equal(x, y) for x, y in
+                    ((a.beta, b.beta), (a.gap, b.gap), (a.gidx, b.gidx),
+                     (a.gmask, b.gmask), (a.beta_slots, b.beta_slots))))
+
+
+def group_certify(tag, loss, X, y, res, lam, eps=GROUP_EPS):
+    """A group solve is certified on the card when its gap is <= eps and
+    max_g ||X_g^T theta|| <= 1 + 1e-3 at its final dual point
+    (:func:`group_kkt`). Returns that KKT value."""
+    gap = float(res.gap)
+    kkt = group_kkt(loss, X, y, res, lam)
+    if not (gap <= eps and kkt <= 1 + 1e-3):
+        raise RuntimeError(f"{tag}: group solve not certified (gap "
+                           f"{gap:.3e}, max group correlation {kkt:.6f})")
+    return kkt
+
+
+def group_walk(prep, lams, cfg, backend="auto"):
+    """The session's group Path: each solve entered from the previous
+    one's slots, the first cold."""
+    from repro_torch.core.group import group_solve
+    cur, out = None, []
+    for lam in lams:
+        res = group_solve(prep, float(lam), cfg, warm=cur, backend=backend)
+        cur = (res.gidx, res.gmask, res.beta_slots)
+        out.append(res)
+    return out
+
+
+def group_phase(tag, X, y, loss_name, frac):
+    """``[group-ls]`` / ``[group-logit]``: ``prepare_group`` at gsize 10 on
+    the card, then a Scalar at ``frac`` group-lambda_max and a 4-point
+    Path (geometric, GROUP_PATH_HI -> frac, each point entered from the
+    last) through ``group_solve`` under ``auto`` (B-n3 and no other
+    kernel), and the Path's first GROUP_PLAIN_POINTS points (a cold solve,
+    then a warm one) again under ``backend="torch"`` (no kernel at all;
+    the plain burst's block step takes 30-45 times B-n3's, so the solves
+    further down stay on ``auto``): every solve certified on the
+    card, the two backends' group supports equal, their outer steps and
+    live groups side by side. Returns the ``auto`` runs' preparation,
+    lambdas, results, launch counts and Scalar wall."""
+    import numpy as np
+    import repro_torch as rt
+    from repro_torch.core.group import group_solve, prepare_group
+    from repro_torch.kernels import ops
+
+    loss = rt.get_loss(loss_name)
+    cfg = rt.GroupSaifConfig(eps=GROUP_EPS, loss=loss_name)
+    prep, t_prep = timed(lambda: prepare_group(X, y, GROUP_SIZE, cfg))
+    glm = rt.group_lambda_max(loss, X, y, GROUP_SIZE)
+    lam = frac * glm
+    lams = (np.geomspace(GROUP_PATH_HI, frac, 4) * glm).tolist()
+    print(f"[{tag}] n={X.shape[0]} p={X.shape[1]} gsize={GROUP_SIZE} "
+          f"groups={X.shape[1] // GROUP_SIZE} h={prep.h} k_max={prep.k_max} "
+          f"prepare_s={t_prep:.4f} group_lambda_max={glm:.6e} "
+          f"lam/lam_max={frac}", flush=True)
+    expect = {**{k: False for k in ops.KERNELS}, "group_bcd": True}
+    ops.reset_launch_counts()
+    res, wall = timed(lambda: group_solve(prep, lam, cfg))
+    c_s = ops.launch_counts()
+    kkt = group_certify(f"{tag}/auto", loss, X, y, res, lam)
+    check_launches(f"{tag}/auto", c_s, expect)
+    ops.reset_launch_counts()
+    path, p_wall = timed(lambda: group_walk(prep, lams, cfg))
+    c_p = ops.launch_counts()
+    check_launches(f"{tag}/auto/path", c_p, expect)
+    kkts = [group_certify(f"{tag}/auto/path", loss, X, y, r, l)
+            for r, l in zip(path, lams)]
+    print(f"[{tag}/auto] scalar: outer={res.n_outer} active_groups="
+          f"{res.n_active_groups} support_groups="
+          f"{len(group_support(res.beta))} gap={float(res.gap):.3e} eps="
+          f"{GROUP_EPS:.0e} max_group_corr={kkt:.6f} wall_s={wall:.4f} "
+          f"group_bcd_launches={c_s['group_bcd']}; path "
+          f"{[round(l / glm, 4) for l in lams]}: outer="
+          f"{[r.n_outer for r in path]} active_groups="
+          f"{[r.n_active_groups for r in path]} gaps="
+          f"{[float(f'{float(r.gap):.3e}') for r in path]} max_group_corr="
+          f"{max(kkts):.6f} wall_s={p_wall:.4f} group_bcd_launches="
+          f"{c_p['group_bcd']}", flush=True)
+    head = lams[:GROUP_PLAIN_POINTS[loss_name]]
+    ops.reset_launch_counts()
+    plain, pl_wall = timed(lambda: group_walk(prep, head, cfg,
+                                              backend="torch"))
+    check_launches(f"{tag}/torch", ops.launch_counts(),
+                   {k: False for k in ops.KERNELS})
+    ops.reset_launch_counts()
+    _, au_wall = timed(lambda: group_walk(prep, head, cfg))
+    for i, (pr, ar, lam_i) in enumerate(zip(plain, path, head)):
+        p_kkt = group_certify(f"{tag}/torch", loss, X, y, pr, lam_i)
+        same = group_support(pr.beta) == group_support(ar.beta)
+        print(f"[{tag}/torch] path point {i} ({'cold' if i == 0 else 'warm'}"
+              f", lam/lam_max={lam_i / glm:.4f}): outer={pr.n_outer} (auto "
+              f"{ar.n_outer}) active_groups={pr.n_active_groups} (auto "
+              f"{ar.n_active_groups}) gap={float(pr.gap):.3e} "
+              f"max_group_corr={p_kkt:.6f} same_group_support={same}",
+              flush=True)
+        if not same:
+            raise RuntimeError(f"{tag}: B-n3 and the plain burst find "
+                               f"different group supports")
+    print(f"[{tag}/torch] {len(head)} points wall_s={pl_wall:.4f} (auto "
+          f"{au_wall:.4f})", flush=True)
+    DEFERRED_PROFILES.append((f"{tag}/auto", lambda: group_solve(
+        prep, lam, cfg), wall, ("group_bcd_kernel",)))
+    return dict(prep=prep, cfg=cfg, glm=glm, lam=lam, lams=lams,
+                scalar=res, path=path, c_scalar=c_s, c_path=c_p,
+                counts={k: c_s[k] + c_p[k] for k in c_s}, wall=wall,
+                loss=loss)
+
+
+def group_oracle_phase(X, y):
+    """``[group-oracle]``: the unscreened ``solve_group_lasso_bcd`` (one
+    B-n3 launch an epoch over every group, tol GROUP_EPS) on the first
+    2,000 columns of the LS design at GROUP_LAM of their group-lambda_max,
+    against ``group_solve`` there: the same group support. ``group_solve``
+    opens at the default capacity (128 groups), which the support
+    outgrows; it has to flag the overflow and grow to all 200 groups (the
+    reference's engine fills its slots and runs to max_outer instead).
+    Returns the oracle's launch counts."""
+    import repro_torch as rt
+    from repro_torch.core.group import (group_solve, prepare_group,
+                                        solve_group_lasso_bcd)
+    from repro_torch.kernels import ops
+    Xc = X[:, :2000].contiguous()
+    loss = rt.get_loss("least_squares")
+    cfg = rt.GroupSaifConfig(eps=GROUP_EPS)
+    prep = prepare_group(Xc, y, GROUP_SIZE, cfg)
+    lam = GROUP_LAM * rt.group_lambda_max(loss, Xc, y, GROUP_SIZE)
+    res, wall_s = timed(lambda: group_solve(prep, lam, cfg))
+    group_certify("group-oracle/saif", loss, Xc, y, res, lam)
+    k_end = res.gidx.numel()
+    print(f"[group-oracle/saif] outer={res.n_outer} active_groups="
+          f"{res.n_active_groups} k_max={prep.k_max} -> {k_end} "
+          f"overflowed={res.overflowed} wall_s={wall_s:.3f}", flush=True)
+    if not (res.n_active_groups > prep.k_max and k_end > prep.k_max):
+        raise RuntimeError("group-oracle: the support did not outgrow the "
+                           "default capacity, or the capacity did not grow")
+    ops.reset_launch_counts()
+    beta, wall = timed(lambda: solve_group_lasso_bcd(
+        loss, Xc, y, lam, GROUP_SIZE, tol=GROUP_EPS, max_epochs=20_000))
+    counts = ops.launch_counts()
+    check_launches("group-oracle", counts,
+                   {**{k: False for k in ops.KERNELS}, "group_bcd": True})
+    same = group_support(beta) == group_support(res.beta)
+    dmax = float((beta - res.beta).abs().max())
+    print(f"[group-oracle] n={Xc.shape[0]} p={Xc.shape[1]} epochs="
+          f"{counts['group_bcd']} wall_s={wall:.3f} support_groups="
+          f"{len(group_support(beta))} same_support_as_group_solve={same} "
+          f"max_abs_dbeta={dmax:.3e}", flush=True)
+    if not same:
+        raise RuntimeError("group-oracle: the oracle's group support is not "
+                           "group_solve's")
+    return counts
+
+
+def session_group_phase(X, y, grp):
+    """``[session-group]``: ``open_session(Problem(X, y,
+    penalty=group(10)))`` on the card: a cold Scalar, a warm Scalar and the
+    Path of ``[group-ls]``, each certified, the cold requests bit for bit
+    and launch for launch their direct ``group_solve`` calls in phase 24,
+    the warm Scalar bit for bit ``group_solve`` from the cold one's slots.
+    Returns (the requests, results and launch counts, summed counts)."""
+    import repro_torch as rt
+    from repro_torch.core.group import group_solve
+    from repro_torch.kernels import ops
+    g = grp
+    sess, t_open = timed(lambda: rt.open_session(
+        rt.Problem(X=X, y=y, penalty=rt.group(GROUP_SIZE)), g["cfg"]))
+    lam_w = 1.25 * g["lam"]
+    reqs = [("scalar", rt.Scalar(g["lam"])),
+            ("warm", rt.Scalar(lam_w, warm=True)),
+            ("path", rt.Path(tuple(g["lams"])))]
+    ops.reset_launch_counts()
+    ref_warm = group_solve(g["prep"], lam_w, g["cfg"], warm=(
+        g["scalar"].gidx, g["scalar"].gmask, g["scalar"].beta_slots))
+    warm_counts = ops.launch_counts()
+    out, total = [], None
+    for name, req in reqs:
+        ops.reset_launch_counts()
+        res, wall = timed(lambda: sess.solve(req))
+        c = ops.launch_counts()
+        total = c if total is None else {k: total[k] + c[k] for k in c}
+        if name == "path":
+            same = all(group_results_equal(r, d) for r, d in
+                       zip(res.results, g["path"]))
+            for r, l in zip(res.results, res.lams):
+                group_certify("session-group/path", g["loss"], X, y, r, l)
+            want = g["c_path"]
+        else:
+            direct = g["scalar"] if name == "scalar" else ref_warm
+            same = group_results_equal(res, direct)
+            group_certify(f"session-group/{name}", g["loss"], X, y, res,
+                          req.lam)
+            want = g["c_scalar"] if name == "scalar" else warm_counts
+        print(f"[session-group/{name}] wall_s={wall:.4f} "
+              f"bitwise_direct={same} group_bcd_launches={c['group_bcd']}",
+              flush=True)
+        if not same:
+            raise RuntimeError(f"session-group/{name}: not bit for bit its "
+                               f"direct group_solve")
+        if c != want:
+            raise RuntimeError(f"session-group/{name}: launches {c} differ "
+                               f"from the direct call's {want}")
+        out.append((name, req, res, c))
+    print(f"[session-group] open_s={t_open:.4f} (prepare_group once) "
+          f"compile_stats={tuple(sess.compile_stats())}", flush=True)
+    return out, total
+
+
+def serving_group_phase(X, y, grp, first):
+    """``[serving-group]``: the ``[session-group]`` requests once through
+    ``open_serving`` on the same problem: every verdict ok, not degraded,
+    no rung, gap-certified (gap <= eps) with ``kkt_residual == 0.0`` (no
+    scalar KKT), the breaker shut; each value bit for bit and each
+    request's launches equal to the session's. Returns the launch
+    counts."""
+    import repro_torch as rt
+    from repro_torch.kernels import ops
+    srv, t_open = timed(lambda: rt.open_serving(
+        rt.Problem(X=X, y=y, penalty=rt.group(GROUP_SIZE)), grp["cfg"]))
+    verdicts, total = [], None
+    for name, req, value, c_sess in first:
+        ops.reset_launch_counts()
+        out, wall = timed(lambda: srv.solve(req))
+        c = ops.launch_counts()
+        total = c if total is None else {k: total[k] + c[k] for k in c}
+        v = out.verdict
+        verdicts.append(v)
+        if name == "path":
+            same = all(group_results_equal(a, b) for a, b in
+                       zip(out.value.results, value.results))
+        else:
+            same = group_results_equal(out.value, value)
+        print(f"[serving-group/{name}] ok={v.ok} degraded={v.degraded} "
+              f"rungs={len(v.rungs)} gap={v.gap:.3e} kkt_residual="
+              f"{v.kkt_residual} wall_s={wall:.4f} bitwise_session={same} "
+              f"launches_equal={c == c_sess}", flush=True)
+        if not (v.ok and not v.degraded and not v.rungs
+                and v.gap <= GROUP_EPS and v.kkt_residual == 0.0):
+            raise RuntimeError(f"serving-group/{name}: verdict {v}")
+        if not same or c != c_sess:
+            raise RuntimeError(f"serving-group/{name}: not the session's "
+                               f"result and launches")
+    check_no_breaker("serving-group", srv, verdicts)
+    st = srv.stats()
+    if st.retries:
+        raise RuntimeError(f"serving-group: {st.retries} retries")
+    print(f"[serving-group] open_s={t_open:.4f} retries=0 breaker_open="
+          f"{st.breaker_open}", flush=True)
+    return total
+
+
+def group_block(X, y, res, gfro, lam, loss, dt, n_ep=40):
+    """B-n3's inputs on a group solve's final live block, from beta = 0:
+    (A, y, slot, beta0, L, lam, n_ep) in ``dt``."""
+    import torch
+    from repro_torch.kernels.group.ref import group_blocks
+    live = torch.nonzero(res.gmask).flatten()
+    L = torch.where(res.gmask, torch.clamp(
+        loss.smoothness * gfro[res.gidx] ** 2, min=1e-30), 1.0).to(dt)
+    return (group_blocks(X, res.gidx[live], GROUP_SIZE).to(dt), y.to(dt),
+            live, torch.zeros_like(res.beta_slots, dtype=dt), L, lam, n_ep)
+
+
+def group_edge_cases(dev, dt):
+    """B-n3's edge shapes on gaussian designs: gsize 1, 3 and 17 (more
+    than one 8-column chunk, a ragged last one), one live slot, every slot
+    masked (z = 0, beta kept from an all-zero start), n = 1,023 and 1,025
+    (the rows' last pass ragged), 40 epochs from a small nonzero beta (a
+    masked slot's is zeroed by the first epoch); least squares, and
+    logistic at gsize 3."""
+    import torch
+    from repro_torch.kernels.group.ref import group_blocks
+    g = torch.Generator().manual_seed(29)
+    out = []
+    for name, n, gs, k, live, loss_name in (
+            ("gsize=1", 1000, 1, 64, None, "least_squares"),
+            ("gsize=3", 1000, 3, 40, None, "least_squares"),
+            ("gsize=3 logistic", 1000, 3, 40, None, "logistic"),
+            ("gsize=17", 1000, 17, 30, None, "least_squares"),
+            ("one live slot", 1000, 10, 32, 1, "least_squares"),
+            ("every slot masked", 1000, 10, 32, 0, "least_squares"),
+            ("n=1023", 1023, 10, 32, None, "least_squares"),
+            ("n=1025", 1025, 10, 32, None, "least_squares")):
+        ng = k + 7
+        Xg = torch.randn(n, ng * gs, generator=g, dtype=torch.float64)
+        yy = Xg[:, :5 * gs].sum(1) + torch.randn(n, generator=g,
+                                                 dtype=torch.float64)
+        if loss_name == "logistic":
+            yy = torch.where(yy >= 0, 1.0, -1.0).to(torch.float64)
+        gidx = torch.randperm(ng, generator=g)[:k]
+        if live is None:
+            gmask = torch.rand(k, generator=g) > 0.2
+        else:
+            gmask = torch.arange(k) < live
+        beta = 0.01 * torch.randn(k, gs, generator=g, dtype=torch.float64)
+        fro2 = (Xg * Xg).view(n, ng, gs).sum((0, 2))
+        alpha = 1.0 if loss_name == "least_squares" else 0.25
+        L = torch.where(gmask, alpha * fro2[gidx], 1.0)
+        lam = 0.2 * float(torch.linalg.vector_norm(
+            (Xg.T @ yy).view(ng, gs), dim=1).max())
+        slot = torch.nonzero(gmask).flatten()
+        out.append((name, (group_blocks(Xg, gidx[slot], gs).to(dev, dt),
+                           yy.to(dev, dt), slot.to(dev), beta.to(dev, dt),
+                           L.to(dev, dt),
+                           lam * (1.0 if alpha == 1.0 else 0.05), 40),
+                    loss_name))
+    return out
+
+
+def check_group_bcd(X, XL, grp, records):
+    """B-n3 against its plain version on the card: one 40-epoch burst from
+    beta = 0 on ``[group-ls]``'s final live block in each entry (the
+    logistic one with the labels sign(y) at GROUP_LAM of their group
+    lambda_max), on ``[group-logit]``'s final block, and
+    :func:`group_edge_cases`: beta and z within 1e-12 (float64) or 1e-5
+    (float32) of the plain version's, against their own scale (the
+    timing is :func:`time_group_bcd`'s)."""
+    import repro_torch as rt
+    import torch
+    from repro_torch.kernels import ops
+    tol = {"float64": 1e-12, "float32": 1e-5}
+    g, gl = grp["ls"], grp["logit"]
+    ys = torch.sign(g["prep"].y)
+    lam_s = GROUP_LAM * rt.group_lambda_max(rt.get_loss("logistic"), X, ys,
+                                            GROUP_SIZE)
+    worst_abs = 0.0
+    for dtype in ("float64", "float32"):
+        dt = getattr(torch, dtype)
+        parts, worst = [], 0.0
+        ls_block = group_block(X, g["prep"].y, g["scalar"], g["prep"].gfro,
+                               g["lam"], g["loss"], dt)
+        cases = [("ls final block", ls_block, "least_squares"),
+                 ("ls final block, logistic entry",
+                  (ls_block[0], ys.to(dt), *ls_block[2:4],
+                   0.25 * ls_block[4], lam_s, 40), "logistic"),
+                 ("logit final block", group_block(
+                     XL, gl["prep"].y, gl["scalar"], gl["prep"].gfro,
+                     gl["lam"], gl["loss"], dt), "logistic")]
+        cases += group_edge_cases(X.device, dt)
+        for name, a, loss_name in cases:
+            b1, z1 = ops.group_bcd(*a, loss_name=loss_name)
+            b2, z2 = ops.group_bcd_ref(*a, loss_name=loss_name)
+            ab, r = errs([(b1, b2), (z1, z2)])
+            worst = max(worst, r)
+            if dtype == "float64":
+                worst_abs = max(worst_abs, ab)
+            parts.append(f"{name}: rel_err={r:.3e};")
+        print(f"[kernel group_bcd {dtype}] " + " ".join(parts)
+              + f" tol={tol[dtype]:.0e}", flush=True)
+        if not worst <= tol[dtype]:
+            raise RuntimeError(f"group_bcd {dtype} disagrees with its plain "
+                               f"version")
+        del cases
+    records["group_bcd"]["max_abs_err"] = worst_abs
+
+
+def group_timing_block(X, y, loss_name, frac, live, n_ep=40):
+    """B-n3's inputs for its timing on a group cell's design and response:
+    the ``live`` groups of largest c0 (the cell's Scalar ends with as
+    many), from beta = 0, at ``frac`` of the group lambda_max:
+    (A, y, slot, beta0, L, lam, n_ep)."""
+    import torch
+    import repro_torch as rt
+    from repro_torch.core.group import prepare_group
+    from repro_torch.kernels.group.ref import group_blocks
+    loss = rt.get_loss(loss_name)
+    prep = prepare_group(X, y, GROUP_SIZE, rt.GroupSaifConfig(
+        loss=loss_name))
+    groups = torch.sort(prep.c0, descending=True, stable=True).indices[
+        :live]
+    L = torch.clamp(loss.smoothness * prep.gfro[groups] ** 2, min=1e-30)
+    lam = frac * rt.group_lambda_max(loss, X, y, GROUP_SIZE)
+    return (group_blocks(X, groups, GROUP_SIZE), prep.y,
+            torch.arange(live, device=X.device),
+            torch.zeros(live, GROUP_SIZE, dtype=X.dtype, device=X.device),
+            L, lam, n_ep)
+
+
+def time_group_bcd(X, XL, records):
+    """B-n3's device time per launch, the call's, microseconds per block
+    step, the plain version's time and the bound (float64), one 40-epoch
+    burst on a block of each group cell's size (:func:`group_timing_block`,
+    GROUP_TIMING_LIVE groups). Early in the run, beside the other kernels'
+    rows: late in a long run the profiler keeps no launch of it."""
+    from repro_torch.kernels import ops
+    rows = {}
+    for name, Xd, y, loss_name, frac in (
+            ("ls", X, group_response(X, seed=400), "least_squares",
+             GROUP_LAM),
+            ("logit", XL, group_response(XL, seed=401, logistic=True),
+             "logistic", GROUP_LOGIT_LAM)):
+        a = group_timing_block(Xd, y, loss_name, frac,
+                               GROUP_TIMING_LIVE[loss_name])
+        A, beta0, n_ep = a[0], a[3], a[6]
+        nl, gs, n = A.shape
+        k, it = beta0.shape[0], A.element_size()
+        ms, call = kernel_ms(lambda: ops.group_bcd(
+            *a, loss_name=loss_name), 5, "group_bcd_kernel")
+        plain = time_ms(lambda: ops.group_bcd_ref(
+            *a, loss_name=loss_name), 1)
+        steps = n_ep * nl
+        # bytes: the live block, y and z, beta in and out, L, the slot
+        # ids; operations: per step 2 fmas an element of the block and the
+        # gradient of each row (the logistic exp counted as one)
+        nbytes = (nl * n * gs + 2 * n + 2 * k * gs + k) * it + 4 * nl
+        flops = steps * (4.0 * n * gs
+                         + (1 if loss_name == "least_squares" else 5) * n)
+        bnd, by = bound_ms(nbytes, flops, "float64")
+        rows[name] = (ms, call, ms * 1e3 / steps, bnd, by, plain)
+        print(f"[kernel group_bcd float64] {name} block (the {nl} groups of "
+              f"largest c0) n={n} gsize={gs} epochs={n_ep} ms={ms:.4f} "
+              f"call_ms={call:.4f} us_per_step={ms * 1e3 / steps:.4f} "
+              f"bound_ms={bnd:.6f} ({by}) plain_ms={plain:.2f}", flush=True)
+    ms, call, us, bnd, by, plain = rows["ls"]
+    lg = rows["logit"]
+    records["group_bcd"].update(
+        ms=ms, call_ms=call, plain_ms=plain, bound_ms=bnd, bound_by=by,
+        library_ms=None, us_per_step=us, logistic_ms=lg[0],
+        logistic_us_per_step=lg[2])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--p", type=int, default=100_000,
@@ -3628,6 +4168,7 @@ def main() -> int:
           flush=True)
 
     t_start = time.perf_counter()
+    MARKS[:] = [t_start, t_start]
     secs = _build.build()
     print(f"[build] nvcc, {len(_build.SOURCES)} sources in parallel: "
           f"{secs:.1f} s", flush=True)
@@ -3643,6 +4184,7 @@ def main() -> int:
     del Xn, Ln
     print(f"[data] LS and logistic X ({N}, {args.p}) float64 on the "
           f"card in {time.perf_counter() - t0:.1f} s", flush=True)
+    mark("build and data")
 
     plain_lasso = {"cm_burst_pen": False, "chain_suffix_sums": False,
                    "screen_fused_batch": False, "ub_histogram_batch": False,
@@ -3739,10 +4281,15 @@ def main() -> int:
             "name": "gram_sweep_batch (lockstep, identity order)",
             "route": "cuda", "source": "src/repro_torch/csrc/gram_sweep.cu",
             "replaces": "src/repro/core/batch.py:586"},
+        "group_bcd": {"name": "group_bcd", "route": "cuda",
+                      "source": "src/repro_torch/csrc/group_bcd.cu",
+                      "replaces": "src/repro/core/group.py:165"},
     }
 
+    mark("serial solves (phases 1-2)")
     k4_launches = transform_phase(X, records)
     fused, fused_counts, fused_ls = fused_phases()
+    mark("fused (phases 3-5)")
 
     import numpy as np
     # serial solves: K1 + K2 + K6 for least squares (auto), K3 for logistic
@@ -3780,6 +4327,7 @@ def main() -> int:
     pick = [0, FLEET_LS[2] - 1]
     plain_fleet_phase(X, Yf[pick], [fl_lams[i] for i in pick],
                       fl_res.beta[pick])
+    mark("fleets")
 
     # the fast-parity fleet in each screen dtype (TF32 would break the
     # float32 sums' rounding bound of the plain products)
@@ -3795,6 +4343,7 @@ def main() -> int:
             X, Yf, fl_lams, mode, fl_res, fl_wall,
             fast_k1b if mode == "working" else fast_mixed)
 
+    mark("fast fleets")
     ycv = fleet_responses(X, 1, seed=300)[0]
     cv, cv_lams, cv_counts, cv_lm = cv_phase(X, ycv, fleet_ls, serial_ls)
     # select_solve's refit is the serial solve (K1/K2/K6)
@@ -3808,8 +4357,10 @@ def main() -> int:
         X, ycv, cv_lams, cv_lm, true_features(args.p, 300),
         {**sel_expect, "screen_fused_batch_mixed": True}, tag="select/fast",
         bit=sel_rep, parity="fast", screen_dtype="bfloat16")
+    mark("cv and select")
     weighted_logistic_phase(XL, yL)
     k5_counts = cm_epochs_phase(X, y, lam, ls_res["auto"])
+    mark("weighted logistic and cm-epochs")
 
     from repro_torch.core.saif import add_batch_size_static, prepare_path
     prep = prepare_path(X, y, cfg)
@@ -3829,14 +4380,19 @@ def main() -> int:
         check_screen_cv_shape(dtype, X, cv, h_cv)
         tie_probe(dtype)
         check_gram_sweep(dtype, X, y, lam, ls_res["auto"], cv, records)
+        mark(f"kernel checks {dtype}")
     check_mixed_scans(X, records)
     check_gram_lockstep(fast["working"][0], fl_lams, records)
     check_cm_epochs(X, y, lam, ls_res["auto"], records)
     check_cm_wide(X, y, lam, XL, yL, lamL, records)
+    time_group_bcd(X, XL, records)
+    mark("mixed, lockstep, cm-epochs, wide checks and B-n3's timing")
     run_deferred_profiles()
+    mark("profiles")
 
     base_counts = baselines_phase(X, y, lam, lm, ls_res["auto"].beta,
                                   WALLS["ls/auto"])
+    mark("baselines")
     # the Session front door at full width, on the engines above; last, so
     # that the kernel rows' short profiler sessions run in a younger
     # process (the profiler misses launches late in a run)
@@ -3855,6 +4411,23 @@ def main() -> int:
                    online_ls_phase(X, y, lm, beta_true, serial_ls),
                    server_ls_phase(X, Yf, fl_lams, fl_res, fl_wall,
                                    fleet_ls)]
+    mark("session, serving, online, server")
+    # the group LASSO (phases 24-27): B-n3 on both designs, the oracle,
+    # the session and serving, then B-n3 against its plain version
+    grp = {"ls": group_phase("group-ls", X, group_response(X, seed=400),
+                             "least_squares", GROUP_LAM),
+           "logit": group_phase("group-logit", XL,
+                                group_response(XL, seed=401, logistic=True),
+                                "logistic", GROUP_LOGIT_LAM)}
+    mark("group-ls and group-logit")
+    yg = grp["ls"]["prep"].y
+    sg_first, sg_counts = session_group_phase(X, yg, grp["ls"])
+    sess_counts += [grp["ls"]["counts"], grp["logit"]["counts"],
+                    group_oracle_phase(X, yg), sg_counts,
+                    serving_group_phase(X, yg, grp["ls"], sg_first)]
+    mark("group oracle, session and serving")
+    check_group_bcd(X, XL, grp, records)
+    mark("group_bcd checks")
     fast_counts = [c for _, c, _ in fast.values()]
     runs = [ls_counts["auto"], ls_counts["cuda"], lg_counts["auto"],
             *fused_counts, fl_counts, flc_counts, flg_counts, *fast_counts,
@@ -3873,6 +4446,7 @@ def main() -> int:
         c["gram_sweep_batch"] for c in fast_counts)
 
     run_deferred_profiles()
+    mark("late profiles")
 
     print(f"[smoke] total_s={time.perf_counter() - t_start:.1f}", flush=True)
     print(json.dumps({"kernels": list(records.values())}))

@@ -18,14 +18,15 @@ Behind it: the serial SAIF solve, the fleet (B problems over one design,
 solved together, with optional sample weights), the warm-started lambda
 path, K-fold cross-validation and model selection (1-SE rule, stability
 selection) for least squares and logistic loss, tree fused LASSO through
-the Theorem-6 transform, and the paper's baselines (dynamic screening,
-the sequential path, the strong-rule homotopy, the unscreened CM), with
-the screening scan, the violation histogram, the CM burst (serial and
-problem-gridded, with and without fused LASSO's unpenalized slot), the
-Gram sweep (serial and problem-gridded), the residual-form CM epochs, the
-wide-design CM sweep of the baselines and the chain transform as CUDA C++
-kernels for Hopper (``csrc/``). Sessions and entry points run on the card
-unless the caller passes ``device="cpu"``.
+the Theorem-6 transform, group LASSO, and the paper's baselines (dynamic
+screening, the sequential path, the strong-rule homotopy, the unscreened
+CM), with the screening scan, the violation histogram, the CM burst
+(serial and problem-gridded, with and without fused LASSO's unpenalized
+slot), the Gram sweep (serial and problem-gridded), the residual-form CM
+epochs, the wide-design CM sweep of the baselines, the group block CD and
+the chain transform as CUDA C++ kernels for Hopper (``csrc/``). Sessions
+and entry points run on the card unless the caller passes
+``device="cpu"``.
 
 Attributes load lazily (PEP 562): ``from repro_torch import open_session,
 Problem`` imports neither torch nor an engine module; the engines load on
@@ -41,7 +42,8 @@ from repro_torch.core import _EXPORTS as _CORE_EXPORTS
 # penalty factories that repro_torch.core leaves out (they would shadow
 # its fused submodule)
 _EXPORTS = {**_CORE_EXPORTS,
-            "fused": "repro_torch.core.api", "group": "repro_torch.core.api"}
+            "fused": "repro_torch.core.api", "group": "repro_torch.core.api",
+            "GroupSaifConfig": "repro_torch.core.group"}
 
 __all__ = sorted(_EXPORTS)
 

@@ -4,8 +4,10 @@
 ``np.asarray`` on each field, become the port's ``PathState`` and the
 ``(warm_idx, warm_beta)`` pair that :func:`~repro_torch.core.saif.solve_scalar`
 takes, or the slot-preserving warm state of the path engine; its
-``FusedDesign`` becomes the port's, and its ``FleetPrep`` the port's fleet
-preparation. Nothing here imports the reference.
+``FusedDesign`` becomes the port's, its ``FleetPrep`` the port's fleet
+preparation, and its ``GroupPrep`` and a group solve's final slots the
+port's group preparation and warm triple. Nothing here imports the
+reference.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import torch
 
 from repro_torch.core.batch import FleetPrep
 from repro_torch.core.fused import FusedDesign, LevelSchedule, TreeTransform
+from repro_torch.core.group import GroupPrep
 from repro_torch.core.inner_backend import cold_inner_carry
 from repro_torch.core.path import WarmState, _warm_state
 from repro_torch.core.saif import PathState, as_tensor, resolve_device
@@ -108,3 +111,24 @@ def fleet_prep_from_numpy(X, Y, c0, col_norm, c0_max, c0_median, W=None,
                      c0_median=[float(v) for v in np.asarray(c0_median)],
                      W=None if W is None else as_tensor(
                          np.atleast_2d(np.asarray(W)), dev, X.dtype))
+
+
+def group_prep_from_numpy(X, y, c0, gfro, gsize, h, k_max,
+                          device=None) -> GroupPrep:
+    """A port :class:`GroupPrep` from the fields of the reference's, on
+    ``device`` (None = the card). The dtype follows ``X``."""
+    dev = resolve_device(device)
+    X = as_tensor(np.asarray(X), dev)
+    return GroupPrep(X=X, y=as_tensor(np.asarray(y), dev, X.dtype),
+                     c0=as_tensor(np.asarray(c0), dev, X.dtype),
+                     gfro=as_tensor(np.asarray(gfro), dev, X.dtype),
+                     gsize=int(gsize), h=int(h), k_max=int(k_max))
+
+
+def group_warm_from_numpy(gidx, gmask, beta_slots):
+    """The group engine's warm triple ``(gidx, gmask, beta_slots)`` from a
+    group solve's final slot state (CPU tensors; ``group_solve`` moves
+    them to the preparation's device)."""
+    return (torch.from_numpy(np.asarray(gidx).astype(np.int64)),
+            torch.from_numpy(np.array(gmask, bool)),
+            torch.from_numpy(np.array(beta_slots)))

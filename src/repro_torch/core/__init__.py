@@ -9,12 +9,13 @@ Primary surface:
 
 Engines: the serial solve, the fleet (weighted too; the fast-parity
 lockstep engine with its certified mixed-precision screen), the lambda
-path, fused LASSO, K-fold CV and model selection, the paper's baselines
-(dynamic screening, the sequential path, the strong-rule homotopy, the
-unscreened CM), and their building blocks.
+path, fused LASSO, group LASSO, K-fold CV and model selection, the
+paper's baselines (dynamic screening, the sequential path, the
+strong-rule homotopy, the unscreened CM), and their building blocks.
 
 Legacy frontends (deprecated shims over one-shot sessions; each warns
-once per process): saif_path, saif_batch, cv_path, saif_fused, fused_path.
+once per process): saif_path, saif_batch, cv_path, saif_fused, fused_path,
+group_saif.
 
 Attributes resolve lazily (PEP 562): importing :mod:`repro_torch.core`
 loads no torch and no engine until a name is touched, so ``from
@@ -96,6 +97,11 @@ _EXPORTS = {
     **{name: _M + "homotopy" for name in (
         "homotopy_path", "HomotopyConfig", "HomotopyResult",
         "support_metrics")},
+    # group subsystem
+    **{name: _M + "group" for name in (
+        "group_saif", "group_solve", "GroupSaifConfig", "GroupSaifResult",
+        "group_lambda_max", "group_compile_count", "prepare_group",
+        "solve_group_lasso_bcd")},
     # fused subsystem
     **{name: _M + "fused" for name in (
         "saif_fused", "saif_fused_eliminated", "fused_baseline_cm",
@@ -108,7 +114,8 @@ _EXPORTS = {
 
 _SUBMODULES = {
     "_compat", "active_set", "api", "batch", "batch_fast", "cm", "cv",
-    "duality", "dynamic", "fused", "homotopy", "inner_backend", "losses",
+    "duality", "dynamic", "fused", "group", "homotopy", "inner_backend",
+    "losses",
     "online", "path", "saif", "screen_backend", "screen_rule", "select",
     "sequential", "server", "serving", "warm_cache",
 }

@@ -13,17 +13,19 @@ session is the object that owns that state across calls:
     ``weights``. Admission control runs at construction
     (``core/serving.py``).
   * :func:`open_session`: prepares exactly once, on the session's device,
-    resolves the screen backend and rule, and returns a :class:`Session`.
+    resolves the screen backend and rule (a group session has neither),
+    and returns a :class:`Session`.
   * ``session.solve(request)``: ONE entry point for every workload:
     :class:`Scalar`, :class:`Path`, :class:`Fleet`, :class:`CV`,
     :class:`~repro_torch.core.select.Select` and
     :class:`~repro_torch.core.online.Update` (online row updates).
 
 Dispatch lands on the port's engines (``solve_scalar``, ``run_path``,
-``fleet_solve``, ``cv_solve``, ``select_solve``), so a cold request is
-bit for bit the direct call on the same device. The legacy frontends
-(``saif_path``, ``saif_batch``, ``cv_path``, ``saif_fused``,
-``fused_path``) are deprecated shims over one-shot sessions.
+``fleet_solve``, ``cv_solve``, ``select_solve``, ``group_solve``), so a
+cold request is bit for bit the direct call on the same device. The
+legacy frontends (``saif_path``, ``saif_batch``, ``cv_path``,
+``saif_fused``, ``fused_path``, ``group_saif``) are deprecated shims over
+one-shot sessions.
 
 Default requests are cold (bitwise-reproducible); ``Scalar(lam,
 warm=True)`` / ``Path(lams, warm=True)`` enter from the session's warm
@@ -38,9 +40,9 @@ Where the port differs from the reference:
     ``None`` means the card, and opening raises without one; ``"cpu"``
     runs the plain path. The session prepares once there, and every
     request runs there.
-  * Group penalties raise at ``open_session`` (ROADMAP A7b), and
-    ``sharded`` requests raise without a mesh as the reference does and
-    with one name ROADMAP A8.
+  * ``sharded`` requests raise without a mesh as the reference does and
+    with one name ROADMAP A8; a group session raises the reference's
+    "sharded group screening is not implemented" for them.
   * :meth:`Session.content_digest` is reset by every committed
     ``Update``, so a digest never names rows the session no longer
     holds.
@@ -94,7 +96,7 @@ class FusedPenalty:
 @dataclasses.dataclass(frozen=True)
 class GroupPenalty:
     """Disjoint equal-size group-LASSO penalty (the paper's proposed
-    extension; its engine is ROADMAP A7b)."""
+    extension; its engine is :mod:`repro_torch.core.group`)."""
     gsize: int
 
 
@@ -224,8 +226,8 @@ class CV:
 
 
 class GroupPathResult(NamedTuple):
-    """Lambda path over a group-LASSO problem (its engine is ROADMAP
-    A7b; the type exists so the public surface is whole)."""
+    """Lambda path over a group-LASSO problem (a session-only workload:
+    the legacy surface had no group path)."""
     lams: np.ndarray
     betas: List[Any]
     results: List[Any]
@@ -302,8 +304,9 @@ class Session:
 
     Construct via :func:`open_session`. Results are the engines' own
     types (``SaifResult``, ``SaifPathResult``, ``FusedPathResult``,
-    ``CVPathResult``, ``SelectionReport``), and a cold request is bit for
-    bit the direct engine call.
+    ``CVPathResult``, ``SelectionReport``, ``GroupSaifResult``,
+    ``GroupPathResult``), and a cold request is bit for bit the direct
+    engine call.
     """
 
     def __init__(self, problem: Problem, config=None, **kwargs):
@@ -318,6 +321,8 @@ class Session:
         self._screen_memo = {}          # h -> ScreenFn (make_screen hook)
         self._warm = None               # serial WarmState handoff
         self._warm_k = None
+        self._gprep = None              # GroupPrep of a group session
+        self._gwarm = None              # group (gidx, gmask, beta_slots)
         self._requests = 0
         self._warm_cache = kw["warm_cache"]  # shared WarmCache or None
         self._online = None             # OnlineState once streaming
@@ -362,14 +367,13 @@ class Session:
             self._pad_to = (nb, pb)
             self._p_real = p0
 
-        if isinstance(self.penalty, GroupPenalty):
-            raise NotImplementedError(
-                "repro_torch has no group-LASSO engine yet (ROADMAP A7b): "
-                "group penalties cannot be served")
-
         from repro_torch.core.saif import (SaifConfig, as_tensor,
                                            pad_path_state, prepare_path,
                                            resolve_device)
+        if isinstance(self.penalty, GroupPenalty):
+            self._open_group(problem, config, resolve_device(kw["device"]))
+            return
+
         from repro_torch.core.screen_backend import (resolve_backend,
                                                      resolve_batch_screen,
                                                      resolve_screen_rule)
@@ -425,6 +429,33 @@ class Session:
         # the certificate geometry, validated at open
         self.screen_rule = resolve_screen_rule(cfg.screen_rule)
 
+    def _open_group(self, problem: Problem, config, device) -> None:
+        """The group arm of the open: a ``SaifConfig`` is mapped onto a
+        ``GroupSaifConfig`` (the shared fields), and ``prepare_group``
+        runs once on the session's device."""
+        from repro_torch.core.group import GroupSaifConfig, prepare_group
+        self.device = device
+        cfg = config if config is not None else GroupSaifConfig()
+        if not isinstance(cfg, GroupSaifConfig):
+            cfg = GroupSaifConfig(
+                eps=cfg.eps, inner_epochs=cfg.inner_epochs,
+                polish_factor=cfg.polish_factor, k_max=cfg.k_max,
+                max_outer=cfg.max_outer, loss=cfg.loss)
+        if cfg.loss != problem.loss:
+            cfg = dataclasses.replace(cfg, loss=problem.loss)
+        self.config = cfg
+        if problem.y is None:
+            raise ValueError("group sessions need Problem.y")
+        if problem.weights is not None:
+            raise NotImplementedError(
+                "weighted group problems are not supported")
+        self._gprep = prepare_group(problem.X, problem.y,
+                                    self.penalty.gsize, cfg, self.device)
+        self._design = self._prep = None
+        self._X, self._y = self._gprep.X, self._gprep.y
+        self.screen_backend = None   # the group engine has no pluggable
+        self.screen_rule = None      # screen backend (nor rule)
+
     # ------------------------------------------------------------------
     # the one entry point
     # ------------------------------------------------------------------
@@ -433,7 +464,7 @@ class Session:
         """Serve one request; see :class:`Scalar` / :class:`Path` /
         :class:`Fleet` / :class:`CV` / ``Select`` for the workloads."""
         self._requests += 1
-        if getattr(request, "sharded", False):
+        if getattr(request, "sharded", False) and self._gprep is None:
             self._refuse_sharded(request)
         if isinstance(request, Scalar):
             return self._solve_scalar(request)
@@ -620,7 +651,19 @@ class Session:
                                  unpen_idx=-1 if unpen is None else unpen)
         self._warm_k = int(res.active_idx.shape[0])
 
+    def _refuse_group_sharded(self, req) -> None:
+        if req.sharded:
+            raise NotImplementedError(
+                "sharded group screening is not implemented")
+
     def _solve_scalar(self, req: Scalar):
+        if self._gprep is not None:
+            self._refuse_group_sharded(req)
+            from repro_torch.core.group import group_solve
+            res = group_solve(self._gprep, float(req.lam), self.config,
+                              warm=self._gwarm if req.warm else None)
+            self._gwarm = (res.gidx, res.gmask, res.beta_slots)
+            return res
         self._require_y()
         lam = float(req.lam)
         if self.problem.weights is not None:
@@ -661,6 +704,9 @@ class Session:
 
     def _solve_path(self, req: Path):
         lams = [float(l) for l in req.lams]
+        if self._gprep is not None:
+            self._refuse_group_sharded(req)
+            return self._group_path(lams, warm=req.warm)
         self._require_y()
         if self.problem.weights is not None:
             raise NotImplementedError(
@@ -681,7 +727,27 @@ class Session:
             return FusedPathResult(lams=pr.lams, betas=betas, path=pr)
         return pr
 
+    def _group_path(self, lams, warm: bool) -> GroupPathResult:
+        """The group engine over ``lams`` sorted descending, each solve
+        entered from the previous one's slots (the first from the
+        session's warm state when ``warm``)."""
+        from repro_torch.core.group import group_solve
+        lams_np = np.asarray(sorted(lams, reverse=True))
+        cur = self._gwarm if warm else None
+        results = []
+        for lam in lams_np:
+            res = group_solve(self._gprep, float(lam), self.config,
+                              warm=cur)
+            cur = (res.gidx, res.gmask, res.beta_slots)
+            results.append(res)
+        self._gwarm = cur
+        return GroupPathResult(lams=lams_np,
+                               betas=[r.beta for r in results],
+                               results=results, n_compilations=0)
+
     def _solve_fleet(self, req: Fleet):
+        if self._gprep is not None:
+            raise NotImplementedError("group fleets are not implemented")
         if self._design is not None:
             raise NotImplementedError(
                 "fused fleets are serial-only, as in the reference")

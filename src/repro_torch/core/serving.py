@@ -909,8 +909,8 @@ class ServingSession:
         the KKT residual needs, and whether scalar KKT applies."""
         from repro_torch.core import api
         from repro_torch.core.saif import as_tensor
-        # group penalties raise at open until their engine lands (A7b);
-        # their branches certify by the gap, as in the reference
+        # a group unit is certified by its gap only: its KKT conditions
+        # are blockwise, as in the reference
         grouped = isinstance(sess.penalty, api.GroupPenalty)
         fusedp = isinstance(sess.penalty, api.FusedPenalty)
 
@@ -1023,7 +1023,7 @@ class ServingSession:
             return
         s = self.session
         if isinstance(s.penalty, api.GroupPenalty):
-            s._gwarm = None          # the group engine's warm state (A7b)
+            s._gwarm = None          # the group engine's warm state
         else:
             s.set_warm_state(None, None)
             # a result seeded from the cross-request cache failed its
@@ -1063,7 +1063,7 @@ class ServingSession:
         from repro_torch.core import api
         sess = self.session
         if isinstance(sess.penalty, api.GroupPenalty):
-            return None              # no group engine yet (A7b)
+            return None              # the reference has no group rung
         if self._reopens_another_problem(request):
             return None
         if getattr(request, "sharded", False):
@@ -1088,7 +1088,7 @@ class ServingSession:
         from repro_torch.core import api
         sess = self.session
         if isinstance(sess.penalty, api.GroupPenalty):
-            return None              # no group oracle yet (A7b)
+            return None              # the reference has no group rung
         fusedp = isinstance(sess.penalty, api.FusedPenalty)
         failed = self._last_unit_ok
         X, y, _ = self._device_design(sess)
@@ -1240,7 +1240,7 @@ class ServingSession:
         rung is skipped only when X and y are float64 already."""
         from repro_torch.core import api
         if isinstance(self.session.penalty, api.GroupPenalty):
-            return None              # no group engine yet (A7b)
+            return None              # the reference has no group rung
         if self._reopens_another_problem(request):
             return None
         pb = self.problem

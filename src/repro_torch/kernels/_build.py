@@ -23,7 +23,7 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("screen", "cm_burst", "chain_suffix", "cm_epochs", "gram_sweep",
-           "cm_wide")
+           "cm_wide", "group_bcd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -68,6 +68,11 @@ _SIGNATURES = {
     "cm_wide": {
         "cm_sweep_wide_ls_{dt}": _WIDE,
         "cm_sweep_wide_logit_{dt}": _WIDE,
+    },
+    "group_bcd": {      # A, y, slot, beta, L, lam, n_epochs, n, live,
+        # gsize, z
+        "group_bcd_ls_{dt}": [_P] * 5 + [None, _I, _I, _I, _I, _P, _P],
+        "group_bcd_logit_{dt}": [_P] * 5 + [None, _I, _I, _I, _I, _P, _P],
     },
     "chain_suffix": {
         "chain_suffix_sums_{dt}": [_P, _P, _I, _I, _P],

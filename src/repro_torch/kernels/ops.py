@@ -21,6 +21,8 @@ from repro_torch.kernels.fused.fused import chain_suffix_sums
 from repro_torch.kernels.fused.ref import chain_suffix_sums_ref
 from repro_torch.kernels.gram.gram import (gram_smem_ok, gram_sweep,
                                            gram_sweep_batch)
+from repro_torch.kernels.group.group import group_bcd, group_smem_ok
+from repro_torch.kernels.group.ref import group_bcd_ref
 from repro_torch.kernels.gram.ref import gram_sweep_batch_ref, gram_sweep_ref
 from repro_torch.kernels.screen.ref import (screen_fused_batch_ref,
                                             screen_fused_ref,
@@ -46,7 +48,7 @@ KERNELS = {"screen_fused": screen_fused, "ub_histogram": ub_histogram,
            "ub_histogram_batch": ub_histogram_batch,
            "cm_burst_batch": cm_burst_batch_xt, "cm_epochs": cm_epochs,
            "gram_sweep": gram_sweep, "gram_sweep_batch": gram_sweep_batch,
-           "cm_sweep_wide": cm_sweep_wide,
+           "cm_sweep_wide": cm_sweep_wide, "group_bcd": group_bcd,
            # K1 / K1b in the mixed mode (in_dtype / acc_dtype given)
            "screen_fused_mixed": screen_fused.mixed,
            "screen_fused_batch_mixed": screen_fused_batch.mixed}
@@ -78,5 +80,6 @@ __all__ = ["screen_fused", "screen_scores", "ub_histogram", "cm_burst",
            "gram_sweep_batch", "gram_sweep_ref", "gram_sweep_batch_ref",
            "gram_smem_ok", "screen_tail", "screen_tail_batch",
            "screen_tail_ref", "screen_tail_batch_ref", "cm_sweep_wide",
-           "cm_sweep_wide_ref", "cm_wide_smem_ok", "on_cuda",
+           "cm_sweep_wide_ref", "cm_wide_smem_ok", "group_bcd",
+           "group_bcd_ref", "group_smem_ok", "on_cuda",
            "launch_counts", "reset_launch_counts", "KERNELS"]

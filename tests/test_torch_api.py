@@ -16,9 +16,9 @@ p = 160, float64, ``device="cpu"``):
     residual <= 1e-3 lambda.
 
 Plus the hooks (``make_screen``, ``Fleet(screen_fn=)``, ``scan_fn``), the
-warm handoff, an ``Update`` served, the refusals (group: A7b, sharded: a
-mesh then A8), the one-shot deprecation warnings, and the lazy public
-surface in a fresh interpreter.
+warm handoff, an ``Update`` served, a group session opened, the refusals
+(sharded: a mesh then A8), the one-shot deprecation warnings, and the lazy
+public surface in a fresh interpreter.
 """
 import os
 import subprocess
@@ -419,12 +419,22 @@ def test_fleet_screen_fn_hook(parity):
 # refusals
 # ---------------------------------------------------------------------------
 
-def test_group_penalty_raises_naming_a7b():
-    X, y, _ = _problem(12)
-    prob = rt.Problem(X=X, y=y, penalty=group(4))
-    with pytest.raises(NotImplementedError, match="A7b"):
-        rt.open_session(prob, device="cpu")
+def test_group_penalty_opens_a_group_session():
+    """A group penalty opens a group session (tests/test_torch_group.py
+    holds it against the reference): a ``SaifConfig`` maps onto the group
+    config, and a cold Scalar is bit for bit its direct ``group_solve``."""
+    X, y, lm = _problem(12)
     assert rt.GroupPenalty(gsize=4) == group(4)
+    sess = rt.open_session(rt.Problem(X=X, y=y, penalty=group(4)),
+                           rt.SaifConfig(eps=1e-7), device="cpu")
+    assert isinstance(sess.config, rt.GroupSaifConfig)
+    assert sess.config.eps == 1e-7
+    res = sess.solve(rt.Scalar(0.5 * lm))
+    direct = rt.group_solve(rt.prepare_group(X, y, 4, sess.config,
+                                             device="cpu"), 0.5 * lm,
+                            sess.config)
+    _same(res.beta, direct.beta)
+    assert res.n_outer == direct.n_outer and float(res.gap) <= 1e-7
 
 
 @pytest.mark.parametrize("kind", ["Scalar", "Path", "Fleet", "CV"])

@@ -88,6 +88,8 @@ def test_update_parity_vs_reference_and_cold(inner):
         res = sess.update(rows=Xn, responses=yn, lam=lam)
         rebuilds += make_inner_gram.rebuilds - r0
         jres = jsess.update(rows=Xn, responses=yn, lam=lam)
+        # the warm re-solve takes the reference's outer steps (C5)
+        assert res.n_outer == int(jres.n_outer)
         Xs, ys = np.vstack([Xs, Xn]), np.concatenate([ys, yn])
         _held(res, jres, _cold(Xs, ys, lam, inner))
     # the Gram carry was block-updated, never rebuilt
@@ -118,6 +120,7 @@ def test_window_parity_vs_reference_and_cold_tail(inner):
         ys_all.append(yn)
         res = sess.update(rows=Xn, responses=yn, lam=lam, window=W)
         jres = jsess.update(rows=Xn, responses=yn, lam=lam, window=W)
+        assert res.n_outer == int(jres.n_outer)       # C5
         if i % 4 == 3:
             Xs = np.vstack(rows_all)[-W:]
             ys = np.concatenate(ys_all)[-W:]

@@ -77,9 +77,10 @@ def test_config_and_backend_names():
 
 def test_port_imports_no_jax_and_no_reference():
     """Importing every repro_torch module, the fleet's, CV's, selection's,
-    the baselines', the kernels', the serving runtime's, the fault seam's
-    and the checkpoints' among them, and ``open_serving``, pulls in
-    neither jax nor repro."""
+    the baselines', the kernels', the serving runtime's, the fault seam's,
+    the checkpoints' and the group engine's (B-n3's wrapper and plain
+    version) among them, and ``open_serving``, pulls in neither jax nor
+    repro."""
     src = os.path.join(os.path.dirname(rt.__file__), os.pardir)
     code = (
         "import pkgutil, sys, importlib, repro_torch\n"
@@ -98,7 +99,9 @@ def test_port_imports_no_jax_and_no_reference():
         "         'repro_torch.kernels.cm.wide',\n"
         "         'repro_torch.core.batch_fast',\n"
         "         'repro_torch.runtime.fault', 'repro_torch.runtime.inject',\n"
-        "         'repro_torch.ckpt.checkpoint', 'repro_torch.core.serving']\n"
+        "         'repro_torch.ckpt.checkpoint', 'repro_torch.core.serving',\n"
+        "         'repro_torch.core.group', 'repro_torch.kernels.group.group',\n"
+        "         'repro_torch.kernels.group.ref']\n"
         "assert all(m in sys.modules for m in fleet), fleet\n"
         "from repro_torch import open_serving, ServingSession, Verdict\n"
         "from repro_torch.core.serving import open_serving as o2\n"
@@ -107,8 +110,9 @@ def test_port_imports_no_jax_and_no_reference():
         "assert {'screen_fused_batch', 'ub_histogram_batch',\n"
         "        'cm_burst_batch', 'cm_epochs', 'gram_sweep',\n"
         "        'gram_sweep_batch', 'cm_sweep_wide', 'screen_fused_mixed',\n"
-        "        'screen_fused_batch_mixed'} <= set(ops.KERNELS)\n"
+        "        'screen_fused_batch_mixed', 'group_bcd'} <= set(ops.KERNELS)\n"
         "assert ops.KERNELS['cm_sweep_wide'].launches == 0\n"
+        "assert ops.KERNELS['group_bcd'].launches == 0\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))"
     )
     env = dict(os.environ, PYTHONPATH=os.path.abspath(src))

@@ -515,11 +515,34 @@ def test_provenance_fast_fleet_and_screen_rule():
 # refusals: typed, unretried, never the breaker
 # ---------------------------------------------------------------------------
 
+def test_group_session_opens_and_is_served():
+    """A group problem opens through ``open_serving`` and its Scalar and
+    Path are served gap-certified (no scalar KKT), with no retry and the
+    breaker shut (tests/test_torch_group.py holds the values against the
+    reference)."""
+    X, y, lmax = _problem(np.random.default_rng(11), n=30, p=64)
+    srv = rt.open_serving(rt.Problem(X=X, y=y, penalty=group(8)),
+                          rt.GroupSaifConfig(eps=1e-6), device="cpu")
+    for req in (rt.Scalar(2.0), rt.Scalar(1.5, warm=True),
+                rt.Path([4.0, 2.0])):
+        v = srv.solve(req).verdict
+        assert v.ok and not v.degraded and not v.rungs
+        assert v.kkt_residual == 0.0 and v.gap <= 1e-6
+    assert srv.stats().retries == 0 and not srv.breaker_open
+
+
 def test_group_and_update_refusals():
     X, y, lmax = _problem(np.random.default_rng(11), n=30, p=64)
-    with pytest.raises(NotImplementedError, match="A7b"):
-        rt.open_serving(rt.Problem(X=X, y=y, penalty=group(8)),
-                        device="cpu")
+    gsrv = rt.open_serving(rt.Problem(X=X, y=y, penalty=group(8)),
+                           device="cpu")
+    # what a group session does not serve is a typed refusal, unretried
+    for req, msg in ((rt.Update(rows=X[:2], responses=y[:2]),
+                      "plain-LASSO sessions"),
+                     (rt.Fleet(Y=np.stack([y, y]), lams=1.0),
+                      "group fleets")):
+        with pytest.raises(NotImplementedError, match=msg):
+            gsrv.solve(req)
+    assert gsrv.stats().retries == 0 and not gsrv.breaker_open
     srv = _serve(X, y)
     # an Update is served; with no lambda anywhere it is a typed refusal
     with pytest.raises(rt.RequestError, match="first resolving update"):
