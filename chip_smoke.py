@@ -203,11 +203,12 @@ Phases (each one fails the run by raising):
    Scalar at GROUP_LAM (GROUP_LOGIT_LAM) of the group lambda_max and a
    4-point Path from GROUP_PATH_HI down to it (each point entered from
    the last), eps = 1e-6, through ``group_solve`` under ``auto`` (B-n3
-   and no other kernel), and the Path's first GROUP_PLAIN_POINTS points
-   (least squares two, a cold solve and a warm one; logistic the cold
-   one) again under ``backend="torch"`` (no kernel; the plain burst's
-   block step takes 30-45 times B-n3's, so the rest of the Path and the
-   Scalar would take many minutes, PERF.md section 6): every solve
+   and no other kernel), for logistic a Scalar at GROUP_LOGIT_HI too,
+   and the Path's first GROUP_PLAIN_POINTS points (least squares two, a
+   cold solve and a warm one; logistic the cold one) again under
+   ``backend="torch"`` (no kernel; the plain burst's block step takes
+   about 150 times B-n3's, so the rest of the Path and the Scalar would
+   take many minutes, PERF.md section 6): every solve
    certified on the card (gap <= eps, max_g ||X_g^T theta|| <= 1 + 1e-3
    over all groups at its final dual point), the two backends' group
    supports equal, their outer steps and live groups side by side;
@@ -224,8 +225,10 @@ Phases (each one fails the run by raising):
    bit and launch for launch the session's;
 27. B-n3 against its plain version on the card in float64 and float32
    (rel 1e-12 and 1e-5): a 40-epoch burst from beta = 0 on phase 24's
-   final live blocks (least squares and logistic), gsize 1, 3 and 17, one
-   live slot, every slot masked, n = 1,023 and 1,025. Its device time per
+   final live blocks (least squares and logistic), gsize 1, 3 and 17, the
+   register form's column bound and one past it (gsize 10 and 11), one
+   live slot, every slot masked, n at the edges of its rows a thread
+   (511, 512, 513, 1,023, 1,024 and 1,025). Its device time per
    launch, microseconds per block step, the plain version's time and the
    bound are taken after phase 8's kernel rows, on blocks of the two
    cells' sizes (their groups of largest c0).
@@ -307,14 +310,16 @@ STREAM_WINDOW = N
 GROUP_SIZE = 10
 GROUP_TRUE = 50
 GROUP_LAM = 0.1
-GROUP_LOGIT_LAM = 0.3
+GROUP_LOGIT_LAM = 0.1
+# a second logistic Scalar, and the logistic timing block, at this fraction
+GROUP_LOGIT_HI = 0.3
 GROUP_PATH_HI = 0.6
 GROUP_EPS = 1e-6
-# live groups of B-n3's timing blocks: the group cells' Scalars end with
-# these many (PERF.md section 6)
+# live groups of B-n3's timing blocks: the group cells' Scalars at
+# GROUP_LAM and GROUP_LOGIT_HI end with these many (PERF.md section 6)
 GROUP_TIMING_LIVE = {"least_squares": 314, "logistic": 250}
 # the Path's leading points that the plain burst solves too, by loss (its
-# block step takes 30-45 times B-n3's)
+# block step takes about 150 times B-n3's)
 GROUP_PLAIN_POINTS = {"least_squares": 2, "logistic": 1}
 
 
@@ -3750,15 +3755,16 @@ def group_walk(prep, lams, cfg, backend="auto"):
     return out
 
 
-def group_phase(tag, X, y, loss_name, frac):
+def group_phase(tag, X, y, loss_name, frac, also=None):
     """``[group-ls]`` / ``[group-logit]``: ``prepare_group`` at gsize 10 on
-    the card, then a Scalar at ``frac`` group-lambda_max and a 4-point
-    Path (geometric, GROUP_PATH_HI -> frac, each point entered from the
-    last) through ``group_solve`` under ``auto`` (B-n3 and no other
-    kernel), and the Path's first GROUP_PLAIN_POINTS points (a cold solve,
-    then a warm one) again under ``backend="torch"`` (no kernel at all;
-    the plain burst's block step takes 30-45 times B-n3's, so the solves
-    further down stay on ``auto``): every solve certified on the
+    the card, then a Scalar at ``frac`` group-lambda_max (and one at
+    ``also``, when given) and a 4-point Path (geometric, GROUP_PATH_HI ->
+    frac, each point entered from the last) through ``group_solve`` under
+    ``auto`` (B-n3 and no other kernel), and the Path's first
+    GROUP_PLAIN_POINTS points (a cold solve, then a warm one) again under
+    ``backend="torch"`` (no kernel at all; the plain burst's block step
+    takes about 150 times B-n3's, so the solves further down stay on
+    ``auto``): every solve certified on the
     card, the two backends' group supports equal, their outer steps and
     live groups side by side. Returns the ``auto`` runs' preparation,
     lambdas, results, launch counts and Scalar wall."""
@@ -3783,6 +3789,19 @@ def group_phase(tag, X, y, loss_name, frac):
     c_s = ops.launch_counts()
     kkt = group_certify(f"{tag}/auto", loss, X, y, res, lam)
     check_launches(f"{tag}/auto", c_s, expect)
+    c_a = {k: 0 for k in c_s}
+    if also is not None:
+        ops.reset_launch_counts()
+        res_a, wall_a = timed(lambda: group_solve(prep, also * glm, cfg))
+        c_a = ops.launch_counts()
+        kkt_a = group_certify(f"{tag}/auto", loss, X, y, res_a, also * glm)
+        check_launches(f"{tag}/auto/{also}", c_a, expect)
+        print(f"[{tag}/auto] scalar at lam/lam_max={also}: outer="
+              f"{res_a.n_outer} active_groups={res_a.n_active_groups} "
+              f"support_groups={len(group_support(res_a.beta))} gap="
+              f"{float(res_a.gap):.3e} max_group_corr={kkt_a:.6f} wall_s="
+              f"{wall_a:.4f} group_bcd_launches={c_a['group_bcd']}",
+              flush=True)
     ops.reset_launch_counts()
     path, p_wall = timed(lambda: group_walk(prep, lams, cfg))
     c_p = ops.launch_counts()
@@ -3823,10 +3842,12 @@ def group_phase(tag, X, y, loss_name, frac):
     print(f"[{tag}/torch] {len(head)} points wall_s={pl_wall:.4f} (auto "
           f"{au_wall:.4f})", flush=True)
     DEFERRED_PROFILES.append((f"{tag}/auto", lambda: group_solve(
-        prep, lam, cfg), wall, ("group_bcd_kernel",)))
+        prep, lam, cfg), wall, ("group_bcd_reg_kernel",
+                                "group_bcd_kernel")))
     return dict(prep=prep, cfg=cfg, glm=glm, lam=lam, lams=lams,
                 scalar=res, path=path, c_scalar=c_s, c_path=c_p,
-                counts={k: c_s[k] + c_p[k] for k in c_s}, wall=wall,
+                counts={k: c_s[k] + c_p[k] + c_a[k] for k in c_s},
+                wall=wall,
                 loss=loss)
 
 
@@ -3986,24 +4007,58 @@ def group_block(X, y, res, gfro, lam, loss, dt, n_ep=40):
 
 def group_edge_cases(dev, dt):
     """B-n3's edge shapes on gaussian designs: gsize 1, 3 and 17 (more
-    than one 8-column chunk, a ragged last one), one live slot, every slot
-    masked (z = 0, beta kept from an all-zero start), n = 1,023 and 1,025
-    (the rows' last pass ragged), 40 epochs from a small nonzero beta (a
-    masked slot's is zeroed by the first epoch); least squares, and
-    logistic at gsize 3."""
+    than one 8-column chunk of the chunked form, a ragged last one), the
+    register form's column bound and one past it (gsize 10 and 11), one
+    live slot, every slot masked (z = 0, beta kept from an all-zero start), n
+    at the edges of the rows a thread holds (511, 512, 513: one row or
+    two; 1,023, 1,024 in the register form, 1,025 past it in the chunked
+    form), 40 epochs from a small nonzero beta (a masked slot's is zeroed
+    by the first epoch); least squares, and logistic at gsize 3. Then the
+    chunked form (gsize 11 or n = 1,025) in each entry: logistic, one live
+    slot, every slot masked, gsize 1 and 3, and three bursts of 10 epochs
+    at the cells' k_max = 1,024 (815-830 live), whose shared memory passes
+    48 KB in both float types. lam is 0.2 of the largest block norm of
+    X^T y, a twentieth of that for logistic but at k_max = 1,024 (where
+    the float32 plain version itself parts from the float64 one by 1.0e-5
+    at a twentieth, the check's limit; 4.0e-6 at 0.2). The cases share one
+    seeded generator, so a new one is appended."""
     import torch
     from repro_torch.kernels.group.ref import group_blocks
     g = torch.Generator().manual_seed(29)
     out = []
-    for name, n, gs, k, live, loss_name in (
-            ("gsize=1", 1000, 1, 64, None, "least_squares"),
-            ("gsize=3", 1000, 3, 40, None, "least_squares"),
-            ("gsize=3 logistic", 1000, 3, 40, None, "logistic"),
-            ("gsize=17", 1000, 17, 30, None, "least_squares"),
-            ("one live slot", 1000, 10, 32, 1, "least_squares"),
-            ("every slot masked", 1000, 10, 32, 0, "least_squares"),
-            ("n=1023", 1023, 10, 32, None, "least_squares"),
-            ("n=1025", 1025, 10, 32, None, "least_squares")):
+    for name, n, gs, k, live, loss_name, n_ep, scale in (
+            ("gsize=1", 1000, 1, 64, None, "least_squares", 40, 1.0),
+            ("gsize=3", 1000, 3, 40, None, "least_squares", 40, 1.0),
+            ("gsize=3 logistic", 1000, 3, 40, None, "logistic", 40, 0.05),
+            ("gsize=17", 1000, 17, 30, None, "least_squares", 40, 1.0),
+            ("one live slot", 1000, 10, 32, 1, "least_squares", 40, 1.0),
+            ("every slot masked", 1000, 10, 32, 0, "least_squares", 40,
+             1.0),
+            ("n=1023", 1023, 10, 32, None, "least_squares", 40, 1.0),
+            ("n=1025", 1025, 10, 32, None, "least_squares", 40, 1.0),
+            ("gsize=10", 1000, 10, 24, None, "least_squares", 40, 1.0),
+            ("gsize=11", 1000, 11, 24, None, "least_squares", 40, 1.0),
+            ("n=511", 511, 10, 24, None, "least_squares", 40, 1.0),
+            ("n=512", 512, 10, 24, None, "least_squares", 40, 1.0),
+            ("n=513", 513, 10, 24, None, "least_squares", 40, 1.0),
+            ("n=1024", 1024, 10, 24, None, "least_squares", 40, 1.0),
+            ("gsize=11 logistic", 1000, 11, 24, None, "logistic", 40,
+             0.05),
+            ("n=1025 logistic", 1025, 10, 32, None, "logistic", 40,
+             0.05),
+            ("n=1025 one live slot", 1025, 10, 32, 1, "least_squares",
+             40, 1.0),
+            ("n=1025 every slot masked", 1025, 10, 32, 0, "least_squares",
+             40, 1.0),
+            ("n=1025 gsize=1", 1025, 1, 64, None, "least_squares", 40, 1.0),
+            ("n=1025 gsize=3 logistic", 1025, 3, 40, None, "logistic",
+             40, 0.05),
+            ("n=1025 k=1024", 1025, 10, 1024, None, "least_squares", 10,
+             1.0),
+            ("gsize=11 k=1024", 1000, 11, 1024, None, "least_squares",
+             10, 1.0),
+            ("n=1025 k=1024 logistic", 1025, 10, 1024, None, "logistic",
+             10, 1.0)):
         ng = k + 7
         Xg = torch.randn(n, ng * gs, generator=g, dtype=torch.float64)
         yy = Xg[:, :5 * gs].sum(1) + torch.randn(n, generator=g,
@@ -4024,8 +4079,7 @@ def group_edge_cases(dev, dt):
         slot = torch.nonzero(gmask).flatten()
         out.append((name, (group_blocks(Xg, gidx[slot], gs).to(dev, dt),
                            yy.to(dev, dt), slot.to(dev), beta.to(dev, dt),
-                           L.to(dev, dt),
-                           lam * (1.0 if alpha == 1.0 else 0.05), 40),
+                           L.to(dev, dt), lam * scale, n_ep),
                     loss_name))
     return out
 
@@ -4036,11 +4090,13 @@ def check_group_bcd(X, XL, grp, records):
     logistic one with the labels sign(y) at GROUP_LAM of their group
     lambda_max), on ``[group-logit]``'s final block, and
     :func:`group_edge_cases`: beta and z within 1e-12 (float64) or 1e-5
-    (float32) of the plain version's, against their own scale (the
-    timing is :func:`time_group_bcd`'s)."""
+    (float32) of the plain version's, against their own scale, each
+    named with the form that ran it (the timing is
+    :func:`time_group_bcd`'s)."""
     import repro_torch as rt
     import torch
     from repro_torch.kernels import ops
+    from repro_torch.kernels.group.group import group_form
     tol = {"float64": 1e-12, "float32": 1e-5}
     g, gl = grp["ls"], grp["logit"]
     ys = torch.sign(g["prep"].y)
@@ -4067,7 +4123,9 @@ def check_group_bcd(X, XL, grp, records):
             worst = max(worst, r)
             if dtype == "float64":
                 worst_abs = max(worst_abs, ab)
-            parts.append(f"{name}: rel_err={r:.3e};")
+            nl, gs, n = a[0].shape
+            form = group_form(n, a[3].shape[0], gs, a[0].element_size())
+            parts.append(f"{name} ({form}): rel_err={r:.3e};")
         print(f"[kernel group_bcd {dtype}] " + " ".join(parts)
               + f" tol={tol[dtype]:.0e}", flush=True)
         if not worst <= tol[dtype]:
@@ -4103,24 +4161,28 @@ def time_group_bcd(X, XL, records):
     """B-n3's device time per launch, the call's, microseconds per block
     step, the plain version's time and the bound (float64), one 40-epoch
     burst on a block of each group cell's size (:func:`group_timing_block`,
-    GROUP_TIMING_LIVE groups). Early in the run, beside the other kernels'
-    rows: late in a long run the profiler keeps no launch of it."""
+    GROUP_TIMING_LIVE groups), and the call's time of the register form's
+    copy of the blocks (``reg_layout``, made by the wrapper each launch).
+    Early in the run, beside the other kernels' rows: late in a long run
+    the profiler keeps no launch of it."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.group.group import reg_layout
     rows = {}
     for name, Xd, y, loss_name, frac in (
             ("ls", X, group_response(X, seed=400), "least_squares",
              GROUP_LAM),
             ("logit", XL, group_response(XL, seed=401, logistic=True),
-             "logistic", GROUP_LOGIT_LAM)):
+             "logistic", GROUP_LOGIT_HI)):
         a = group_timing_block(Xd, y, loss_name, frac,
                                GROUP_TIMING_LIVE[loss_name])
         A, beta0, n_ep = a[0], a[3], a[6]
         nl, gs, n = A.shape
         k, it = beta0.shape[0], A.element_size()
         ms, call = kernel_ms(lambda: ops.group_bcd(
-            *a, loss_name=loss_name), 5, "group_bcd_kernel")
+            *a, loss_name=loss_name), 5, "group_bcd_")
         plain = time_ms(lambda: ops.group_bcd_ref(
             *a, loss_name=loss_name), 1)
+        lay = time_ms(lambda: reg_layout(A), 5)
         steps = n_ep * nl
         # bytes: the live block, y and z, beta in and out, L, the slot
         # ids; operations: per step 2 fmas an element of the block and the
@@ -4129,17 +4191,18 @@ def time_group_bcd(X, XL, records):
         flops = steps * (4.0 * n * gs
                          + (1 if loss_name == "least_squares" else 5) * n)
         bnd, by = bound_ms(nbytes, flops, "float64")
-        rows[name] = (ms, call, ms * 1e3 / steps, bnd, by, plain)
+        rows[name] = (ms, call, ms * 1e3 / steps, bnd, by, plain, lay)
         print(f"[kernel group_bcd float64] {name} block (the {nl} groups of "
               f"largest c0) n={n} gsize={gs} epochs={n_ep} ms={ms:.4f} "
               f"call_ms={call:.4f} us_per_step={ms * 1e3 / steps:.4f} "
-              f"bound_ms={bnd:.6f} ({by}) plain_ms={plain:.2f}", flush=True)
-    ms, call, us, bnd, by, plain = rows["ls"]
+              f"bound_ms={bnd:.6f} ({by}) plain_ms={plain:.2f} "
+              f"reg_layout_ms={lay:.4f}", flush=True)
+    ms, call, us, bnd, by, plain, lay = rows["ls"]
     lg = rows["logit"]
     records["group_bcd"].update(
         ms=ms, call_ms=call, plain_ms=plain, bound_ms=bnd, bound_by=by,
-        library_ms=None, us_per_step=us, logistic_ms=lg[0],
-        logistic_us_per_step=lg[2])
+        library_ms=None, us_per_step=us, reg_layout_ms=lay,
+        logistic_ms=lg[0], logistic_us_per_step=lg[2])
 
 
 def main() -> int:
@@ -4418,7 +4481,8 @@ def main() -> int:
                              "least_squares", GROUP_LAM),
            "logit": group_phase("group-logit", XL,
                                 group_response(XL, seed=401, logistic=True),
-                                "logistic", GROUP_LOGIT_LAM)}
+                                "logistic", GROUP_LOGIT_LAM,
+                                also=GROUP_LOGIT_HI)}
     mark("group-ls and group-logit")
     yg = grp["ls"]["prep"].y
     sg_first, sg_counts = session_group_phase(X, yg, grp["ls"])

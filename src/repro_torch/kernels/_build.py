@@ -36,6 +36,7 @@ _CM = [_P, _P, _P, _P, _P, _P, None, _I, _I, _I, _I, _P, _P, _P, _P]
 _CM_PEN = _CM[:6] + [_P] + _CM[6:]
 _CM_BATCH = [_P] * 9 + [_I, _I, _I, _P, _P, _P, _P]
 _WIDE = [_P] * 9 + [None, _I, _I, _I, _I, _P]
+_GROUP = [_P] * 5 + [None, _I, _I, _I, _I, _P, _P]
 # the scan: ..., masked, the ub guard (a float of the sums' type), outputs
 _SCREEN = [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, None, _P, _P, _P, _P,
            _P, _P, _P]
@@ -70,9 +71,11 @@ _SIGNATURES = {
         "cm_sweep_wide_logit_{dt}": _WIDE,
     },
     "group_bcd": {      # A, y, slot, beta, L, lam, n_epochs, n, live,
-        # gsize, z
-        "group_bcd_ls_{dt}": [_P] * 5 + [None, _I, _I, _I, _I, _P, _P],
-        "group_bcd_logit_{dt}": [_P] * 5 + [None, _I, _I, _I, _I, _P, _P],
+        # gsize, z; the chunked and the register form
+        "group_bcd_ls_{dt}": _GROUP,
+        "group_bcd_logit_{dt}": _GROUP,
+        "group_bcd_reg_ls_{dt}": _GROUP,
+        "group_bcd_reg_logit_{dt}": _GROUP,
     },
     "chain_suffix": {
         "chain_suffix_sums_{dt}": [_P, _P, _I, _I, _P],

@@ -21,7 +21,9 @@ gsize 4 and 8, ``device="cpu"``).
     "(DESIGN.md §N)" citations stripped), ``_scrub_warm``, a group Scalar
     through ``open_server``, ``device=None`` without a card, and a faked
     card (``meta`` tensors) on which the ``cuda`` wrapper raises rather
-    than running the plain version.
+    than running the plain version; the shared-memory gate and its choice
+    of the kernel's form (register or chunked) at each of their edges,
+    and the entry a faked card's wrapper asks for in each form.
 """
 import dataclasses
 import re
@@ -42,14 +44,17 @@ from repro_torch.core import _compat
 from repro_torch.core import group as G
 from repro_torch.core.losses import get_loss
 from repro_torch.kernels import _build, ops
-from repro_torch.kernels.group.group import group_bcd, group_smem_ok
+from repro_torch.kernels.group.group import (group_bcd, group_form,
+                                             group_smem_bytes, group_smem_ok,
+                                             reg_layout)
 from repro_torch.kernels.group.ref import group_bcd_ref, group_blocks
 from test_torch_saif import _one_torch_thread  # noqa: F401
 
 LOSSES = ["least_squares", "logistic"]
 SHAPES = [(120, 4), (240, 8)]
-# the most groups of 10 over 1,000 rows one float64 burst can hold
-GATE_TOP_F64 = 1868
+# the most groups of 10 over 1,000 rows one float64 burst can hold (in
+# the register form; the chunked form alone holds 1,868)
+GATE_TOP_F64 = 2079
 
 
 def _make(seed=0, n=40, p=120, gsize=4, k_groups=5, logistic=False):
@@ -633,6 +638,93 @@ def test_shared_memory_gate():
         with pytest.raises(ValueError, match="unknown group backend"):
             G.group_solve(G.prepare_group(*_make(20), 4, device="cpu"), 1.0,
                           backend=backend)
+
+
+@pytest.mark.parametrize("n", [1, 511, 512, 513, 1000, 1024])
+def test_reg_layout_pairs_each_thread_s_rows(n):
+    """The register form's copy of the blocks: entry (j, c, t, r) is row
+    t + 512 r of column c of block j, 0 past n, so that thread t loads its
+    two rows of a column at once; the gathered blocks are left as they
+    were."""
+    g = torch.Generator().manual_seed(n)
+    A = torch.randn(3, 4, n, generator=g, dtype=torch.float64)
+    before = A.clone()
+    R = reg_layout(A)
+    assert R.shape == (3, 4, 512, 2) and R.is_contiguous()
+    assert R.dtype == A.dtype
+    flat = R.transpose(2, 3).reshape(3, 4, 1024)
+    assert torch.equal(flat[..., :n], A)
+    assert not flat[..., n:].any()
+    assert torch.equal(A, before)
+
+
+def _chunked_bytes(n, k, gsize, itemsize):
+    """The chunked form's shared memory (the only form's before the
+    register form): z, y, the gradients, beta, L, lam / L, the warp sums,
+    v and d."""
+    return (3 * n + k * gsize + 2 * k + 18 * gsize) * itemsize
+
+
+@pytest.mark.parametrize("n,k,gsize,itemsize,form", [
+    # the register form's column bound, and one past it, in either type
+    (1000, 1024, 10, 8, "reg"), (1000, 1024, 11, 8, "chunked"),
+    (1000, 1024, 10, 4, "reg"), (1000, 1024, 11, 4, "chunked"),
+    # its rows a thread: one up to 512, two up to 1,024, then chunked
+    (511, 64, 10, 8, "reg"), (512, 64, 10, 8, "reg"), (513, 64, 10, 8, "reg"),
+    (1023, 64, 10, 8, "reg"), (1024, 64, 10, 8, "reg"),
+    (1025, 64, 10, 8, "chunked"), (1, 1, 1, 8, "reg"),
+    # its shared memory: 2,079 groups of 10 in float64, then none (the
+    # chunked form's top at 1,000 rows is 1,868)
+    (1000, 2079, 10, 8, "reg"), (1000, 2080, 10, 8, None),
+    (1025, 1862, 10, 8, "chunked"), (1025, 1863, 10, 8, None),
+    # few rows: the chunked form holds more slots than the register form
+    (40, 4159, 4, 8, "reg"), (40, 4160, 4, 8, "chunked"),
+    (40, 4234, 4, 8, "chunked"), (40, 4235, 4, 8, None),
+    # group sizes no form takes
+    (1000, 8, 0, 8, None), (1000, 8, 256, 8, "chunked"),
+    (1000, 8, 257, 8, None),
+])
+def test_group_form_edges(n, k, gsize, itemsize, form):
+    """``group_form`` at each edge of the register form (its column bound,
+    its rows a thread, its shared memory) and of the chunked
+    form beyond it; the gate admits exactly the shapes a form takes, every
+    shape the chunked form alone admitted among them, and counts the
+    chosen form's bytes."""
+    assert group_form(n, k, gsize, itemsize) == form
+    assert group_smem_ok(n, k, gsize, itemsize) == (form is not None)
+    if (1 <= gsize <= 256
+            and _chunked_bytes(n, k, gsize, itemsize) <= 200 * 1024):
+        assert form is not None
+    if form == "chunked":
+        assert group_smem_bytes(n, k, gsize, itemsize) == _chunked_bytes(
+            n, k, gsize, itemsize)
+    elif form == "reg":
+        assert group_smem_bytes(n, k, gsize, itemsize) == 16 + (
+            k * gsize + 2 * k + 640) * itemsize
+
+
+@pytest.mark.parametrize("n,gsize,dt,loss,entry", [
+    (1000, 10, torch.float64, "least_squares", "group_bcd_reg_ls_f64"),
+    (1000, 11, torch.float64, "least_squares", "group_bcd_ls_f64"),
+    (1000, 10, torch.float32, "logistic", "group_bcd_reg_logit_f32"),
+    (1000, 11, torch.float32, "least_squares", "group_bcd_ls_f32"),
+    (1025, 10, torch.float32, "logistic", "group_bcd_logit_f32"),
+])
+def test_faked_card_asks_for_the_form_entry(monkeypatch, n, gsize, dt, loss,
+                                            entry):
+    """On a faked card the wrapper asks the built library for the entry of
+    the form ``group_form`` picks, and counts no launch when there is
+    none."""
+    class NoEntries:
+        def __getattr__(self, name):
+            raise _build.KernelBuildError(f"no entry {name}")
+    monkeypatch.setattr(_build, "library", lambda name: NoEntries())
+    monkeypatch.setattr(torch.fx.experimental._config,
+                        "meta_nonzero_assume_all_nonzero", True)
+    ops.reset_launch_counts()
+    with pytest.raises(_build.KernelBuildError, match=f"no entry {entry}$"):
+        group_bcd(*_meta_burst(n=n, gsize=gsize, dt=dt), loss_name=loss)
+    assert ops.launch_counts()["group_bcd"] == 0
 
 
 def test_lazy_surface():
