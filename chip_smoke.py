@@ -231,18 +231,35 @@ Phases (each one fails the run by raising):
    (511, 512, 513, 1,023, 1,024 and 1,025). Its device time per
    launch, microseconds per block step, the plain version's time and the
    bound are taken after phase 8's kernel rows, on blocks of the two
-   cells' sizes (their groups of largest c0).
+   cells' sizes (their groups of largest c0);
+28. ``[sharded-ls/w1]``, feature-sharded SAIF (``distributed/
+   saif_sharded.py``) after phase 23: an NCCL process group of one rank
+   in this process (a ``file://`` store in a temporary directory) and a
+   1-D ``DeviceMesh``; on one session over phase 2's problem a sharded
+   Scalar, a warm sharded Scalar, a sharded Path over SHARDED_PATH and
+   phase 9's Fleet sharded, and on phase 5's fused session a sharded
+   Scalar: each bit for bit the session's unsharded answer with the same
+   outer steps, certified (gap <= eps, KKT <= 1e-3 lambda over all p), its
+   wall against the unsharded wall, K1/K2 (K1b/K2b) launches against the
+   unsharded run's, collectives per outer step; the fused sharded Scalar
+   profiled (NCCL device time, idle share). ``[sharded-ls/w2]``: two gloo
+   ranks, subprocesses of this script on cuda:0 with a ``file://`` store,
+   each holding X_local (1000, p/2) on the card and solving one sharded
+   Scalar: rank 0's answer phase 2's ``auto`` Scalar bit for bit, K1 and
+   K2 launched on each rank's shard; a rank that fails or outlives
+   SHARDED_TIMEOUT_S fails the run.
 
 Launch counters are zeroed just before each solve (and the transform of
 phase 4, the CV fleets, the CV refit, the selection, the K5 call, each
 baseline, each session, serving and streaming request, each server's run,
-the oracle rung, the fused session's open and each group solve, path and
-oracle) and read just after; the kernel launches of phases 8, 12, 17, 18
-and 27, of the checks of phases 13-14, of the comparisons of phase 4, of
-the serial solves that phases 9-10 compare with, of the lambda_max helpers
-and of one extra solve under torch.profiler (the device's busy time and
-idle share; these run after phase 18, the baselines' after phase 19, the
-group solves' after phase 27) do not count. The last two lines are the
+the oracle rung, the fused session's open, each group solve, path and
+oracle, and each sharded request) and read just after; the kernel
+launches of phases 8, 12, 17, 18 and 27, of the checks of phases 13-14,
+of the comparisons of phase 4, of the serial solves that phases 9-10
+compare with, of the lambda_max helpers and of one extra solve under
+torch.profiler (the device's busy time and idle share; these run after
+phase 18, the baselines' after phase 19, the group solves' after phase
+27) do not count. The last two lines are the
 card's name and power limit and ``{"ok": true, "device": {...}}``; the line
 before them is the per-kernel JSON record.
 """
@@ -538,13 +555,15 @@ def support(beta, tol=1e-8):
     return set(torch.nonzero(beta.abs() > tol).flatten().tolist())
 
 
-def profile_solve(tag, solve, wall, kernels=()):
+def profile_solve(tag, solve, wall, kernels=(), match=()):
     """Run ``solve`` once more under torch.profiler and print the device's
     busy time (the sum of its activities' durations, one stream) against
     the unprofiled wall time ``wall``, and the kernels that take most of
-    it (a kernel's template instances counted together), and the device
-    time and launches of each kernel named in ``kernels``. Only device
-    activities count: a host op's entry carries its kernels' time too."""
+    it (a kernel's template instances counted together), the device
+    time and launches of each kernel named in ``kernels``, and those of
+    the activities whose name holds a substring of ``match`` (any case).
+    Only device activities count: a host op's entry carries its kernels'
+    time too."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -571,6 +590,9 @@ def profile_solve(tag, solve, wall, kernels=()):
     named = "".join(f" {kn}_ms={fam.get(kn, (0.0, 0))[0] / 1e3:.3f} "
                     f"{kn}_launches={fam.get(kn, (0.0, 0))[1]}"
                     for kn in kernels)
+    for m in match:
+        hit = [e.device_time_total for e in ev if m in e.name.lower()]
+        named += f" {m}_ms={sum(hit) / 1e3:.3f} {m}_ops={len(hit)}"
     print(f"[profile {tag}] device_busy_s={busy_s:.4f} wall_s={wall:.4f} "
           f"idle_share={1 - busy_s / wall:.3f} device_ops={len(ev)}{named} "
           f"top: {tops}", flush=True)
@@ -4205,11 +4227,285 @@ def time_group_bcd(X, XL, records):
         logistic_ms=lg[0], logistic_us_per_step=lg[2])
 
 
+SHARDED_PATH = (0.8, LS_LAM, 4)      # the sharded Path: first, last, points
+SHARDED_TIMEOUT_S = 300              # the two-rank phase's subprocesses
+
+
+def sharded_ls_phase(X, y, lm, ls_auto, ls_counts, Yf, fl_lams, fl_res,
+                     fl_wall, fl_counts, fused_ls, serial_expect,
+                     fleet_expect):
+    """``[sharded-ls/w1]``: an NCCL group of one rank in this process
+    (a ``file://`` store in a temporary directory) and a 1-D mesh. On one
+    session over phase 2's problem: a sharded Scalar at LS_LAM, a warm
+    sharded Scalar, a sharded Path over SHARDED_PATH and phase 9's Fleet
+    sharded; on phase 5's fused session a sharded Scalar. Each is bit for
+    bit the session's unsharded answer (phase 2's and 9's results, the
+    same session's warm Scalar and Path, phase 5's fused solve) with the
+    same outer steps, and certified (gap <= eps, KKT <= 1e-3 lambda over
+    all p). Prints each wall against the unsharded one, K1/K2 (K1b/K2b)
+    launches against the unsharded run's, collectives per outer step, and
+    profiles the fused one (NCCL device time, idle share).
+    ``ls_counts`` / ``fl_counts``: phase 2's ``auto`` and phase 9's
+    launches. Returns the launch counts of the sharded runs."""
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    import repro_torch as rt
+    from repro_torch.distributed import comm
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import init_group
+
+    ls = rt.get_loss("least_squares")
+    cfg = rt.SaifConfig(eps=1e-6)
+    lam = LS_LAM * lm
+    store = tempfile.mkdtemp(prefix="sharded-w1-")
+    init_group(1, 0, store, backend="nccl")
+    try:
+        mesh = DeviceMesh("cuda", torch.arange(1))
+        # NCCL makes its communicator at the first collective: made here,
+        # so the cold sharded Scalar's wall is the solve's
+        comm.all_reduce_sum(comm.feature_group(mesh),
+                            torch.zeros(1, device="cuda"))
+        torch.cuda.synchronize()
+        sess = rt.open_session(rt.Problem(X=X, y=y), cfg, mesh=mesh)
+        path_lams = tuple(np.geomspace(SHARDED_PATH[0] * lm, lam,
+                                       SHARDED_PATH[2]).tolist())
+
+        def run(req):
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            comm.reset_calls()
+            out, wall = timed(lambda: sess.solve(req))
+            return out, wall, ops.launch_counts(), dict(comm.CALLS)
+
+        # the unsharded requests this session serves (phase 2 and 9's
+        # direct calls stand for its cold Scalar and its Fleet)
+        un = {"scalar": (ls_auto, WALLS["ls/auto"], ls_counts)}
+        sess.solve(rt.Scalar(lam))               # its warm state
+        un["scalar/warm"] = run(rt.Scalar(lam, warm=True))[:3]
+        un["path"] = run(rt.Path(path_lams))[:3]
+        un["fleet"] = (fl_res, fl_wall, fl_counts)
+        reqs = [("scalar", rt.Scalar(lam, sharded=True), serial_expect),
+                ("scalar/warm", rt.Scalar(lam, warm=True, sharded=True),
+                 serial_expect),
+                ("path", rt.Path(path_lams, sharded=True), serial_expect),
+                ("fleet", rt.Fleet(Y=Yf, lams=fl_lams, sharded=True),
+                 fleet_expect)]
+        total = {k: 0 for k in ops.KERNELS}
+        scans = ("screen_fused", "ub_histogram", "screen_fused_batch",
+                 "ub_histogram_batch")
+        for name, req, expect in reqs:
+            res, wall, counts, calls = run(req)
+            check_launches(f"sharded-ls/w1/{name}", counts, expect)
+            for k in total:
+                total[k] += counts[k]
+            ref, ref_wall, ref_counts = un[name]
+            if name == "path":
+                same = all(results_equal(a, b) for a, b in
+                           zip(res.results, ref.results))
+                cells = list(zip(res.results, res.lams,
+                                 [y] * len(res.lams), [None] * len(res.lams)))
+                outer = sum(r.n_outer for r in res.results)
+            elif name == "fleet":
+                same = results_equal(res, ref)
+                cells = [(res, fl_lams[i], Yf[i], i)
+                         for i in range(Yf.shape[0])]
+                outer = int(res.n_outer.max())
+            else:
+                same = results_equal(res, ref)
+                cells = [(res, lam, y, None)]
+                outer = res.n_outer
+            worst = 0.0
+            for r, l, yy, i in cells:
+                beta = r.beta if i is None else r.beta[i]
+                gap = float(r.gap if i is None else r.gap[i])
+                kkt = float(rt.kkt_residual(ls, X, yy, beta, float(l)))
+                worst = max(worst, kkt / float(l))
+                if not (gap <= cfg.eps and kkt <= 1e-3 * float(l)):
+                    raise RuntimeError(f"sharded-ls/w1/{name}: not "
+                                       f"certified (gap {gap:.3e}, kkt "
+                                       f"{kkt:.3e})")
+            k12 = {k: (counts[k], ref_counts[k]) for k in scans
+                   if counts[k] or ref_counts[k]}
+            n_calls = sum(calls.values())
+            print(f"[sharded-ls/w1/{name}] wall_s={wall:.4f} "
+                  f"unsharded_wall_s={ref_wall:.4f} wall_over_unsharded="
+                  f"{wall / ref_wall:.3f} bitwise_unsharded={same} "
+                  f"outer={outer} max_kkt_over_lam={worst:.3e} "
+                  f"launches_sharded_vs_unsharded={k12} collectives={calls} "
+                  f"collectives_per_outer_step={n_calls / max(outer, 1):.2f}",
+                  flush=True)
+            if not same:
+                raise RuntimeError(f"sharded-ls/w1/{name}: not bit for bit "
+                                   f"the unsharded answer")
+        total_f = sharded_fused_phase(mesh, fused_ls, serial_expect)
+        for k in total:
+            total[k] += total_f[k]
+    finally:
+        dist.destroy_process_group()
+    return total
+
+
+def sharded_fused_phase(mesh, fused_ls, serial_expect):
+    """The sharded fused Scalar on a session over phase 5's chain problem:
+    bit for bit phase 5's ``saif_fused`` (the session's unsharded
+    answer), certified with b's weight 0."""
+    import torch
+    import repro_torch as rt
+    from repro_torch.distributed import comm
+    from repro_torch.kernels import ops
+    X, y, parent, lam = (fused_ls["X"], fused_ls["y"], fused_ls["parent"],
+                         fused_ls["lam"])
+    cfg = rt.SaifConfig(eps=1e-6)
+    sess = rt.open_session(rt.Problem(X=X, y=y, penalty=rt.fused(parent)),
+                           cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    comm.reset_calls()
+    (_, res), wall = timed(lambda: sess.solve(rt.Scalar(lam, sharded=True)))
+    counts = ops.launch_counts()
+    check_launches("sharded-ls/w1/fused", counts,
+                   {**serial_expect, "chain_suffix_sums": 0})
+    Xt = sess._design.Xt
+    pen = torch.ones(Xt.shape[1], dtype=Xt.dtype, device=Xt.device)
+    pen[sess.config.unpen_idx] = 0.0
+    kkt = float(rt.kkt_residual(rt.get_loss("least_squares"), Xt, y,
+                                res.beta, lam, pen))
+    same = results_equal(res, fused_ls["res"])
+    print(f"[sharded-ls/w1/fused] p={X.shape[1]} wall_s={wall:.4f} "
+          f"bitwise_unsharded={same} outer={res.n_outer} "
+          f"gap={float(res.gap):.3e} kkt={kkt:.3e} collectives="
+          f"{dict(comm.CALLS)} launches={counts}", flush=True)
+    if not (same and float(res.gap) <= cfg.eps and kkt <= 1e-3 * lam):
+        raise RuntimeError("sharded-ls/w1/fused: not certified or not bit "
+                           "for bit the unsharded fused solve")
+    # profiled here: the LS Scalar's 1e5 device activities would cost the
+    # profiler's processing about a minute
+    _, hot = timed(lambda: sess.solve(rt.Scalar(lam, sharded=True)))
+    profile_solve("sharded-ls/w1/fused",
+                  lambda: sess.solve(rt.Scalar(lam, sharded=True)), hot,
+                  match=("nccl",))
+    return counts
+
+
+def sharded_w2_phase(ls_auto, p):
+    """``[sharded-ls/w2]``: two ranks under gloo, each a subprocess on
+    cuda:0 (this script with ``--sharded-rank``), each with its half of
+    phase 2's design, (1000, p/2) on the card, solve one sharded Scalar at
+    LS_LAM; each rank's beta and outer steps must be phase 2's ``auto``
+    Scalar's bits (so the ranks' replicated states agree), and both ranks
+    must have launched K1 and K2 on their shards. A rank that fails or outlives SHARDED_TIMEOUT_S fails the
+    phase (both are stopped)."""
+    import tempfile
+    import torch
+    from repro_torch.kernels import ops
+    store = tempfile.mkdtemp(prefix="sharded-w2-")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--p", str(p),
+         "--sharded-rank", str(r), "--sharded-dir", store])
+        for r in range(2)]
+    try:
+        for proc in procs:
+            left = SHARDED_TIMEOUT_S - (time.perf_counter() - t0)
+            proc.wait(timeout=max(left, 1.0))
+    except subprocess.TimeoutExpired:
+        raise RuntimeError(f"sharded-ls/w2: a rank outlived "
+                           f"{SHARDED_TIMEOUT_S} s")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if any(proc.returncode != 0 for proc in procs):
+        raise RuntimeError(f"sharded-ls/w2: ranks exited "
+                           f"{[proc.returncode for proc in procs]}")
+    outs = [torch.load(f"{store}/rank{r}.pt") for r in range(2)]
+    beta = ls_auto.beta.cpu()
+    each = [torch.equal(o["beta"], beta) and o["n_outer"] == ls_auto.n_outer
+            for o in outs]
+    agree = torch.equal(outs[1]["beta"], outs[0]["beta"])
+    same = all(each) and agree
+    for r, o in enumerate(outs):
+        k = o["launches"]
+        print(f"[sharded-ls/w2/rank{r}] X_local={o['x_local']} "
+              f"device={o['device']} wall_s={o['wall']:.4f} "
+              f"bitwise_unsharded={each[r]} "
+              f"outer={o['n_outer']} screen_fused={k['screen_fused']} "
+              f"ub_histogram={k['ub_histogram']} gram_sweep="
+              f"{k['gram_sweep']} collectives={o['calls']}", flush=True)
+        check_launches(f"sharded-ls/w2/rank{r}", k,
+                       {"screen_fused": True, "ub_histogram": True,
+                        "gram_sweep": True, "screen_fused_batch": False})
+    print(f"[sharded-ls/w2] world=2 backend=gloo bitwise_unsharded={same} "
+          f"rank1_beta_equals_rank0={agree} "
+          f"outer={[o['n_outer'] for o in outs]} "
+          f"unsharded_outer={ls_auto.n_outer} "
+          f"unsharded_wall_s={WALLS['ls/auto']:.4f} rank0_wall_s="
+          f"{outs[0]['wall']:.4f} phase_s={time.perf_counter() - t0:.1f}",
+          flush=True)
+    if not same:
+        raise RuntimeError("sharded-ls/w2: the ranks' Scalars are not bit "
+                           "for bit the unsharded auto Scalar and each "
+                           "other")
+    total = {k: outs[0]["launches"][k] + outs[1]["launches"][k]
+             for k in ops.KERNELS}
+    return total
+
+
+def sharded_rank_main(rank, store, p):
+    """One rank of ``[sharded-ls/w2]`` (run by :func:`sharded_w2_phase`):
+    gloo over a ``file://`` store, a CPU mesh of two ranks, phase 2's
+    problem on cuda:0, one sharded Scalar; saves its answer, launches and
+    collectives under ``store``."""
+    import torch
+    import torch.distributed as dist
+    import repro_torch as rt
+    from repro_torch.distributed import comm
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import init_group, make_host_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_group(2, rank, store, backend="gloo")
+    try:
+        mesh = make_host_mesh()
+        Xn, yn = simulation_data(N, p)
+        X = torch.from_numpy(Xn).to("cuda")
+        y = torch.from_numpy(yn).to("cuda")
+        del Xn
+        ls = rt.get_loss("least_squares")
+        lam = LS_LAM * float(rt.lambda_max(ls, X, y))
+        cfg = rt.SaifConfig(eps=1e-6)
+        rt.saif(X[:, :5000].contiguous(), y, lam, cfg)   # libraries' loads
+        sess = rt.open_session(rt.Problem(X=X, y=y), cfg, mesh=mesh)
+        # both ranks start the timed solve together
+        comm.all_reduce_sum(comm.feature_group(mesh),
+                            torch.zeros(1, device="cuda"))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        comm.reset_calls()
+        res, wall = timed(lambda: sess.solve(rt.Scalar(lam, sharded=True)))
+        torch.save({"beta": res.beta.cpu(), "n_outer": res.n_outer,
+                    "launches": ops.launch_counts(),
+                    "calls": dict(comm.CALLS), "wall": wall,
+                    "x_local": tuple(sess._sharded.X_local.shape),
+                    "device": str(sess._sharded.device)},
+                   f"{store}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--p", type=int, default=100_000,
                     help="features of phases 2-4; cut it for a quick "
                          "shakedown")
+    # one rank of [sharded-ls/w2], started by sharded_w2_phase
+    ap.add_argument("--sharded-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--sharded-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -4226,6 +4522,8 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.sharded_rank is not None:
+        return sharded_rank_main(args.sharded_rank, args.sharded_dir, args.p)
     smi = nvidia_smi_line()
     print(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
@@ -4475,6 +4773,14 @@ def main() -> int:
                    server_ls_phase(X, Yf, fl_lams, fl_res, fl_wall,
                                    fleet_ls)]
     mark("session, serving, online, server")
+    # feature-sharded SAIF: one NCCL rank in this process, then two gloo
+    # ranks sharing the card
+    sess_counts += [
+        sharded_ls_phase(X, y, lm, ls_res["auto"], ls_counts["auto"], Yf,
+                         fl_lams, fl_res, fl_wall, fl_counts, fused_ls,
+                         serial_ls, fleet_ls),
+        sharded_w2_phase(ls_res["auto"], args.p)]
+    mark("sharded (w1 nccl, w2 gloo)")
     # the group LASSO (phases 24-27): B-n3 on both designs, the oracle,
     # the session and serving, then B-n3 against its plain version
     grp = {"ls": group_phase("group-ls", X, group_response(X, seed=400),

@@ -74,9 +74,31 @@ def init_active_set(p: int, k_max: int, init_idx: Tensor, dtype,
                      order=order, count=count)
 
 
+def columns(X, ids):
+    """The design's columns ``ids`` (an int, or a tensor of ids of any
+    shape: (n, *ids.shape)), the one seam through which the engine reads
+    design columns. A tensor is indexed as ``X[:, ids]``; a feature-sharded
+    design (:class:`~repro_torch.distributed.saif_sharded.ShardedDesign`)
+    fetches each column from the rank that owns it, an exact copy."""
+    if isinstance(X, Tensor):
+        return X[:, ids]
+    return X.columns(ids)
+
+
+def columns_t(X, ids: Tensor) -> Tensor:
+    """:func:`columns` transposed, (*ids.shape, n), each column a
+    contiguous row (the kernel bursts' layout); a tensor is read through
+    its transposed view."""
+    if isinstance(X, Tensor):
+        if ids.ndim == 1:
+            return torch.index_select(X.T, 0, ids)
+        return X.T[ids]
+    return X.columns_t(ids)
+
+
 def gather_columns(X: Tensor, aset: ActiveSet) -> Tensor:
     """(n, k_max) active design block; padded columns zeroed."""
-    return torch.where(aset.mask[None, :], X[:, aset.idx], 0.0)
+    return torch.where(aset.mask[None, :], columns(X, aset.idx), 0.0)
 
 
 def pen_weights(aset: ActiveSet, unpen_idx: int, dtype) -> Tensor:
@@ -222,7 +244,7 @@ def gather_columns_stacked(X: Tensor, aset: ActiveSet) -> Tensor:
     """(B, n, k_max) active blocks from a shared (n, p) design, dead slots
     zeroed (the reference's ``gather_columns_batch``)."""
     b, k = aset.idx.shape
-    Xa = X.index_select(1, aset.idx.reshape(-1)).reshape(-1, b, k)
+    Xa = columns(X, aset.idx.reshape(-1)).reshape(-1, b, k)
     return torch.where(aset.mask[:, None, :], Xa.permute(1, 0, 2), 0.0)
 
 

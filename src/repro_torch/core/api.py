@@ -40,9 +40,11 @@ Where the port differs from the reference:
     ``None`` means the card, and opening raises without one; ``"cpu"``
     runs the plain path. The session prepares once there, and every
     request runs there.
-  * ``sharded`` requests raise without a mesh as the reference does and
-    with one name ROADMAP A8; a group session raises the reference's
-    "sharded group screening is not implemented" for them.
+  * ``sharded`` requests (a mesh from ``repro_torch.launch.mesh``) take
+    the sharded design's c0 and norms from the session's own preparation
+    and read the real p in every policy formula, so each is bit for bit
+    the session's unsharded answer; a cold sharded Scalar refreshes the
+    sharded warm state as an unsharded one refreshes its own.
   * :meth:`Session.content_digest` is reset by every committed
     ``Update``, so a digest never names rows the session no longer
     holds.
@@ -330,6 +332,13 @@ class Session:
         self._pending_events = []       # provenance, drained by serving
         self._cache_last = None         # (digest, lam) of last cache store
         self._digest_memo = None        # problem digest, reset per Update
+        self._sharded = None            # ShardedDesign, placed lazily
+        self._sharded_prep = None       # PathState over it
+        self._sharded_screen_memo = {}  # h -> sharded ScreenFn
+        self._sharded_warm = None       # the sharded warm handoff
+        self._sharded_warm_k = None
+        self._sharded_fleet = None      # the Fleet's, sharing X_local
+        self._sharded_fleet_screens = {}  # h -> sharded BatchScreenFn
 
         if problem.X is None:
             raise ValueError("Problem.X is required")
@@ -464,8 +473,6 @@ class Session:
         """Serve one request; see :class:`Scalar` / :class:`Path` /
         :class:`Fleet` / :class:`CV` / ``Select`` for the workloads."""
         self._requests += 1
-        if getattr(request, "sharded", False) and self._gprep is None:
-            self._refuse_sharded(request)
         if isinstance(request, Scalar):
             return self._solve_scalar(request)
         if isinstance(request, Path):
@@ -608,22 +615,6 @@ class Session:
                 "this request needs a response: the session was opened "
                 "without Problem.y (fleet-only)")
 
-    def _require_mesh(self):
-        if self.mesh is None:
-            raise ValueError(
-                "sharded=True needs a device mesh: open_session(problem, "
-                "config, mesh=mesh)")
-
-    def _refuse_sharded(self, req):
-        if isinstance(req, CV):
-            raise NotImplementedError(
-                "sharded CV fleets: per-fold column norms live on the "
-                "replicated path (ROADMAP A8)")
-        self._require_mesh()
-        raise NotImplementedError(
-            "sharded requests: repro_torch has no feature-sharded "
-            "screening yet (ROADMAP A8)")
-
     def _memo_make_screen(self, h: int):
         if h not in self._screen_memo:
             self._screen_memo[h] = self._make_screen(h)
@@ -643,13 +634,17 @@ class Session:
             k_max0=self._warm_k if warm else None)
         return pr
 
-    def _harvest_warm(self, res):
+    def _warm_of(self, res):
+        """The (warm state, capacity) a serial result hands on."""
         from repro_torch.core.path import _warm_state
         unpen = self.config.unpen_idx
-        self._warm = _warm_state(res.active_idx, res.active_mask, res.beta,
-                                 res.inner,
-                                 unpen_idx=-1 if unpen is None else unpen)
-        self._warm_k = int(res.active_idx.shape[0])
+        return (_warm_state(res.active_idx, res.active_mask, res.beta,
+                            res.inner,
+                            unpen_idx=-1 if unpen is None else unpen),
+                int(res.active_idx.shape[0]))
+
+    def _harvest_warm(self, res):
+        self._warm, self._warm_k = self._warm_of(res)
 
     def _refuse_group_sharded(self, req) -> None:
         if req.sharded:
@@ -667,12 +662,18 @@ class Session:
         self._require_y()
         lam = float(req.lam)
         if self.problem.weights is not None:
+            if req.sharded:
+                raise NotImplementedError(
+                    "weighted sharded solves: per-problem column norms "
+                    "live on the replicated path for now")
             if req.warm:
                 raise NotImplementedError(
                     "warm weighted solves: the fleet engine serving "
                     "weighted problems has no cross-request warm handoff")
             return self._weighted_scalar(lam)
-        if self._cache_eligible(req):
+        if req.sharded:
+            res = self._scalar_sharded(lam, req.warm)
+        elif self._cache_eligible(req):
             # band hits enter via the Theorem-2 seed, misses run the
             # bitwise cold path; the exit warm state is cached
             res = self._cached_entry_solve([lam]).results[0]
@@ -712,7 +713,9 @@ class Session:
             raise NotImplementedError(
                 "weighted lambda paths: submit a Fleet (one lambda per "
                 "weighted problem) or a CV request instead")
-        if self._cache_eligible(req):
+        if req.sharded:
+            pr = self._path_sharded(lams, req.warm)
+        elif self._cache_eligible(req):
             pr = self._cached_entry_solve(lams)
         else:
             pr = self._run_path(lams, req.warm)
@@ -755,24 +758,36 @@ class Session:
             raise NotImplementedError(
                 "Problem-level weights serve Scalar requests; fleets take "
                 "per-request Fleet(..., weights=...) instead")
+        if req.sharded:
+            return self._fleet_sharded(req)
         from repro_torch.core.batch import fleet_solve
         if self._pad_to is not None:
-            from repro_torch.core.batch import pad_fleet_prep, prepare_fleet
-            fprep = prepare_fleet(self._X, req.Y, self.config,
-                                  weights=req.weights, device=self.device)
-            fprep = pad_fleet_prep(fprep, *self._pad_to)
             res = fleet_solve(None, None, req.lams, self.config,
-                              device=self.device, prep=fprep,
+                              device=self.device, prep=self._fleet_prep(req),
                               screen_fn=req.screen_fn)
             return res._replace(beta=res.beta[:, :self._p_real])
         return fleet_solve(self._X, req.Y, req.lams, self.config,
                            device=self.device, weights=req.weights,
                            screen_fn=req.screen_fn)
 
+    def _fleet_prep(self, req: Fleet):
+        """The Fleet's preparation, as ``fleet_solve`` makes it, padded to
+        the session's bucket."""
+        from repro_torch.core.batch import pad_fleet_prep, prepare_fleet
+        fprep = prepare_fleet(self._X, req.Y, self.config,
+                              weights=req.weights, device=self.device)
+        if self._pad_to is not None:
+            fprep = pad_fleet_prep(fprep, *self._pad_to)
+        return fprep
+
     def _solve_cv(self, req: CV):
         if not isinstance(self.penalty, LassoPenalty):
             raise NotImplementedError(
                 "cross-validation serves plain-LASSO problems")
+        if req.sharded:
+            raise NotImplementedError(
+                "sharded CV fleets: per-fold column norms live on the "
+                "replicated path for now")
         if self.problem.weights is not None:
             raise NotImplementedError(
                 "weighted cross-validation is not supported: CV builds "
@@ -812,6 +827,99 @@ class Session:
         self._last_lam = float(report.lam)
         return report
 
+    # ------------------------------------------------------------------
+    # the sharded arm (built lazily, at the first sharded request; every
+    # rank of the mesh must make the same requests)
+    # ------------------------------------------------------------------
+
+    def _require_mesh(self):
+        if self.mesh is None:
+            raise ValueError(
+                "sharded=True needs a device mesh: open_session(problem, "
+                "config, mesh=mesh)")
+
+    def _place(self, prep):
+        """A sharded design over ``prep`` (the session's ``PathState`` or a
+        Fleet's ``FleetPrep``) with the preparation's norms, padded. X_local
+        is sliced once a session, by the first placement (a view at W = 1),
+        and the other shares it."""
+        self._require_mesh()
+        from repro_torch.distributed.saif_sharded import design_from_prep
+        return design_from_prep(prep, self.mesh,
+                                placed=self._sharded or self._sharded_fleet)
+
+    def _sharded_design(self):
+        """The placement over the session's preparation and the
+        ``PathState`` over it."""
+        if self._sharded is None:
+            from repro_torch.distributed.saif_sharded import sharded_prep
+            self._sharded = self._place(self._prep)
+            self._sharded_prep = sharded_prep(self._prep, self._sharded)
+        return self._sharded
+
+    def _memo_sharded_screen(self, h: int):
+        if h not in self._sharded_screen_memo:
+            from repro_torch.distributed.saif_sharded import (
+                make_sharded_screen)
+            self._sharded_screen_memo[h] = make_sharded_screen(
+                self._sharded, h)
+        return self._sharded_screen_memo[h]
+
+    def _scalar_sharded(self, lam: float, warm: bool):
+        """The sharded Scalar, beta cut to the real width: cold,
+        ``solve_scalar_sharded`` over the placement, which refreshes the
+        sharded warm state; warm, a single-lambda run of the path engine
+        entered from it."""
+        design = self._sharded_design()
+        if warm:
+            res = self._path_sharded([lam], True).results[0]
+            return res._replace(beta=res.beta[:design.p])
+        from repro_torch.distributed.saif_sharded import solve_scalar_sharded
+        res = solve_scalar_sharded(None, None, lam, self.mesh, self.config,
+                                   prep=self._sharded_prep,
+                                   screen_cache=self._sharded_screen_memo)
+        self._sharded_warm, self._sharded_warm_k = self._warm_of(res)
+        return res
+
+    def _path_sharded(self, lams, warm: bool):
+        """The path engine over the placement with the sharded screen,
+        entered from (and refreshing) the sharded warm state when
+        ``warm``; betas cut to the real width."""
+        from repro_torch.core.path import run_path
+        design = self._sharded_design()
+        pr, self._sharded_warm, self._sharded_warm_k = run_path(
+            self._sharded_prep, lams, self.config,
+            make_screen=self._memo_sharded_screen,
+            segment_len=self._segment_len,
+            warm0=self._sharded_warm if warm else None,
+            k_max0=self._sharded_warm_k if warm else None)
+        # the unsharded arm's widths: betas the real p, results the
+        # preparation's (a bucket-padded session keeps its bucket there)
+        w = self._prep.X.shape[1]
+        return pr._replace(betas=[b[:design.p] for b in pr.betas],
+                           results=[r._replace(beta=r.beta[:w])
+                                    for r in pr.results])
+
+    def _fleet_sharded(self, req: Fleet):
+        """The sharded Fleet over the unsharded Fleet's preparation (its c0
+        and norms, padded) and the session's X_local: bit for bit the
+        unsharded Fleet by construction. The placement is made at the
+        first sharded Fleet and reused after."""
+        self._require_mesh()
+        if req.weights is not None:
+            raise NotImplementedError(
+                "weighted sharded fleets: per-fold column norms live on "
+                "the replicated path for now")
+        from repro_torch.distributed.saif_sharded import (
+            fleet_solve_sharded, sharded_prep)
+        fprep = self._fleet_prep(req)
+        if self._sharded_fleet is None:
+            self._sharded_fleet = self._place(fprep)
+        return fleet_solve_sharded(
+            None, None, req.lams, self.mesh, self.config,
+            prep=sharded_prep(fprep, self._sharded_fleet),
+            screen_cache=self._sharded_fleet_screens)
+
 
 def open_session(problem: Problem, config=None, **kwargs) -> Session:
     """Open a long-lived solving session for ``problem``.
@@ -827,6 +935,7 @@ def open_session(problem: Problem, config=None, **kwargs) -> Session:
     ``segment_len`` (the path engine's hooks), ``pad_to=(n_bucket,
     p_bucket)`` (serve every request from a bucket-padded preparation),
     ``warm_cache`` (a shared :class:`~repro_torch.core.warm_cache.WarmCache`)
-    and ``mesh`` (sharded requests, ROADMAP A8).
+    and ``mesh`` (a ``DeviceMesh`` for ``sharded=True`` requests; see
+    ``repro_torch.launch.mesh``).
     """
     return Session(problem, config, **kwargs)

@@ -24,6 +24,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core.active_set import columns
 from repro_torch.core.losses import Loss, dot_last, mv_last, per_problem
 
 Tensor = torch.Tensor
@@ -208,15 +209,22 @@ def null_gradient(loss: Loss, X: Tensor, y: Tensor,
     c0 = |X^T g0|, b0 = 0. With an unpenalized coordinate the null model is
     its partial optimum b0: g0 = f'(x_b b0), and c0[unpen_idx] = 0 (the slot
     is always resident and must not set lambda_max)."""
-    if unpen_idx is None:
-        g0 = loss.grad(torch.zeros_like(y), y)
-        return g0, torch.abs(X.T @ g0), 0.0
-    xb = X[:, unpen_idx]
-    b0 = fit_unpenalized(loss, xb, y)
-    g0 = loss.grad(xb * b0, y)
+    g0, b0 = null_point(loss, None if unpen_idx is None
+                        else columns(X, unpen_idx), y)
     c0 = torch.abs(X.T @ g0)
-    c0[unpen_idx] = 0.0
+    if unpen_idx is not None:
+        c0[unpen_idx] = 0.0
     return g0, c0, b0
+
+
+def null_point(loss: Loss, xb: Tensor | None, y: Tensor):
+    """(g0, b0) of the penalized-null model from the unpenalized column
+    ``xb`` alone (None: plain LASSO, g0 = f'(0), b0 = 0): what a
+    feature-sharded design needs before it scores its own columns."""
+    if xb is None:
+        return loss.grad(torch.zeros_like(y), y), 0.0
+    b0 = fit_unpenalized(loss, xb, y)
+    return loss.grad(xb * b0, y), b0
 
 
 # ---------------------------------------------------------------------------

@@ -147,7 +147,8 @@ def make_inner_torch(loss: Loss, X: Tensor, y: Tensor,
     """Plain backend: residual-update epochs, O(n) per coordinate step;
     ``sample_w`` weights the loss per sample."""
     _no_weights_with_unpen(unpen_idx, sample_w)
-    x_unpen = X[:, unpen_idx] if unpen_idx >= 0 else None
+    x_unpen = (aset_lib.columns(X, unpen_idx) if unpen_idx >= 0
+               else None)
 
     def run(carry, aset, Xa, lam, n_ep):
         pen = _pen(aset, unpen_idx, X.dtype)
@@ -194,7 +195,8 @@ def make_inner_gram(loss: Loss, X: Tensor, y: Tensor, h: int,
         raise ValueError("the gram inner backend needs a linear gradient "
                          f"(least squares); got loss {loss.name!r}")
     _no_weights_with_unpen(unpen_idx, sample_w)
-    x_unpen = X[:, unpen_idx] if unpen_idx >= 0 else None
+    x_unpen = (aset_lib.columns(X, unpen_idx) if unpen_idx >= 0
+               else None)
 
     def _wgt(cols):
         return cols if sample_w is None else sample_w[:, None] * cols
@@ -227,7 +229,7 @@ def make_inner_gram(loss: Loss, X: Tensor, y: Tensor, h: int,
         if slots.numel() == 0:
             return carry._replace(gidx=gidx)
         ids = aset.idx[slots]
-        cols = _wgt(X[:, ids])
+        cols = _wgt(aset_lib.columns(X, ids))
         live = _live(aset)
         Xl = Xa[:, live]
         G = carry.G.clone()
@@ -318,11 +320,9 @@ def make_inner_cuda(loss: Loss, X: Tensor, y: Tensor, col_norm: Tensor,
     unpenalized slot."""
     from repro_torch.kernels.cm.cm import cm_burst_pen_xt, cm_burst_xt
 
-    XT = X.T
-
     def run(carry, aset, Xa, lam, n_ep):
         XaT = torch.where(aset.mask[:, None],
-                          torch.index_select(XT, 0, aset.idx),
+                          aset_lib.columns_t(X, aset.idx),
                           0.0).contiguous()
         # O(k_max) gather of the precomputed column norms
         norms = torch.where(aset.mask, col_norm[aset.idx], 0.0)
@@ -466,13 +466,11 @@ def make_batch_inner_cuda(loss: Loss, X: Tensor, col_norm: Tensor,
         raise ValueError("the batched cuda inner backend does not take "
                          "sample weights; use 'torch' or 'gram' for CV "
                          "fleets")
-    XT = X.T
-
     def fleet_step(probs, n_eps):
         asets = [q.aset for q in probs]
         idx = torch.stack([a.idx for a in asets])
         mask = torch.stack([a.mask for a in asets])
-        AT = torch.where(mask[:, :, None], XT[idx], 0.0)
+        AT = torch.where(mask[:, :, None], aset_lib.columns_t(X, idx), 0.0)
         norms = torch.where(mask, col_norm[idx], 0.0)
         meta = torch.tensor([n_eps, [a.count for a in asets]],
                             dtype=torch.int32).to(X.device)

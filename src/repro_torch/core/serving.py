@@ -1022,7 +1022,9 @@ class ServingSession:
         if not isinstance(request, (api.Scalar, api.Path, api.Update)):
             return
         s = self.session
-        if isinstance(s.penalty, api.GroupPenalty):
+        if getattr(request, "sharded", False):
+            s._sharded_warm, s._sharded_warm_k = None, None
+        elif isinstance(s.penalty, api.GroupPenalty):
             s._gwarm = None          # the group engine's warm state
         else:
             s.set_warm_state(None, None)

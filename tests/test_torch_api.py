@@ -17,7 +17,8 @@ p = 160, float64, ``device="cpu"``):
 
 Plus the hooks (``make_screen``, ``Fleet(screen_fn=)``, ``scan_fn``), the
 warm handoff, an ``Update`` served, a group session opened, the refusals
-(sharded: a mesh then A8), the one-shot deprecation warnings, and the lazy
+(sharded: CV, and every kind without a mesh; a world-1 gloo mesh serves
+the others bit for bit), the one-shot deprecation warnings, and the lazy
 public surface in a fresh interpreter.
 """
 import os
@@ -36,6 +37,7 @@ from repro.core.api import fused as j_fused
 from repro_torch.core import _compat
 from repro_torch.core.api import fused, group
 from test_torch_saif import _one_torch_thread  # noqa: F401
+from test_torch_sharded import mesh1  # noqa: F401
 
 EPS = 1e-7
 INNER_REF = {"torch": "jnp", "gram": "gram", "cuda": "jnp"}
@@ -438,20 +440,36 @@ def test_group_penalty_opens_a_group_session():
 
 
 @pytest.mark.parametrize("kind", ["Scalar", "Path", "Fleet", "CV"])
-def test_sharded_requests(kind):
+def test_sharded_requests(kind, mesh1):
+    """Without a mesh every kind raises (CV with the reference's
+    refusal, which comes first); with a gloo mesh of one rank CV raises
+    the reference's refusal, and Scalar, Path and Fleet return the
+    unsharded answer bit for bit (tests/test_torch_sharded.py holds them
+    at 2 and 4 ranks)."""
     X, y, lm = _problem(13)
     reqs = {"Scalar": rt.Scalar(0.3 * lm, sharded=True),
             "Path": rt.Path((0.3 * lm,), sharded=True),
             "Fleet": rt.Fleet(Y=y, lams=0.3 * lm, sharded=True),
             "CV": rt.CV(n_folds=3, lams=(0.3 * lm,), sharded=True)}
     if kind == "CV":
-        with pytest.raises(NotImplementedError, match="A8"):
-            _open(X, y).solve(reqs[kind])
+        for mesh in (None, mesh1):
+            with pytest.raises(NotImplementedError,
+                               match="sharded CV fleets: per-fold column "
+                                     "norms live on the replicated path"):
+                _open(X, y, mesh=mesh).solve(reqs[kind])
         return
     with pytest.raises(ValueError, match="mesh"):
         _open(X, y).solve(reqs[kind])
-    with pytest.raises(NotImplementedError, match="A8"):
-        _open(X, y, mesh=object()).solve(reqs[kind])
+    sess = _open(X, y, mesh=mesh1)
+    plain = {"Scalar": rt.Scalar(0.3 * lm), "Path": rt.Path((0.3 * lm,)),
+             "Fleet": rt.Fleet(Y=y, lams=0.3 * lm)}[kind]
+    a, b = sess.solve(plain), sess.solve(reqs[kind])
+    if kind == "Path":
+        assert all(torch.equal(u, v) for u, v in zip(a.betas, b.betas))
+        for u, v in zip(a.results, b.results):
+            _same_result(u, v)
+    else:
+        _same_result(a, b)
 
 
 def test_update_is_served_by_the_session():
