@@ -1,0 +1,9 @@
+"""glm4-9b [dense] — RoPE, GQA kv=2 [hf:THUDM/glm-4-9b; hf]."""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="glm4-9b", family="dense", n_layers=40, d_model=4096,
+    n_heads=32, n_kv_heads=2, d_ff=13696, vocab=151552, mlp_act="swiglu")
+
+SMOKE = CONFIG.scaled(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+                      d_ff=160, vocab=128)

@@ -1,0 +1,11 @@
+"""qwen3-moe-30b-a3b [moe] — 128 experts top-8, d_ff(expert)=768
+[hf:Qwen/Qwen3-30B-A3B; hf]."""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen3-moe-30b-a3b", family="moe", n_layers=48, d_model=2048,
+    n_heads=32, n_kv_heads=4, d_ff=768, vocab=151936, mlp_act="swiglu",
+    n_experts=128, top_k=8)
+
+SMOKE = CONFIG.scaled(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+                      d_ff=32, vocab=128, n_experts=8, top_k=2)

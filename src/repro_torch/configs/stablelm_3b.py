@@ -1,0 +1,9 @@
+"""stablelm-3b [dense] — [hf:stabilityai/stablelm-2-1_6b; unverified]."""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="stablelm-3b", family="dense", n_layers=32, d_model=2560,
+    n_heads=32, n_kv_heads=32, d_ff=6912, vocab=50304, mlp_act="swiglu")
+
+SMOKE = CONFIG.scaled(n_layers=2, d_model=64, n_heads=4, n_kv_heads=4,
+                      d_ff=128, vocab=128)

@@ -6,8 +6,9 @@
 takes, or the slot-preserving warm state of the path engine; its
 ``FusedDesign`` becomes the port's, its ``FleetPrep`` the port's fleet
 preparation, and its ``GroupPrep`` and a group solve's final slots the
-port's group preparation and warm triple. Nothing here imports the
-reference.
+port's group preparation and warm triple; the LM scaffold's parameter
+tree, read out with ``jax.tree.map(np.asarray, params)``, becomes the
+port's (:func:`lm_params_from_numpy`). Nothing here imports the reference.
 """
 from __future__ import annotations
 
@@ -132,3 +133,30 @@ def group_warm_from_numpy(gidx, gmask, beta_slots):
     return (torch.from_numpy(np.asarray(gidx).astype(np.int64)),
             torch.from_numpy(np.array(gmask, bool)),
             torch.from_numpy(np.array(beta_slots)))
+
+
+def lm_params_from_numpy(tree, cfg, device=None):
+    """The port's LM parameter tree from the reference's, read out as numpy
+    arrays, on ``device`` (None = the card), each leaf's dtype kept. Every
+    leaf is checked against :func:`~repro_torch.models.lm.param_shapes`
+    of ``cfg``: a missing, extra or misshapen leaf raises ``ValueError``."""
+    from repro_torch.models.lm import leaf_paths, param_shapes
+    dev = resolve_device(device)
+    want = dict(leaf_paths(param_shapes(cfg)))
+    got = dict(leaf_paths(tree))
+    missing = sorted(".".join(p) for p in want.keys() - got.keys())
+    extra = sorted(".".join(p) for p in got.keys() - want.keys())
+    if missing or extra:
+        raise ValueError(f"LM parameter tree does not match {cfg.name}: "
+                         f"missing {missing}, extra {extra}")
+    out = {}
+    for path, shp in want.items():
+        a = np.asarray(got[path])
+        if a.shape != tuple(shp):
+            raise ValueError(f"LM parameter {'.'.join(path)} has shape "
+                             f"{a.shape}, {cfg.name} needs {tuple(shp)}")
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = as_tensor(a, dev)
+    return out
