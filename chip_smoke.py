@@ -262,7 +262,26 @@ Phases (each one fails the run by raising):
    tokens against the float32 prefill (LM_BF16_BOUND), 64 greedy decode
    steps, every logit finite; prefill tokens/s, decode ms a step, peak
    memory, and a profiled prefill and 8 steps (busy time, idle share, top
-   device ops, device activities a step).
+   device ops, device activities a step);
+30. the LM scaffold's training, after phase 29 (no kernel either):
+   ``[lm-train/archs]``, the ten SMOKE configs in float32: a
+   ``make_train_step`` step on the card against the port's CPU step from
+   the same seeded weights and batch (loss, per-leaf gradients, their
+   global norm; the updated parameters' difference printed), and
+   microbatch 2 against 1 on
+   the card; ``[lm-train/hymba/full]``, hymba-1.5b at full width and depth
+   (float32 masters, bfloat16 compute, remat) trained by the trainer's
+   loop (``launch/train.py::train_loop``) on ``TokenPipeline`` (seed 0) at
+   4 x 1,024 tokens, AdamW lr 1e-3, warmup 2, total 8, for 8 steps with a
+   checkpoint after step 4, then resumed from it: every loss finite, the
+   8th below the 1st, steps 5-8 replayed bit for bit under deterministic
+   algorithms; each step's ms, tokens/s, loss and gradient norm, peak
+   memory, one profiled step with the doubling scan's share of its device
+   time; in float32 at 2 x 512, microbatch 2 against 1, each against
+   float64, and at 2 layers of full width remat on against off, bit for
+   bit; ``[lm-train/cli]``, the
+   trainer CLI's ``main`` on the card (stablelm_3b SMOKE): 6 steps,
+   resumed to 12, the last 3 printed losses of a straight 12-step run.
 
 Launch counters are zeroed just before each solve (and the transform of
 phase 4, the CV fleets, the CV refit, the selection, the K5 call, each
@@ -283,12 +302,17 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import subprocess
 import sys
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+# cuBLAS's deterministic workspace, read once at its first call: phase 30
+# replays training steps bit for bit under torch's deterministic
+# algorithms, which refuse cuBLAS without it
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and dense non-tensor peaks;
 # bf16 is the dense tensor-core rate (the bf16 mode's wgmma scan)
@@ -371,6 +395,29 @@ LM_PROFILE_STEPS = 8
 # its max within LM_BF16_BOUND x (max|float32 logits| + 1) (PERF.md's
 # findings derive it)
 LM_BF16_BOUND = 0.25
+# the training phase (30): [lm-train/archs] at B x S = LM_TRAIN_ARCH_BS;
+# [lm-train/hymba/full] trains LM_TRAIN_STEPS steps of LM_TRAIN_BATCH x
+# LM_TRAIN_SEQ tokens (the schedule's total), checkpoints after
+# LM_TRAIN_CKPT steps and resumes from there; its float32 microbatch
+# check runs at LM_TRAIN_F32_BS
+LM_TRAIN_ARCH_BS = (4, 32)
+LM_TRAIN_BATCH = 4
+LM_TRAIN_SEQ = 1024
+LM_TRAIN_STEPS = 8
+LM_TRAIN_CKPT = 4
+LM_TRAIN_F32_BS = (2, 512)
+# card against CPU and microbatch 2 against 1: the loss within
+# LM_TRAIN_LOSS_REL relative, each gradient leaf within LM_TRAIN_GRAD_REL x
+# its largest entry (the CPU tests' bounds against the reference)
+LM_TRAIN_LOSS_REL = 1e-5
+LM_TRAIN_GRAD_REL = 1e-4
+# hymba's A_log at full width in float32, its own bound: each of its
+# entries sums the terms of 1,024 tokens and 16 state channels of both
+# signs, and microbatch 2 parted from 1 by 1.22e-4 of its largest entry
+# in one chip run (PERF.md, section 6). Both float32 gradients are held to
+# a float64 one of the same weights and batch within this bound too, the
+# witness that neither is wrong
+LM_TRAIN_ALOG_REL = 5e-4
 
 
 def nvidia_smi_line() -> str:
@@ -589,7 +636,7 @@ def support(beta, tol=1e-8):
 
 
 def profile_solve(tag, solve, wall, kernels=(), match=(), per=1,
-                  host_ops=False):
+                  host_ops=False, ranges=()):
     """Run ``solve`` once more under torch.profiler and print the device's
     busy time (the sum of its activities' durations, one stream) against
     the unprofiled wall time ``wall``, and the kernels that take most of
@@ -600,7 +647,12 @@ def profile_solve(tag, solve, wall, kernels=(), match=(), per=1,
     busy and wall ms a step too. The profiler records device activities
     only (recording the host's ops cost it more time than the profiled
     runs took), unless ``host_ops``: without them it recorded none of
-    NCCL's kernels."""
+    NCCL's kernels. For each name in ``ranges`` (host ranges that
+    ``solve`` opens with ``record_function``; needs ``host_ops``), the
+    device time launched inside them and inside the backward of the
+    autograd nodes recorded there (:func:`range_device_us`), and its share
+    of the busy time. Returns the busy seconds (None when the profiler
+    recorded no device activity)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -611,18 +663,24 @@ def profile_solve(tag, solve, wall, kernels=(), match=(), per=1,
     with profile(activities=acts) as prof:
         solve()
         torch.cuda.synchronize()
-    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_s = sum(e.device_time_total for e in ev) / 1e6
+    # (name, us) of each device activity, read from the profiler's raw
+    # events: building its function events (``prof.events()``) took about
+    # 0.14 ms an activity on the card's host, 15 s for a training step
+    # (the device's copies of the ``ranges`` are spans, not activities)
+    raw = prof.profiler.kineto_results.events()
+    ev = [(e.name(), e.duration_ns() / 1e3) for e in raw
+          if e.device_type() == DeviceType.CUDA and e.name() not in ranges]
+    busy_s = sum(us for _, us in ev) / 1e6
     if busy_s == 0.0:
         print(f"[profile {tag}] device time: not measured (the profiler "
               f"recorded no device activity)", flush=True)
         return
     # one line per kernel, its template instances summed
     fam = {}
-    for e in ev:
-        name = e.name.split("<")[0].split("::")[-1].split("(")[0].strip()
+    for full, us in ev:
+        name = full.split("<")[0].split("::")[-1].split("(")[0].strip()
         t, c = fam.get(name, (0.0, 0))
-        fam[name] = (t + e.device_time_total, c + 1)
+        fam[name] = (t + us, c + 1)
     top = sorted(fam.items(), key=lambda kv: -kv[1][0])[:5]
     tops = "; ".join(f"{name[:60]} {t / 1e3:.2f} ms x{c}"
                      for name, (t, c) in top)
@@ -630,14 +688,89 @@ def profile_solve(tag, solve, wall, kernels=(), match=(), per=1,
                     f"{kn}_launches={fam.get(kn, (0.0, 0))[1]}"
                     for kn in kernels)
     for m in match:
-        hit = [e.device_time_total for e in ev if m in e.name.lower()]
+        hit = [us for full, us in ev if m in full.lower()]
         named += f" {m}_ms={sum(hit) / 1e3:.3f} {m}_ops={len(hit)}"
+    for r in ranges:
+        us, nested = range_device_us(raw, r)
+        named += (f" {r}_ms={us / 1e3:.3f} {r}_share_of_busy="
+                  f"{us / 1e6 / busy_s:.3f} {r}_backward_ranges_holding_"
+                  f"one={nested}")
     if per > 1:
         named += (f" per_step: ops={len(ev) / per:.1f} busy_ms="
                   f"{1e3 * busy_s / per:.3f} wall_ms={1e3 * wall / per:.3f}")
     print(f"[profile {tag}] device_busy_s={busy_s:.4f} wall_s={wall:.4f} "
           f"idle_share={1 - busy_s / wall:.3f} device_ops={len(ev)}{named} "
           f"top: {tops}", flush=True)
+    return busy_s
+
+
+def range_device_us(raw, name):
+    """(device us, nested) of the profiler's raw events ``raw`` (host ops
+    recorded): the durations of the device activities whose launching op
+    started inside a host range called ``name``, or inside the autograd
+    engine's backward of a node that an op in such a range recorded (the
+    engine's ``evaluate_function`` range carries the forward op's sequence
+    number and thread). ``nested`` counts those backward ranges that hold a
+    ``name`` range themselves (a checkpoint's recompute run inside one:
+    then more than the range's own work is counted)."""
+    import bisect
+    from torch.autograd import DeviceType
+    bw_tag = "autograd::engine::evaluate_function"
+    # (name, thread, start, end, correlation, sequence number, forward
+    # thread) of torch's ops and ranges, read once; the CUDA API's calls
+    # (cu*) number their correlations apart, so their ids would collide
+    host, dev = [], []
+    for e in raw:
+        nm = e.name()
+        if e.device_type() == DeviceType.CPU:
+            if not nm.startswith("cu"):
+                t = e.start_ns()
+                host.append((nm, e.start_thread_id(), t, t + e.duration_ns(),
+                             e.correlation_id(), e.sequence_nr(),
+                             e.fwd_thread_id()))
+        elif nm != name:
+            dev.append((e.linked_correlation_id(), e.duration_ns()))
+
+    def spans(rows):
+        """{thread: sorted, merged [(start, end)]}"""
+        by = {}
+        for r in rows:
+            by.setdefault(r[1], []).append((r[2], r[3]))
+        for tid, r in by.items():
+            r.sort()
+            merged = [r[0]]
+            for a, b in r[1:]:
+                if a <= merged[-1][1]:
+                    merged[-1] = (merged[-1][0], max(merged[-1][1], b))
+                else:
+                    merged.append((a, b))
+            by[tid] = merged
+        return by
+
+    def inside(by, tid, t):
+        r = by.get(tid)
+        if not r:
+            return False
+        i = bisect.bisect_right(r, (t, math.inf)) - 1
+        return i >= 0 and t <= r[i][1]
+
+    ranges = [r for r in host if r[0] == name]
+    fwd = spans(ranges)
+    keys = {(r[1], r[5]) for r in host
+            if r[5] >= 0 and not r[0].startswith(bw_tag)
+            and inside(fwd, r[1], r[2])}
+    bw_rows = [r for r in host if r[0].startswith(bw_tag)
+               and (r[6], r[5]) in keys]
+    bw = spans(bw_rows)
+    nested = sum(1 for r in ranges if inside(bw, r[1], r[2]))
+    both = spans(ranges + bw_rows)
+    launch = {r[4]: (r[1], r[2]) for r in host if r[4] > 0}
+    us = 0.0
+    for corr, ns in dev:
+        at = launch.get(corr)
+        if at is not None and inside(both, *at):
+            us += ns / 1e3
+    return us, nested
 
 
 # profiled re-runs of the solves, (tag, solve, wall[, kernels]), run after
@@ -4797,6 +4930,373 @@ def lm_hymba_phase(smi):
     torch.cuda.empty_cache()
 
 
+def lm_numpy_train_batch(cfg, B, S, seed):
+    """``lm_numpy_batch`` with next-token labels (the tokens rolled by
+    one), as the tests' batches are."""
+    import numpy as np
+    b = lm_numpy_batch(cfg, B, S, seed)
+    b["tokens"] = b["tokens"].astype(np.int32)
+    b["labels"] = np.roll(b["tokens"], -1, axis=1)
+    return b
+
+
+def leaf_rel(got, want):
+    """{leaf name: the leaf's largest error of ``got`` against ``want``
+    (trees on any devices) over ``want``'s largest entry}, in float64
+    where ``want`` lies (the card, at full width)."""
+    from repro_torch.tree import leaf_paths
+    want = dict(leaf_paths(want))
+    out = {}
+    for path, g in leaf_paths(got):
+        w = want[path].double()
+        err = float((g.to(w.device).double() - w).abs().max())
+        scale = float(w.abs().max())
+        out[".".join(path)] = err / scale if scale > 0 else err
+    return out
+
+
+def grads_close(tag, got, want, loss_got, loss_want, own=None):
+    """The loss's relative error of ``got`` against ``want`` and each
+    leaf's :func:`leaf_rel`: (loss rel, worst leaf rel among the leaves
+    not in ``own``, that leaf, {leaf: rel} of the leaves in ``own``).
+    Raises when the loss is off by more than LM_TRAIN_LOSS_REL, or a leaf
+    by more than its bound in ``own`` ({leaf name: bound}), else
+    LM_TRAIN_GRAD_REL."""
+    own = own or {}
+    rel = leaf_rel(got, want)
+    rest = {k: v for k, v in rel.items() if k not in own}
+    where = max(rest, key=rest.get)
+    lrel = abs(float(loss_got) - float(loss_want)) / abs(float(loss_want))
+    off = [f"{k} off by {v:.3e} of its largest entry (bound "
+           f"{own.get(k, LM_TRAIN_GRAD_REL)})" for k, v in rel.items()
+           if v > own.get(k, LM_TRAIN_GRAD_REL)]
+    if lrel > LM_TRAIN_LOSS_REL or off:
+        raise RuntimeError(f"{tag}: loss {float(loss_got)} against "
+                           f"{float(loss_want)}; {'; '.join(off)}")
+    return lrel, rest[where], where, {k: rel[k] for k in own}
+
+
+def lm_train_archs_phase():
+    """[lm-train/archs]: all ten architectures at their SMOKE configs in
+    float32 (TF32 off), weights and a batch (B x S = LM_TRAIN_ARCH_BS;
+    vlm's img_embed, whisper's frames) from a seed. One ``make_train_step``
+    step on the card and on the CPU from the same weights: the loss and the
+    gradients' global norm (the step's third value), the per-leaf
+    gradients (``value_and_grad``), against LM_TRAIN_LOSS_REL and
+    LM_TRAIN_GRAD_REL; the updated parameters' largest difference printed
+    (not gated: Adam's first step divides each gradient entry by its own
+    magnitude plus eps, so an entry near zero moves by up to 2 lr on a
+    difference in its last bits). On the card, microbatch 2 against 1
+    with the same bounds (not for MoE: its capacity and load-balance loss
+    are per call, not additive over microbatches)."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.configs import ARCH_IDS, smoke_config
+    from repro_torch.launch.steps import (TrainState, make_train_step,
+                                          value_and_grad)
+    from repro_torch.models.lm import leaf_paths
+    from repro_torch.optim import adamw
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    B, S = LM_TRAIN_ARCH_BS
+    for i, arch in enumerate(ARCH_IDS):
+        cfg = smoke_config(arch).scaled(dtype="float32")
+        tree = lm_numpy_params(cfg, seed=700 + i)
+        batch = lm_numpy_train_batch(cfg, B, S, seed=800 + i)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            params = convert.lm_params_from_numpy(tree, cfg, device=dev)
+            b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+            step = make_train_step(cfg, opt_cfg)
+            t0 = time.perf_counter()
+            new, loss, gn = step(TrainState(params, adamw.init(params)), b)
+            gn = float(gn)
+            step_s = time.perf_counter() - t0
+            out[dev] = (loss, gn, value_and_grad(params, b, cfg)[1],
+                        new.params, step_s, params, b)
+        (lc, gc, grc, pc, sc, params, b), (lh, gh, grh, ph, _, _, _) = (
+            out["cuda"], out["cpu"])
+        lrel, grel, gwhere, _ = grads_close(f"[lm-train/archs/{arch}]",
+                                            grc, grh, lc, lh)
+        if abs(gc - gh) > LM_TRAIN_LOSS_REL * gh:
+            raise RuntimeError(f"[lm-train/archs/{arch}] gradient norm {gc} "
+                               f"on the card, {gh} on the CPU")
+        pmax = max(float((p.cpu() - dict(leaf_paths(ph))[k]).abs().max())
+                   for k, p in leaf_paths(pc))
+        mb = ""
+        if cfg.family != "moe":
+            l1, g1 = value_and_grad(params, b, cfg)
+            l2, g2 = value_and_grad(params, b, cfg, microbatch=2)
+            mrel, mgrel, mwhere, _ = grads_close(
+                f"[lm-train/archs/{arch}/microbatch]", g2, g1, l2, l1)
+            mb = (f" microbatch2_vs_1: loss_rel={mrel:.2e} grad_rel="
+                  f"{mgrel:.2e} ({mwhere})")
+        finite = all(bool(torch.isfinite(t).all()) for _, t in leaf_paths(pc))
+        print(f"[lm-train/archs/{arch}] family={cfg.family} "
+              f"loss={float(lc):.6f} card_vs_cpu: loss_rel={lrel:.2e} "
+              f"grad_rel={grel:.2e} ({gwhere}) grad_norm={gc:.6f} "
+              f"(cpu {gh:.6f}) params_after_step_max_abs={pmax:.2e} "
+              f"(bounds {LM_TRAIN_LOSS_REL}, {LM_TRAIN_GRAD_REL}){mb} "
+              f"step_s={sc:.3f}", flush=True)
+        if not (finite and math.isfinite(float(lc))):
+            raise RuntimeError(f"[lm-train/archs/{arch}] non-finite step")
+
+
+def lm_train_hymba_phase(smi):
+    """[lm-train/hymba/full]: the published hymba-1.5b config (float32
+    masters, bfloat16 compute, remat) from ``init_train_state`` (seed 0,
+    on the card) trained by ``train_loop`` with ``make_train_step`` on
+    ``TokenPipeline`` (seed 0) at LM_TRAIN_BATCH x LM_TRAIN_SEQ tokens,
+    AdamW lr 1e-3, warmup 2, LM_TRAIN_STEPS steps (the schedule's total),
+    under ``torch.use_deterministic_algorithms(True)``: a straight run that
+    checkpoints (``save_async``, under build/) after step LM_TRAIN_CKPT,
+    then a second run resumed from that checkpoint (``train.resume``, the
+    data cursor with it) whose losses and gradient norms must equal the
+    straight run's bit for bit. Every loss finite, the last below the
+    first. Then, from the resumed run's state: one more step under
+    torch.profiler with the host's ops, ``ssm.prefix_scan`` wrapped in a
+    host range, and the doubling scan's device time (its forward, the
+    recomputes' forwards and its backward: :func:`range_device_us`) and
+    share of the step's busy time; in float32 at LM_TRAIN_F32_BS,
+    microbatch 2 against 1 (``grads_close``: A_log within
+    LM_TRAIN_ALOG_REL, every other leaf LM_TRAIN_GRAD_REL), both against a
+    float64 ``value_and_grad`` of the same weights and batch (A_log within
+    LM_TRAIN_ALOG_REL); at 2 of its layers, remat on against off, bit for
+    bit."""
+    import shutil
+    import statistics
+    import torch
+    from torch.profiler import record_function
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline, to_device
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import (init_train_state, make_train_step,
+                                          value_and_grad)
+    from repro_torch.models import lm, ssm
+    from repro_torch.optim import adamw
+    tag = "[lm-train/hymba/full]"
+    cfg = get_config("hymba_1_5b")
+    B, S, steps, at = (LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS,
+                       LM_TRAIN_CKPT)
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=steps)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B, seed=0)
+    ckdir = str(ROOT / "build" / "lm_train_ckpt")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    step = make_train_step(cfg, opt_cfg)
+
+    def report(label, run, first):
+        for i, (loss, gn, s_) in enumerate(zip(run.losses, run.grad_norms,
+                                               run.step_s)):
+            print(f"{tag[:-1]}/{label}] step={first + i + 1} loss={loss!r} "
+                  f"grad_norm={gn!r} ms={1e3 * s_:.1f} "
+                  f"tokens_per_s={B * S / s_:.1f}", flush=True)
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        # each state is handed to the loop, not kept here: a third copy
+        # of the 20 GB state would not fit beside the step's two. The
+        # straight run is two loops over one pipeline, the first one
+        # checkpointing at its end, the second going on from its state
+        t0 = time.perf_counter()
+        data = TokenPipeline(dcfg)
+        run = train.train_loop(step, init_train_state(cfg, seed=0), data,
+                               start=0, steps=at, ckpt_dir=ckdir,
+                               ckpt_every=at, log_every=0)
+        hand = [run.state]
+        head = run._replace(state=None)
+        del run
+        run = train.train_loop(step, hand.pop(), data, start=at,
+                               steps=steps, log_every=0)
+        run = run._replace(losses=head.losses + run.losses,
+                           grad_norms=head.grad_norms + run.grad_norms,
+                           step_s=head.step_s + run.step_s)
+        ckpt.wait_pending()
+        straight_s = time.perf_counter() - t0
+        report("straight", run, 0)
+        losses, norms, step_s = run.losses, run.grad_norms, run.step_s
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        n_params = sum(t.numel() for _, t in lm.leaf_paths(run.state.params))
+        want = sum(math.prod(s)
+                   for _, s in lm.leaf_paths(lm.param_shapes(cfg)))
+        if n_params != want or not cfg.remat:
+            raise RuntimeError(f"{tag} {n_params} parameters (the config "
+                               f"has {want}), remat {cfg.remat}")
+        del run
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        data = TokenPipeline(dcfg)
+        resumed, start = train.resume(ckdir, init_train_state(cfg, seed=1),
+                                      data)
+        hand = [resumed]
+        del resumed
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        shutil.rmtree(ckdir, ignore_errors=True)
+        if start != at:
+            raise RuntimeError(f"{tag} resumed at step {start}, not {at}")
+        rerun = train.train_loop(step, hand.pop(), data, start=start,
+                                 steps=steps, log_every=0)
+        report("resumed", rerun, at)
+        state = rerun.state
+        replay = (rerun.losses == losses[at:]
+                  and rerun.grad_norms == norms[at:])
+        finite = all(math.isfinite(x) for x in losses)
+        wall = statistics.median(step_s[1:])
+        print(f"{tag} params={n_params} layers={cfg.n_layers} "
+              f"d_model={cfg.d_model} dtype={cfg.dtype} "
+              f"param_dtype={cfg.param_dtype} remat={cfg.remat} B={B} S={S} "
+              f"steps={steps} first_loss={losses[0]!r} "
+              f"last_loss={losses[-1]!r} finite={finite} "
+              f"resumed_at={start} replay_bitwise={replay} "
+              f"median_step_ms={1e3 * wall:.1f} tokens_per_s="
+              f"{B * S / wall:.1f} first_step_ms={1e3 * step_s[0]:.1f} "
+              f"straight_run_s={straight_s:.2f} restore_s={restore_s:.2f} "
+              f"peak_gb={peak:.3f} state_gb="
+              f"{16 * n_params / 1e9:.3f} (masters, grads, m, v) "
+              f"card=\"{smi}\"", flush=True)
+        if not finite or not losses[-1] < losses[0]:
+            raise RuntimeError(f"{tag} losses {losses}")
+        if not replay:
+            raise RuntimeError(f"{tag} the resumed steps {rerun.losses} "
+                               f"{rerun.grad_norms} are not the straight "
+                               f"run's {losses[at:]} {norms[at:]}")
+        del rerun
+        mark("lm-train/hymba/full (train, checkpoint, resume)")
+
+        # one more step under the profiler (its wall: the straight run's
+        # median step), the doubling scan in a host range
+        batch = to_device(data.next_batch())
+        scan = ssm.prefix_scan
+
+        def ranged(*args, **kw):
+            with record_function("prefix_scan"):
+                return scan(*args, **kw)
+        ssm.prefix_scan = ranged
+        try:
+            profile_solve("lm-train/hymba/step", lambda: step(state, batch),
+                          wall, match=("catarraybatchedcopy",),
+                          host_ops=True, ranges=("prefix_scan",))
+        finally:
+            ssm.prefix_scan = scan
+        params = state.params
+        del batch, state
+        mark("lm-train/hymba/full (profiled step)")
+
+        # float32 at full width: microbatch 2 against 1, both against a
+        # float64 run
+        b32, s32 = LM_TRAIN_F32_BS
+        batch = to_device(TokenPipeline(DataConfig(
+            vocab=cfg.vocab, seq_len=s32, global_batch=b32,
+            seed=0)).next_batch())
+        t0 = time.perf_counter()
+        l1, g1 = value_and_grad(params, batch, cfg.scaled(dtype="float32"))
+        torch.cuda.synchronize()
+        g_s = time.perf_counter() - t0
+        l2, g2 = value_and_grad(params, batch, cfg.scaled(dtype="float32"),
+                                microbatch=2)
+        t0 = time.perf_counter()
+        l64, g64 = value_and_grad(params, batch,
+                                  cfg.scaled(dtype="float64"))
+        torch.cuda.synchronize()
+        g64_s = time.perf_counter() - t0
+        key = "blocks.A_log"
+        lrel, grel, gwhere, own = grads_close(
+            f"{tag[:-1]}/f32]", g2, g1, l2, l1, {key: LM_TRAIN_ALOG_REL})
+        w1, w2 = leaf_rel(g1, g64), leaf_rel(g2, g64)
+        del g1, g2, g64
+        worst1, worst2 = max(w1, key=w1.get), max(w2, key=w2.get)
+        print(f"{tag[:-1]}/f32] B={b32} S={s32} microbatch2_vs_1: "
+              f"loss_rel={lrel:.2e} grad_rel={grel:.2e} ({gwhere}) "
+              f"A_log={own[key]:.3e} (bounds {LM_TRAIN_LOSS_REL}, "
+              f"{LM_TRAIN_GRAD_REL}, A_log {LM_TRAIN_ALOG_REL}); against "
+              f"float64: microbatch1 A_log={w1[key]:.3e} worst="
+              f"{w1[worst1]:.3e} ({worst1}) loss_rel="
+              f"{abs(float(l1) - float(l64)) / abs(float(l64)):.2e}, "
+              f"microbatch2 A_log={w2[key]:.3e} worst={w2[worst2]:.3e} "
+              f"({worst2}) loss_rel="
+              f"{abs(float(l2) - float(l64)) / abs(float(l64)):.2e} "
+              f"value_and_grad_s={g_s:.3f} float64_s={g64_s:.3f}",
+              flush=True)
+        if max(w1[key], w2[key]) > LM_TRAIN_ALOG_REL:
+            raise RuntimeError(f"{tag} A_log's float32 gradients part from "
+                               f"the float64 one by {w1[key]:.3e} and "
+                               f"{w2[key]:.3e} (bound {LM_TRAIN_ALOG_REL})")
+
+        # 2 layers of full width: remat on against off, bit for bit
+        cfg2 = cfg.scaled(n_layers=2)
+        p2 = {k: ({kk: vv[:2] for kk, vv in v.items()}
+                  if isinstance(v, dict) else v)
+              for k, v in params.items()}
+        batch = to_device(TokenPipeline(dcfg).next_batch())
+        on = value_and_grad(p2, batch, cfg2)
+        off = value_and_grad(p2, batch, cfg2.scaled(remat=False))
+        same = bool(torch.equal(on[0], off[0])) and all(
+            torch.equal(a, dict(lm.leaf_paths(off[1]))[k])
+            for k, a in lm.leaf_paths(on[1]))
+        print(f"{tag[:-1]}/remat] layers=2 B={B} S={S} "
+              f"remat_on_vs_off_bitwise={same} loss={float(on[0])!r}",
+              flush=True)
+        if not same:
+            raise RuntimeError(f"{tag} remat on and off differ")
+        del params, on, off, p2, batch
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.cuda.empty_cache()
+
+
+def lm_train_cli_phase():
+    """[lm-train/cli]: the trainer CLI's ``main``
+    (``repro_torch.launch.train``) on the card, stablelm_3b SMOKE (B = 4,
+    S = 32, lr 1e-3, a loss printed each step): 6 steps checkpointing every
+    3, then resumed from that directory to 12, against a straight 12-step
+    run: the resumed run restores step 6 and prints the straight run's
+    last 3 losses (the reference's
+    tests/test_distribution.py::test_train_resume_end_to_end; the CPU tests
+    run the first through ``python -m``)."""
+    import contextlib
+    import io
+    import shutil
+    from repro_torch.launch import train
+    d = ROOT / "build" / "lm_train_cli"
+    shutil.rmtree(d, ignore_errors=True)
+    base = ["--arch", "stablelm_3b", "--smoke", "--batch", "4", "--seq",
+            "32", "--log-every", "1", "--lr", "1e-3"]
+
+    def main(*extra):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = train.main(base + list(extra))
+        if rc != 0:
+            raise RuntimeError(f"[lm-train/cli] main exited {rc}")
+        return buf.getvalue()
+
+    def losses(out):
+        return [ln.split()[-1] for ln in out.splitlines()
+                if ln.startswith("step ")]
+
+    t0 = time.perf_counter()
+    first = main("--steps", "6", "--ckpt-dir", str(d / "a"),
+                 "--ckpt-every", "3")
+    resumed = main("--steps", "12", "--ckpt-dir", str(d / "a"),
+                   "--ckpt-every", "3")
+    straight = main("--steps", "12", "--ckpt-dir", str(d / "b"),
+                    "--ckpt-every", "100")
+    cli_s = time.perf_counter() - t0
+    shutil.rmtree(d, ignore_errors=True)
+    ok = (len(losses(first)) == 6
+          and "[resume] restored step 6" in resumed
+          and losses(resumed)[-3:] == losses(straight)[-3:])
+    print(f"[lm-train/cli] first_run_losses={len(losses(first))} "
+          f"resumed_last3={losses(resumed)[-3:]} "
+          f"straight_last3={losses(straight)[-3:]} equal={ok} "
+          f"wall_s={cli_s:.2f}", flush=True)
+    if not ok:
+        raise RuntimeError(f"[lm-train/cli] resume differs: {resumed} / "
+                           f"{straight}")
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--p", type=int, default=100_000,
@@ -5124,6 +5624,12 @@ def main() -> int:
     mark("lm-archs")
     lm_hymba_phase(smi)
     mark("lm-hymba/full")
+    lm_train_archs_phase()
+    mark("lm-train/archs")
+    lm_train_hymba_phase(smi)
+    mark("lm-train/hymba/full")
+    lm_train_cli_phase()
+    mark("lm-train/cli")
 
     print(f"[smoke] total_s={time.perf_counter() - t_start:.1f}", flush=True)
     print(json.dumps({"kernels": list(records.values())}))

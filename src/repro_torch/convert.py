@@ -8,7 +8,9 @@ takes, or the slot-preserving warm state of the path engine; its
 preparation, and its ``GroupPrep`` and a group solve's final slots the
 port's group preparation and warm triple; the LM scaffold's parameter
 tree, read out with ``jax.tree.map(np.asarray, params)``, becomes the
-port's (:func:`lm_params_from_numpy`). Nothing here imports the reference.
+port's (:func:`lm_params_from_numpy`), and a training state (parameters,
+AdamW step, m and v) the port's ``TrainState``
+(:func:`train_state_from_numpy`). Nothing here imports the reference.
 """
 from __future__ import annotations
 
@@ -160,3 +162,26 @@ def lm_params_from_numpy(tree, cfg, device=None):
             node = node.setdefault(k, {})
         node[path[-1]] = as_tensor(a, dev)
     return out
+
+
+def train_state_from_numpy(params_tree, opt_tree, cfg, device=None):
+    """The port's ``launch.steps.TrainState`` from the reference's, read
+    out as numpy arrays: ``params_tree`` its parameters and ``opt_tree`` its
+    ``AdamWState`` (step, m, v) in that field order (the reference's
+    NamedTuple of numpy arrays, or any such triple), on ``device`` (None =
+    the card), each leaf's dtype kept and the step int32. m and v are
+    checked as the parameters are (:func:`lm_params_from_numpy`): a
+    missing, extra or misshapen leaf raises ``ValueError``."""
+    from repro_torch.launch.steps import TrainState
+    from repro_torch.optim.adamw import AdamWState
+    dev = resolve_device(device)
+    step, m, v = opt_tree
+    step = np.asarray(step)
+    if step.shape != ():
+        raise ValueError(f"AdamW step has shape {step.shape}, needs ()")
+    return TrainState(
+        params=lm_params_from_numpy(params_tree, cfg, device=dev),
+        opt=AdamWState(step=torch.as_tensor(int(step), dtype=torch.int32,
+                                            device=dev),
+                       m=lm_params_from_numpy(m, cfg, device=dev),
+                       v=lm_params_from_numpy(v, cfg, device=dev)))

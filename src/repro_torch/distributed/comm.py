@@ -1,7 +1,7 @@
 """The collectives of the feature-sharded solve, over the ranks of a device
 mesh flattened in row-major order (the reference lets XLA insert them).
 
-Two operations, each on a :class:`FeatureGroup`:
+Three operations, each on a :class:`FeatureGroup`:
 
   * :func:`all_gather_rows` — every rank's (rows, cols) block, stacked in
     mesh order: the screen's candidate pairs (each rank's max ub rides
@@ -9,7 +9,9 @@ Two operations, each on a :class:`FeatureGroup`:
   * :func:`all_reduce_sum` — an elementwise sum: the violation histograms
     and survivor counts, and the owner fetch of design columns (each rank
     fills the columns it owns and -0.0 elsewhere, so the sum is an exact
-    copy of every entry, signed zeros included).
+    copy of every entry, signed zeros included);
+  * :func:`all_reduce_max` — an elementwise max: the per-tensor scales of
+    the int8-compressed gradient all-reduce (``optim/compress.py``).
 
 A sharded mesh covers every rank of the default group. Its device type
 picks the collective route and nothing else (the tensors' device says
@@ -32,7 +34,7 @@ import torch
 
 Tensor = torch.Tensor
 
-CALLS = {"gather": 0, "sum": 0}
+CALLS = {"gather": 0, "sum": 0, "max": 0}
 
 
 def reset_calls() -> None:
@@ -92,12 +94,24 @@ def all_gather_rows(fg: FeatureGroup, block: Tensor) -> Tensor:
     return out.to(block.device)
 
 
+def _all_reduce(fg: FeatureGroup, t: Tensor, op) -> Tensor:
+    import torch.distributed as dist
+    # a private copy where the collective runs (it reduces in place)
+    buf = (t.to("cpu", copy=True) if fg.host
+           else t.clone(memory_format=torch.contiguous_format))
+    dist.all_reduce(buf, op=op, group=fg.pg)
+    return buf.to(t.device)
+
+
 def all_reduce_sum(fg: FeatureGroup, t: Tensor) -> Tensor:
     """The elementwise sum of every rank's ``t`` (a new tensor)."""
     import torch.distributed as dist
     CALLS["sum"] += 1
-    # a private copy where the collective runs (it reduces in place)
-    buf = (t.to("cpu", copy=True) if fg.host
-           else t.clone(memory_format=torch.contiguous_format))
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=fg.pg)
-    return buf.to(t.device)
+    return _all_reduce(fg, t, dist.ReduceOp.SUM)
+
+
+def all_reduce_max(fg: FeatureGroup, t: Tensor) -> Tensor:
+    """The elementwise max of every rank's ``t`` (a new tensor)."""
+    import torch.distributed as dist
+    CALLS["max"] += 1
+    return _all_reduce(fg, t, dist.ReduceOp.MAX)

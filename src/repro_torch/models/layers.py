@@ -11,6 +11,10 @@ inputs' dtype (the reference's ``preferred_element_type=float32``), masked
 with -1e30 (not -inf), and the softmax runs in float32 before it is cast
 back. The einsums are plain torch: ``scaled_dot_product_attention`` masks
 and rounds otherwise.
+
+:func:`remat_call` is the activation checkpointing of the layer loops and
+the recurrent blocks' chunk loops, taken only while autograd records
+(:func:`recording`).
 """
 from __future__ import annotations
 
@@ -22,6 +26,21 @@ from torch import Tensor
 
 # the reference's mask fill (jnp.where(mask, logits, -1e30))
 MASK_FILL = -1e30
+
+
+def recording(*tensors) -> bool:
+    """Whether autograd records a graph through any of ``tensors``: the
+    condition for activation checkpointing (serving never checkpoints)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def remat_call(body, remat: bool, *args):
+    """``body(*args)``, its activations recomputed in the backward pass
+    when ``remat`` (the reference's ``jax.checkpoint``)."""
+    if remat:
+        from torch.utils.checkpoint import checkpoint
+        return checkpoint(body, *args, use_reentrant=False)
+    return body(*args)
 
 
 def rms_norm(x: Tensor, w: Tensor, eps: float = 1e-5) -> Tensor:

@@ -5,16 +5,18 @@ Parameters are the reference's tree: a dict of tensors with the per-layer
 weights stacked on a leading layer axis (``blocks``, ``blocks_m``,
 ``blocks_s``, ``cross_blocks``, ``enc_blocks``), so a tree saved or
 converted from the reference maps leaf for leaf. The reference scans over
-that axis; here an eager loop indexes it, casting each layer's master
-weights to the compute dtype on every call as the reference's
-``_cast_params`` does. :class:`CausalLM` holds the same tree in nested
+that axis; here an eager loop runs over the layers of one ``unbind(0)``,
+casting each layer's master weights to the compute dtype on every call as
+the reference's ``_cast_params`` does, and, with ``cfg.remat`` while
+autograd records, checkpoints each layer as the reference's
+``jax.checkpoint`` does. :class:`CausalLM` holds the same tree in nested
 ``nn.ParameterDict``s.
 
 Entry points:
   init(cfg, generator=, seed=, device=)      -> params
   backbone(params, tokens, cfg)               -> (hidden, aux)
   logits_fn(params, hidden, cfg)              -> logits
-  train_loss(params, batch, cfg)              -> scalar loss (forward value)
+  train_loss(params, batch, cfg)              -> scalar loss (differentiable)
   init_decode_state(params, cfg, B, s_max)    -> DecodeState
   fill_cross_cache(params, cfg, state, ...)   -> DecodeState (vlm / encdec)
   decode_step(params, tok, state, cfg)        -> (logits, DecodeState)
@@ -37,8 +39,10 @@ from torch import Tensor, nn
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (KVCache, attention_block,
-                                       attention_decode, mlp_block, rms_norm)
+                                       attention_decode, mlp_block, recording,
+                                       remat_call, rms_norm)
 from repro_torch.models.moe import moe_ffn
+from repro_torch.tree import leaf_paths
 
 Params = Dict[str, Any]
 
@@ -132,17 +136,6 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     return tree
 
 
-def leaf_paths(tree, prefix=()):
-    """(path, leaf) pairs of a nested dict, keys in sorted order (the order
-    in which ``jax.tree`` flattens the reference's tree)."""
-    for k in sorted(tree):
-        v = tree[k]
-        if isinstance(v, dict):
-            yield from leaf_paths(v, prefix + (k,))
-        else:
-            yield prefix + (k,), v
-
-
 def fixed_value(name: str) -> Optional[float]:
     """The reference's post-draw fix by leaf name: norms start at 1, A_log
     at 0 (A = -1), Dskip at 1; None for a leaf left as drawn."""
@@ -187,18 +180,28 @@ def init(cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
 # forward (training / prefill)
 # ---------------------------------------------------------------------------
 
-def _layer(blocks: Dict[str, Tensor], i: int, cfg: ModelConfig
-           ) -> Dict[str, Tensor]:
-    """Layer ``i`` of a stacked block tree, cast to the compute dtype
-    (``_cast_params`` of the reference, on every call)."""
-    return {k: v[i].to(cfg.adtype) for k, v in blocks.items()}
-
-
 def _n_layers(blocks: Dict[str, Tensor]) -> int:
     return next(iter(blocks.values())).shape[0]
 
 
+def _layers(blocks: Dict[str, Tensor]) -> list:
+    """Every layer of a stacked block tree, as dicts of views taken by one
+    ``unbind(0)`` a leaf: its backward writes a leaf's stacked gradient
+    once, where indexing layer by layer writes a zero tensor the size of
+    the whole leaf for every layer."""
+    views = {k: v.unbind(0) for k, v in blocks.items()}
+    return [{k: vs[i] for k, vs in views.items()}
+            for i in range(_n_layers(blocks))]
+
+
+def _cast(bp: Dict[str, Tensor], cfg: ModelConfig) -> Dict[str, Tensor]:
+    """A layer's master weights in the compute dtype (the reference's
+    ``_cast_params``)."""
+    return {k: v.to(cfg.adtype) for k, v in bp.items()}
+
+
 def _dense_layer(x, bp, cfg, positions, window):
+    bp = _cast(bp, cfg)
     h = rms_norm(x, bp["ln1"], cfg.norm_eps)
     attn = attention_block(h, bp, cfg, positions=positions, causal=True,
                            window=window)
@@ -215,18 +218,34 @@ def _dense_layer(x, bp, cfg, positions, window):
     return x + ff, aux
 
 
-def _encode(params: Params, frames: Tensor, cfg: ModelConfig) -> Tensor:
+def _cross_layer(x, cp, src, cfg, positions):
+    cp = _cast(cp, cfg)
+    h = rms_norm(x, cp["ln"], cfg.norm_eps)
+    return x + attention_block(h, cp, cfg, positions=positions,
+                               causal=False, kv_x=src, use_rope=False)
+
+
+def _encoder_layer(enc, bp, cfg, enc_pos):
+    bp = _cast(bp, cfg)
+    h = rms_norm(enc, bp["ln1"], cfg.norm_eps)
+    enc = enc + attention_block(h, bp, cfg, positions=enc_pos, causal=False)
+    h2 = rms_norm(enc, bp["ln2"], cfg.norm_eps)
+    return enc + mlp_block(h2, bp, cfg.mlp_act)
+
+
+def _recurrent_layer(x, bp, block, cfg):
+    bp = _cast(bp, cfg)
+    h = rms_norm(x, bp["ln"], cfg.norm_eps)
+    return x + block(h, bp, cfg)
+
+
+def _encode(params: Params, frames: Tensor, cfg: ModelConfig,
+            remat: bool = False) -> Tensor:
     """The encoder over stub frame embeddings (bidirectional, RoPE)."""
     enc = frames.to(cfg.adtype)
     enc_pos = torch.arange(enc.shape[1], device=enc.device)[None, :]
-    blocks = params["enc_blocks"]
-    for i in range(_n_layers(blocks)):
-        bp = _layer(blocks, i, cfg)
-        h = rms_norm(enc, bp["ln1"], cfg.norm_eps)
-        enc = enc + attention_block(h, bp, cfg, positions=enc_pos,
-                                    causal=False)
-        h2 = rms_norm(enc, bp["ln2"], cfg.norm_eps)
-        enc = enc + mlp_block(h2, bp, cfg.mlp_act)
+    for bp in _layers(params["enc_blocks"]):
+        enc = remat_call(_encoder_layer, remat, enc, bp, cfg, enc_pos)
     return rms_norm(enc, params["enc_ln"], cfg.norm_eps)
 
 
@@ -236,8 +255,12 @@ def backbone(params: Params, tokens: Tensor, cfg: ModelConfig, *,
     """Token ids (B, S) -> final hidden states (B, S, D) + aux loss (a
     0-dim float32 tensor: the MoE layers' summed load-balance loss, else
     0). vlm runs its cross-attention layers only when ``img_embed`` is
-    given; encdec needs ``frames``."""
+    given; encdec needs ``frames``. With ``cfg.remat``, while autograd
+    records, every layer is checkpointed (``torch.utils.checkpoint``, the
+    reference's ``jax.checkpoint`` of a layer body); the values are the
+    same either way."""
     B, S = tokens.shape
+    remat = cfg.remat and recording(*(t for _, t in leaf_paths(params)))
     x = params["embed"][tokens].to(cfg.adtype)
     positions = torch.arange(S, device=x.device)[None, :]
     window = cfg.window
@@ -248,32 +271,28 @@ def backbone(params: Params, tokens: Tensor, cfg: ModelConfig, *,
                      @ params["img_proj"].to(cfg.adtype))
         every = cfg.cross_every
     elif cfg.family == "encdec":
-        cross_src, every = _encode(params, frames, cfg), 1
+        cross_src, every = _encode(params, frames, cfg, remat), 1
 
     if cfg.family == "ssm":
         for name, block in (("blocks_m", ssm_lib.mlstm_block),
                             ("blocks_s", ssm_lib.slstm_block)):
             if name not in params:
                 continue
-            for i in range(_n_layers(params[name])):
-                bp = _layer(params[name], i, cfg)
-                h = rms_norm(x, bp["ln"], cfg.norm_eps)
-                x = x + block(h, bp, cfg)
+            for bp in _layers(params[name]):
+                x = remat_call(_recurrent_layer, remat, x, bp, block, cfg)
     elif cross_src is not None:
         # a cross-attention layer after every ``every`` decoder layers
-        for i in range(cfg.n_layers):
-            bp = _layer(params["blocks"], i, cfg)
-            x, _ = _dense_layer(x, bp, cfg, positions, window)
+        cross = _layers(params["cross_blocks"])
+        for i, bp in enumerate(_layers(params["blocks"])):
+            x, _ = remat_call(_dense_layer, remat, x, bp, cfg, positions,
+                              window)
             if (i + 1) % every == 0:
-                cp = _layer(params["cross_blocks"], i // every, cfg)
-                h = rms_norm(x, cp["ln"], cfg.norm_eps)
-                x = x + attention_block(h, cp, cfg, positions=positions,
-                                        causal=False, kv_x=cross_src,
-                                        use_rope=False)
+                x = remat_call(_cross_layer, remat, x, cross[i // every],
+                               cross_src, cfg, positions)
     else:
-        for i in range(_n_layers(params["blocks"])):
-            bp = _layer(params["blocks"], i, cfg)
-            x, a = _dense_layer(x, bp, cfg, positions, window)
+        for bp in _layers(params["blocks"]):
+            x, a = remat_call(_dense_layer, remat, x, bp, cfg, positions,
+                              window)
             if a is not None:
                 aux = aux + a
 
@@ -288,9 +307,10 @@ def logits_fn(params: Params, hidden: Tensor, cfg: ModelConfig) -> Tensor:
 
 def train_loss(params: Params, batch: Dict[str, Tensor],
                cfg: ModelConfig) -> Tensor:
-    """Next-token cross-entropy (+ MoE aux). batch: tokens, labels (B, S)
-    (and img_embed / frames). The forward value; training is a later
-    slice."""
+    """Next-token cross-entropy (+ MoE aux), a 0-dim float32 tensor.
+    batch: tokens, labels (B, S) (and img_embed / frames). Differentiable
+    in every leaf of ``params`` (``launch/steps.py`` takes its
+    gradients)."""
     hidden, aux = backbone(params, batch["tokens"], cfg,
                            img_embed=batch.get("img_embed"),
                            frames=batch.get("frames"))
@@ -379,16 +399,16 @@ def decode_step(params: Params, tok: Tensor, state: DecodeState,
                                 ("blocks_s", "s", ssm_lib.slstm_decode)):
             if name not in params:
                 continue
-            for i in range(_n_layers(params[name])):
-                bp = _layer(params[name], i, cfg)
+            for i, bp in enumerate(_layers(params[name])):
+                bp = _cast(bp, cfg)
                 h = rms_norm(x, bp["ln"], eps)
                 c = type(caches[key])(*(t[i] for t in caches[key]))
                 y, c2 = step(h, bp, cfg, c)
                 _put(caches[key], i, c2)
                 x = x + y
     elif cfg.family == "hybrid":
-        for i in range(cfg.n_layers):
-            bp = _layer(params["blocks"], i, cfg)
+        for i, bp in enumerate(_layers(params["blocks"])):
+            bp = _cast(bp, cfg)
             h = rms_norm(x, bp["ln1"], eps)
             a, _ = attention_decode(h, bp, cfg, _kv_at(caches["kv"], i), pos,
                                     window=cfg.window)
@@ -400,8 +420,9 @@ def decode_step(params: Params, tok: Tensor, state: DecodeState,
             x = x + mlp_block(h2, bp, cfg.mlp_act)
     elif cfg.family in ("vlm", "encdec"):
         every = cfg.cross_every if cfg.family == "vlm" else 1
-        for i in range(cfg.n_layers):
-            bp = _layer(params["blocks"], i, cfg)
+        cross = _layers(params["cross_blocks"])
+        for i, bp in enumerate(_layers(params["blocks"])):
+            bp = _cast(bp, cfg)
             h = rms_norm(x, bp["ln1"], eps)
             a, _ = attention_decode(h, bp, cfg, _kv_at(caches["kv"], i), pos)
             x = x + a
@@ -409,15 +430,15 @@ def decode_step(params: Params, tok: Tensor, state: DecodeState,
             x = x + mlp_block(h2, bp, cfg.mlp_act)
             if (i + 1) % every == 0:
                 g = i // every
-                cp = _layer(params["cross_blocks"], g, cfg)
+                cp = _cast(cross[g], cfg)
                 hc = rms_norm(x, cp["ln"], eps)
                 a2, _ = attention_decode(hc, cp, cfg,
                                          _kv_at(caches["cross"], g), pos,
                                          kv_cached=True)
                 x = x + a2
     else:
-        for i in range(cfg.n_layers):
-            bp = _layer(params["blocks"], i, cfg)
+        for i, bp in enumerate(_layers(params["blocks"])):
+            bp = _cast(bp, cfg)
             h = rms_norm(x, bp["ln1"], eps)
             a, _ = attention_decode(h, bp, cfg, _kv_at(caches["kv"], i), pos,
                                     window=cfg.window)

@@ -19,6 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor
 
+from repro_torch.models.layers import recording, remat_call
+
 
 def prefix_scan(a: Tensor, b: Tensor, dim: int) -> Tuple[Tensor, Tensor]:
     """Inclusive scan of h_t = a_t h_{t-1} + b_t along ``dim`` from h = 0:
@@ -45,28 +47,34 @@ class MambaState(NamedTuple):
     conv: Tensor   # (B, Di, K-1) causal-conv tail
 
 
+def _mamba_chunk(h, uq, dtq, bq, cq, A):
+    """One chunk of the selective scan from state ``h``: (y, last state)."""
+    # discretize: a_t = exp(dt_t * A)  (B, Q, Di, N); b_t = dt*u*B
+    da = torch.exp(dtq[..., None] * A[None, None])
+    db = (dtq * uq)[..., None] * bq[:, :, None, :]
+    a_pref, b_pref = prefix_scan(da, db, dim=1)
+    hs = a_pref * h[:, None] + b_pref                         # (B,Q,Di,N)
+    # a copy, so the carried state does not hold the chunk's hs alive
+    return torch.einsum("bqdn,bqn->bqd", hs, cq), hs[:, -1].contiguous()
+
+
 def _ssm_chunk_scan(u: Tensor, dt: Tensor, Bm: Tensor, Cm: Tensor,
                     A: Tensor, chunk: int) -> Tensor:
     """Chunked selective-SSM scan.
 
     u: (B, S, Di); dt: (B, S, Di); Bm/Cm: (B, S, N); A: (Di, N) (negative).
-    Returns y: (B, S, Di).
+    Returns y: (B, S, Di). While autograd records, every chunk is
+    checkpointed, as the reference always checkpoints its chunk body.
     """
     B, S, Di = u.shape
     N = A.shape[1]
-    nc = S // chunk
+    remat = recording(u, dt, Bm, Cm, A)
     h = torch.zeros((B, Di, N), dtype=u.dtype, device=u.device)
     ys = []
-    for c in range(nc):
-        sl = slice(c * chunk, (c + 1) * chunk)
-        uq, dtq, bq, cq = u[:, sl], dt[:, sl], Bm[:, sl], Cm[:, sl]
-        # discretize: a_t = exp(dt_t * A)  (B, Q, Di, N); b_t = dt*u*B
-        da = torch.exp(dtq[..., None] * A[None, None])
-        db = (dtq * uq)[..., None] * bq[:, :, None, :]
-        a_pref, b_pref = prefix_scan(da, db, dim=1)
-        hs = a_pref * h[:, None] + b_pref                     # (B,Q,Di,N)
-        ys.append(torch.einsum("bqdn,bqn->bqd", hs, cq))
-        h = hs[:, -1]
+    for uq, dtq, bq, cq in zip(*(t.split(chunk, dim=1)
+                                 for t in (u, dt, Bm, Cm))):
+        y, h = remat_call(_mamba_chunk, remat, h, uq, dtq, bq, cq, A)
+        ys.append(y)
     return torch.cat(ys, dim=1)
 
 
@@ -147,6 +155,33 @@ class MLSTMState(NamedTuple):
     n: Tensor   # (B, H, dk)     normalizer
 
 
+def _mlstm_chunk(C, n, qq, kk, vv, oo, lff, lii, mask):
+    """One chunk of the mLSTM from state (C, n): (y, C, n)."""
+    dt = C.dtype
+    Lc = torch.cumsum(lff, dim=1)              # (B, Q, H) inclusive
+    # inter-chunk: y_t += (q_t * exp(Lc_t)) C_prev
+    dec_t = torch.exp(Lc).to(dt)               # decay from chunk start
+    y_inter = torch.einsum("bqhk,bhkv->bqhv", qq * dec_t[..., None], C)
+    n_inter = torch.einsum("bqhk,bhk->bqh", qq * dec_t[..., None], n)
+    # intra-chunk: s_{t,tau} = q_t.k_tau exp(Lc_t - Lc_tau + li_tau)
+    w = Lc[:, :, None, :] - Lc[:, None, :, :] + lii[:, None, :, :]
+    w = torch.where(mask[None, :, :, None], w, -torch.inf)
+    wexp = torch.exp(torch.clamp(w, max=30.0)).to(dt)         # (B,Qt,Qs,H)
+    s = torch.einsum("bqhk,bshk->bqsh", qq, kk) * wexp
+    y = y_inter + torch.einsum("bqsh,bshv->bqhv", s, vv)
+    nrm = n_inter + torch.sum(s, dim=2)        # q_t . n_t (intra part)
+    # normalizer: max(|q.n|, 1) per xLSTM
+    denom = torch.clamp(torch.abs(nrm), min=1.0)[..., None]
+    out = oo * (y / denom.to(dt))
+    # state update
+    dec_chunk = torch.exp(Lc[:, -1]).to(dt)                   # (B, H)
+    rdec = torch.exp(Lc[:, -1][:, None] - Lc + lii).to(dt)    # (B,Q,H)
+    C = dec_chunk[..., None, None] * C + torch.einsum(
+        "bqhk,bqhv->bhkv", kk * rdec[..., None], vv)
+    n = dec_chunk[..., None] * n + torch.einsum("bqh,bqhk->bhk", rdec, kk)
+    return out, C, n
+
+
 def mlstm_block(x: Tensor, p, cfg) -> Tensor:
     """x: (B, S, D). p: wq/wk/wv (D, H*hd), wi/wf (D, H), wo_gate (D, H*hd),
     out (H*hd, D). Chunked parallel evaluation."""
@@ -164,37 +199,15 @@ def mlstm_block(x: Tensor, p, cfg) -> Tensor:
     Q = min(cfg.ssm_chunk, S)
     if S % Q:
         raise ValueError(f"seq {S} not divisible by chunk {Q}")
-    nc = S // Q
 
     C = torch.zeros((B, H, hd, hd), dtype=dt, device=x.device)
     n = torch.zeros((B, H, hd), dtype=dt, device=x.device)
     mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    remat = recording(q, k, v, lf, li, og)
     ys = []
-    for c in range(nc):
-        sl = slice(c * Q, (c + 1) * Q)
-        qq, kk, vv, oo = q[:, sl], k[:, sl], v[:, sl], og[:, sl]
-        lff, lii = lf[:, sl], li[:, sl]
-        Lc = torch.cumsum(lff, dim=1)              # (B, Q, H) inclusive
-        # inter-chunk: y_t += (q_t * exp(Lc_t)) C_prev
-        dec_t = torch.exp(Lc).to(dt)               # decay from chunk start
-        y_inter = torch.einsum("bqhk,bhkv->bqhv", qq * dec_t[..., None], C)
-        n_inter = torch.einsum("bqhk,bhk->bqh", qq * dec_t[..., None], n)
-        # intra-chunk: s_{t,tau} = q_t.k_tau exp(Lc_t - Lc_tau + li_tau)
-        w = Lc[:, :, None, :] - Lc[:, None, :, :] + lii[:, None, :, :]
-        w = torch.where(mask[None, :, :, None], w, -torch.inf)
-        wexp = torch.exp(torch.clamp(w, max=30.0)).to(dt)     # (B,Qt,Qs,H)
-        s = torch.einsum("bqhk,bshk->bqsh", qq, kk) * wexp
-        y = y_inter + torch.einsum("bqsh,bshv->bqhv", s, vv)
-        nrm = n_inter + torch.sum(s, dim=2)        # q_t . n_t (intra part)
-        # normalizer: max(|q.n|, 1) per xLSTM
-        denom = torch.clamp(torch.abs(nrm), min=1.0)[..., None]
-        ys.append(oo * (y / denom.to(dt)))
-        # state update
-        dec_chunk = torch.exp(Lc[:, -1]).to(dt)               # (B, H)
-        rdec = torch.exp(Lc[:, -1][:, None] - Lc + lii).to(dt)  # (B,Q,H)
-        C = dec_chunk[..., None, None] * C + torch.einsum(
-            "bqhk,bqhv->bhkv", kk * rdec[..., None], vv)
-        n = dec_chunk[..., None] * n + torch.einsum("bqh,bqhk->bhk", rdec, kk)
+    for chunk in zip(*(t.split(Q, dim=1) for t in (q, k, v, og, lf, li))):
+        y, C, n = remat_call(_mlstm_chunk, remat, C, n, *chunk, mask)
+        ys.append(y)
     y = torch.cat(ys, dim=1).reshape(B, S, H * hd)
     return y @ p["out"]
 
