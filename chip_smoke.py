@@ -204,8 +204,8 @@ Phases (each one fails the run by raising):
    4-point Path from GROUP_PATH_HI down to it (each point entered from
    the last), eps = 1e-6, through ``group_solve`` under ``auto`` (B-n3
    and no other kernel), for logistic a Scalar at GROUP_LOGIT_HI too,
-   and the Path's first GROUP_PLAIN_POINTS points (least squares two, a
-   cold solve and a warm one; logistic the cold one) again under
+   and the Path's first GROUP_PLAIN_POINTS points (the cold one, for
+   each loss) again under
    ``backend="torch"`` (no kernel; the plain burst's block step takes
    about 150 times B-n3's, so the rest of the Path and the Scalar would
    take many minutes, PERF.md section 6): every solve
@@ -256,9 +256,10 @@ Phases (each one fails the run by raising):
    its forward pass (2e-4 x scale; MoE at capacity 64 there);
    ``[lm-hymba/full]``, the published hymba-1.5b config (1.662 B
    parameters) initialised on the card: in float32, B = 4 sequences of
-   1,100 tokens through ``backbone`` and, token by token, through
-   ``make_serve_step`` (the 1,024-slot ring wraps), within 2e-4 x scale at
-   every position; in bfloat16, ``make_prefill`` on B = 4 prompts of 2,048
+   1,100 tokens through the first LM_F32_LAYERS = 8 of its 32 layers
+   (``backbone``) and, token by token, through ``make_serve_step`` (the
+   1,024-slot ring wraps), within 2e-4 x scale at every position; in
+   bfloat16 at full depth, ``make_prefill`` on B = 4 prompts of 2,048
    tokens against the float32 prefill (LM_BF16_BOUND), 64 greedy decode
    steps, every logit finite; prefill tokens/s, decode ms a step, peak
    memory, and a profiled prefill and 8 steps (busy time, idle share, top
@@ -273,8 +274,8 @@ Phases (each one fails the run by raising):
    (float32 masters, bfloat16 compute, remat) trained by the trainer's
    loop (``launch/train.py::train_loop``) on ``TokenPipeline`` (seed 0) at
    4 x 1,024 tokens, AdamW lr 1e-3, warmup 2, total 8, for 8 steps with a
-   checkpoint after step 4, then resumed from it: every loss finite, the
-   8th below the 1st, steps 5-8 replayed bit for bit under deterministic
+   checkpoint after step 6, then resumed from it: every loss finite, the
+   8th below the 1st, steps 7-8 replayed bit for bit under deterministic
    algorithms; each step's ms, tokens/s, loss and gradient norm, peak
    memory, one profiled step with the doubling scan's share of its device
    time; in float32 at 2 x 512, microbatch 2 against 1, each against
@@ -282,6 +283,26 @@ Phases (each one fails the run by raising):
    bit; ``[lm-train/cli]``, the
    trainer CLI's ``main`` on the card (stablelm_3b SMOKE): 6 steps,
    resumed to 12, the last 3 printed losses of a straight 12-step run.
+31. the dry-run and data parallelism (``launch/dryrun.py``,
+   ``launch/train.py::DataParallel``): ``[dryrun/saif-screen/w256|w512]``,
+   after the kernel checks and before the first profiles, the dry-run's
+   row of the feature-sharded screen on the production mesh of 256 and
+   512 ranks (a fake process group) beside K1
+   (float32) on one rank's block of it, 4,096 x 262,144 and 4,096 x
+   131,072: its device time against the record's memory and collective
+   times, its plain version's time, cuBLAS's and the byte bound, and K1
+   against its plain version on a column slice (tile maxima within 1e-4,
+   the same candidate ids where the scores stand apart);
+   ``[lm-train/dp2]``, after phase 30, two gloo ranks on cuda:0
+   (subprocesses of this script) training stablelm_3b SMOKE in float32
+   with ZeRO-1 moments at a global batch of 8 x 128 for 4 steps, held to
+   one rank's run on the card within 1e-5 (losses, parameters leaf by
+   leaf), step ms and each rank's moment bytes; ``[dryrun/hymba]``, the
+   dry-run records of hymba-1.5b's prefill (4 x 2,048) and train step
+   (4 x 1,024) on a 1 x 1 mesh, counted by a subprocess on one core
+   (host work) beside ``[lm-train/hymba/full]``'s device-bound steps and
+   read before ``[lm-train/cli]``, beside the prefill and step times
+   phases 29-30 measured.
 
 Launch counters are zeroed just before each solve (and the transform of
 phase 4, the CV fleets, the CV refit, the selection, the K5 call, each
@@ -293,7 +314,7 @@ of the comparisons of phase 4, of the serial solves that phases 9-10
 compare with, of the lambda_max helpers and of one extra solve under
 torch.profiler (the device's busy time and idle share; these run after
 phase 18, the baselines' after phase 19, the group solves' after phase
-27) do not count. The last two lines are the
+27) do not count, nor do phase 31's K1 launches. The last two lines are the
 card's name and power limit and ``{"ok": true, "device": {...}}``; the line
 before them is the per-kernel JSON record.
 """
@@ -376,17 +397,23 @@ GROUP_EPS = 1e-6
 # GROUP_LAM and GROUP_LOGIT_HI end with these many (PERF.md section 6)
 GROUP_TIMING_LIVE = {"least_squares": 314, "logistic": 250}
 # the Path's leading points that the plain burst solves too, by loss (its
-# block step takes about 150 times B-n3's)
-GROUP_PLAIN_POINTS = {"least_squares": 2, "logistic": 1}
+# block step takes about 150 times B-n3's; least squares' warm second
+# point took 43 s of the run, and the CPU tests hold the plain burst's
+# warm solves, tests/test_torch_group.py)
+GROUP_PLAIN_POINTS = {"least_squares": 1, "logistic": 1}
 # the LM scaffold (phase 29, run last): [lm-archs] decodes
 # this many steps at B = 2; [lm-hymba/full] runs B = 4 sequences of
-# LM_F32_LEN tokens in float32 (past the 1,024-token window: the decode
-# ring wraps, and Mamba pads 1,100 to 1,152), then B = 4 prompts of
-# LM_PROMPT tokens in bfloat16 and LM_SERVE_STEPS greedy decode steps, and
-# profiles one prefill and LM_PROFILE_STEPS steps
+# LM_F32_LEN tokens in float32 through its first LM_F32_LAYERS layers at
+# full width (past the 1,024-token window: the decode ring wraps, and
+# Mamba pads 1,100 to 1,152; the decode is host-bound at about 2.5 ms a
+# layer a step, so all 32 layers took 88 s of the run), then B = 4
+# prompts of LM_PROMPT tokens in bfloat16 through all 32 layers and
+# LM_SERVE_STEPS greedy decode steps, and profiles one prefill and
+# LM_PROFILE_STEPS steps
 LM_DECODE = 16
 LM_BATCH = 4
 LM_F32_LEN = 1100
+LM_F32_LAYERS = 8
 LM_PROMPT = 2048
 LM_SERVE_STEPS = 64
 LM_PROFILE_STEPS = 8
@@ -404,7 +431,7 @@ LM_TRAIN_ARCH_BS = (4, 32)
 LM_TRAIN_BATCH = 4
 LM_TRAIN_SEQ = 1024
 LM_TRAIN_STEPS = 8
-LM_TRAIN_CKPT = 4
+LM_TRAIN_CKPT = 6
 LM_TRAIN_F32_BS = (2, 512)
 # card against CPU and microbatch 2 against 1: the loss within
 # LM_TRAIN_LOSS_REL relative, each gradient leaf within LM_TRAIN_GRAD_REL x
@@ -418,6 +445,23 @@ LM_TRAIN_GRAD_REL = 1e-4
 # a float64 one of the same weights and batch within this bound too, the
 # witness that neither is wrong
 LM_TRAIN_ALOG_REL = 5e-4
+# the dry-run (phase 31): the screen row's n, log2 p and h, and the block
+# columns K1 is held to its plain version on; hymba's records at the
+# LM phases' shapes come from a subprocess (host work on one core, run
+# beside [lm-train/hymba/full]'s device-bound steps), which fails the run
+# past DRYRUN_TIMEOUT_S
+DRYRUN_SCREEN = (4096, 26, 64)
+DRYRUN_SLICE = 8192
+DRYRUN_TIMEOUT_S = 300
+# [lm-train/dp2]: two gloo ranks on cuda:0, stablelm_3b SMOKE in float32,
+# global batch DP_BATCH (rows, tokens) for DP_STEPS steps, held to one
+# rank's run within DP_REL (losses; parameters leaf by leaf, the norm of
+# the difference over the leaf's norm: Adam moves an entry whose gradient
+# is near zero by up to 2 lr on a last-bit difference)
+DP_BATCH = (8, 128)
+DP_STEPS = 4
+DP_REL = 1e-5
+DP_TIMEOUT_S = 120
 
 
 def nvidia_smi_line() -> str:
@@ -598,25 +642,49 @@ def device_events(fn, reps: int, expect=None):
                        f"{expect[1]} launches of {expect[0]} three times")
 
 
+def kernel_durations(fn, reps: int, kernel: str):
+    """The device durations (us) of the launches whose name holds
+    ``kernel`` that ``reps`` calls of ``fn`` put on the card, after one
+    warm-up: torch.profiler recording device activities only, read from
+    its raw events (as :func:`profile_solve` reads them)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return [e.duration_ns() / 1e3
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA and kernel in e.name()]
+
+
+# profiler sessions :func:`device_ms` may take to keep half its launches
+# (in two runs a session kept none of 10 or 20 launches twice in a row)
+DEVICE_MS_SESSIONS = 5
+
+
 def device_ms(fn, reps: int, kernel: str) -> float:
     """The kernel's own device time per launch, in ms: the durations of
     the launches whose name holds ``kernel`` over ``reps`` calls (one
     each; ten at least, as a session may miss one or two), summed and
     divided by their number (the wrapper's other device work, such as a
     fill or a cast, is left out). A session that kept under half of the
-    launches is followed by another, three at most, whose kept launches
-    join the first's until they make half of ``reps``."""
+    launches is followed by another, DEVICE_MS_SESSIONS in all at most,
+    whose kept launches join the first's until they make half of
+    ``reps``."""
     reps = max(reps, 10)
     kept = []
-    for _ in range(3):
-        kept += [e.device_time_total for e in device_events(fn, reps)
-                 if kernel in e.name]
+    for _ in range(DEVICE_MS_SESSIONS):
+        kept += kernel_durations(fn, reps, kernel)
         if 2 * len(kept) >= reps:
             return sum(kept) / len(kept) / 1e3
         print(f"[profiler] {len(kept)} launches of {kernel} kept so far of "
               f"{reps} wanted; again", file=sys.stderr, flush=True)
     raise RuntimeError(f"the profiler kept {len(kept)} launches of {kernel} "
-                       f"in three sessions of {reps}")
+                       f"in {DEVICE_MS_SESSIONS} sessions of {reps}")
 
 
 def kernel_ms(fn, reps: int, kernel: str):
@@ -855,10 +923,14 @@ def check_launches(tag, counts, expect):
 
 
 def mark(label):
-    """Print the seconds since the run started and since the last mark."""
+    """Print the seconds since the run started and since the last mark,
+    on both streams (a run stopped at its time limit shows its last phase
+    in the end of its errors)."""
     now = time.perf_counter()
-    print(f"[time] {label} at_s={now - MARKS[0]:.1f} took_s="
-          f"{now - MARKS[1]:.1f}", flush=True)
+    line = (f"[time] {label} at_s={now - MARKS[0]:.1f} took_s="
+            f"{now - MARKS[1]:.1f}")
+    print(line, flush=True)
+    print(line, file=sys.stderr, flush=True)
     MARKS[1] = now
 
 
@@ -3958,7 +4030,8 @@ def group_phase(tag, X, y, loss_name, frac, also=None):
     ``also``, when given) and a 4-point Path (geometric, GROUP_PATH_HI ->
     frac, each point entered from the last) through ``group_solve`` under
     ``auto`` (B-n3 and no other kernel), and the Path's first
-    GROUP_PLAIN_POINTS points (a cold solve, then a warm one) again under
+    GROUP_PLAIN_POINTS points (from a cold solve, each entered from the
+    last) again under
     ``backend="torch"`` (no kernel at all; the plain burst's block step
     takes about 150 times B-n3's, so the solves further down stay on
     ``auto``): every solve certified on the
@@ -4403,7 +4476,7 @@ def time_group_bcd(X, XL, records):
 
 
 SHARDED_PATH = (0.8, LS_LAM, 4)      # the sharded Path: first, last, points
-SHARDED_TIMEOUT_S = 300              # the two-rank phase's subprocesses
+SHARDED_TIMEOUT_S = 120              # the two-rank phase's subprocesses
 
 
 def sharded_ls_phase(X, y, lm, ls_auto, ls_counts, Yf, fl_lams, fl_res,
@@ -4784,10 +4857,12 @@ def lm_archs_phase():
 def lm_hymba_phase(smi):
     """[lm-hymba/full]: the published hymba-1.5b config (32 layers, d_model
     1,600, 25 heads, GQA kv 5, window 1,024, ssm_state 16, vocab 32,001),
-    ``init`` on the card from a CUDA generator. Float32: ``backbone`` logits
-    of LM_BATCH sequences of LM_F32_LEN tokens, and ``make_serve_step`` from
-    an empty state (s_max = LM_F32_LEN: the 1,024-slot ring wraps) held to
-    them at every position within 2e-4 x scale. bfloat16 (the config's
+    ``init`` on the card from a CUDA generator. Float32, on its first
+    LM_F32_LAYERS layers (views of the full-width stacks): ``backbone``
+    logits of LM_BATCH sequences of LM_F32_LEN tokens, and
+    ``make_serve_step`` from an empty state (s_max = LM_F32_LEN: the
+    1,024-slot ring wraps) held to them at every position within 2e-4 x
+    scale. bfloat16 (the config's
     dtype): ``make_prefill`` on LM_BATCH prompts of LM_PROMPT tokens (timed
     on its second call) against the float32 prefill of the same prompts
     (LM_BF16_BOUND), then LM_SERVE_STEPS greedy ``make_serve_step`` steps
@@ -4822,19 +4897,23 @@ def lm_hymba_phase(smi):
 
     B, S = LM_BATCH, LM_F32_LEN
     toks = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev)
-    serve32 = make_serve_step(cfg32)
+    # the first LM_F32_LAYERS layers: views of the full-width stacks
+    cut32 = cfg32.scaled(n_layers=LM_F32_LAYERS)
+    p32 = {**params, "blocks": {k: v[:LM_F32_LAYERS]
+                                for k, v in params["blocks"].items()}}
+    serve32 = make_serve_step(cut32)
     with torch.inference_mode():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        hidden, _ = lm.backbone(params, toks, cfg32)
-        full = lm.logits_fn(params, hidden, cfg32)
+        hidden, _ = lm.backbone(p32, toks, cut32)
+        full = lm.logits_fn(p32, hidden, cut32)
         torch.cuda.synchronize()
         fwd_s = time.perf_counter() - t0
         del hidden
         if not bool(torch.isfinite(full).all()):
             raise RuntimeError("[lm-hymba/full/f32] non-finite logits")
         scale = float(full.abs().max()) + 1.0
-        st = lm.init_decode_state(params, cfg32, B, S)
+        st = lm.init_decode_state(p32, cut32, B, S)
         if st.caches["kv"].k.shape[2] != cfg.window:
             raise RuntimeError("[lm-hymba/full/f32] the KV cache is not the "
                                "window's ring")
@@ -4842,16 +4921,17 @@ def lm_hymba_phase(smi):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for t in range(S):
-            lg, st = serve32(params, toks[:, t], st)
+            lg, st = serve32(p32, toks[:, t], st)
             worst[t] = (lg - full[:, t]).abs().max()
         torch.cuda.synchronize()
         dec_s = time.perf_counter() - t0
         worst = worst.cpu()
-        del full, st
+        del full, st, p32
     peak32 = torch.cuda.max_memory_allocated() / 1e9
     w_all = float(worst.max())
     w_ring = float(worst[cfg.window:].max())
-    print(f"[lm-hymba/full/f32] B={B} S={S} forward_s={fwd_s:.4f} "
+    print(f"[lm-hymba/full/f32] B={B} S={S} layers={LM_F32_LAYERS} of "
+          f"{cfg.n_layers} forward_s={fwd_s:.4f} "
           f"decode_steps={S} decode_ms_per_step={1e3 * dec_s / S:.3f} "
           f"worst_decode_vs_forward={w_all:.4e} after_wrap={w_ring:.4e} "
           f"at_pos={int(worst.argmax())} scale={scale:.4f} "
@@ -4860,7 +4940,8 @@ def lm_hymba_phase(smi):
     if w_all > 2e-4 * scale:
         raise RuntimeError(f"[lm-hymba/full/f32] decode differs from the "
                            f"forward pass by {w_all} (scale {scale})")
-    mark("lm-hymba/full f32 (init, forward, decode)")
+    mark(f"lm-hymba/full f32 (init, forward, decode; {LM_F32_LAYERS} "
+         f"layers)")
 
     cfg16 = cfg
     prompts = {"tokens": torch.randint(0, cfg.vocab, (B, LM_PROMPT),
@@ -4876,6 +4957,7 @@ def lm_hymba_phase(smi):
     last16 = prefill16(params, prompts)
     torch.cuda.synchronize()
     pre_s = time.perf_counter() - t0
+    WALLS["lm-hymba/prefill"] = pre_s
     d = last16.float() - last32
     rms_rel = float(d.pow(2).mean().sqrt() / last32.pow(2).mean().sqrt())
     max_rel = float(d.abs().max()) / (float(last32.abs().max()) + 1.0)
@@ -5145,6 +5227,7 @@ def lm_train_hymba_phase(smi):
                   and rerun.grad_norms == norms[at:])
         finite = all(math.isfinite(x) for x in losses)
         wall = statistics.median(step_s[1:])
+        WALLS["lm-train/hymba/step"] = wall
         print(f"{tag} params={n_params} layers={cfg.n_layers} "
               f"d_model={cfg.d_model} dtype={cfg.dtype} "
               f"param_dtype={cfg.param_dtype} remat={cfg.remat} B={B} S={S} "
@@ -5297,6 +5380,296 @@ def lm_train_cli_phase():
         raise RuntimeError(f"[lm-train/cli] resume differs: {resumed} / "
                            f"{straight}")
 
+
+def dryrun_screen_phase(smi):
+    """[dryrun/saif-screen/w256|w512]: the dry-run's screen row
+    (``launch/dryrun.py::lower_saif_screen``, n = 4,096, p = 2^26, h =
+    64, on the production mesh of 256 and 512 ranks over a fake process
+    group) beside K1 (float32) on one rank's block of it, 4,096 x p/W
+    with its column norms and no pad, called as ``make_fused_screen``
+    calls it: K1's device ms per launch and call ms beside the record's
+    memory_s and collective_s, its plain version's time, cuBLAS's
+    ``abs(theta @ X)`` and the byte bound; K1 against its plain version on
+    the block's first DRYRUN_SLICE columns: tile maxima within 1e-4
+    relative, candidate ids equal wherever the plain scores stand apart.
+    Run beside the kernel rows, before any profile of a solve (after the
+    late profiles the profiler kept none of K1's launches)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import (destroy_group, init_fake_group,
+                                         make_production_mesh)
+    n, log2_p, h = DRYRUN_SCREEN
+    tol = 1e-4
+    for multi in (False, True):
+        world = 512 if multi else 256
+        init_fake_group(world)
+        try:
+            rec = dryrun.lower_saif_screen(
+                make_production_mesh(multi_pod=multi), n=n, log2_p=log2_p,
+                h=h)
+        finally:
+            destroy_group()
+        pl = rec["local_shape"][1]
+        gen = torch.Generator(device="cuda").manual_seed(31 + world)
+        X = torch.randn((n, pl), generator=gen, device="cuda")
+        cn = torch.linalg.vector_norm(X, dim=0)
+        pad = torch.zeros(pl, dtype=torch.bool, device="cuda")
+        theta = torch.randn(n, generator=gen, device="cuda") / n
+        r = 0.05
+        ms, call = kernel_ms(lambda: ops.screen_fused(X, theta, cn, pad, r,
+                                                      h=h),
+                             20, "screen_fused_kernel")
+        plain = time_ms(lambda: ops.screen_fused_ref(X, theta, cn, pad, r,
+                                                     h=h), 3)
+        lib = time_ms(lambda: torch.abs(theta @ X), 20)
+        pb = -(-pl // 256)
+        bound, by = bound_ms(4 * (n * pl + n + pl + 3 * pl)
+                             + pl + pb * min(h, 256) * 8 + 4 * pb,
+                             2 * n * pl, "float32")
+        # against the plain version on a column slice
+        S = DRYRUN_SLICE
+        Xs = X[:, :S].contiguous()
+        del X
+        k1 = ops.screen_fused(Xs, theta, cn[:S], pad[:S], r, h=h)
+        ref = ops.screen_fused_ref(Xs, theta, cn[:S], pad[:S], r, h=h)
+        tmax_err = errs([(k1[5], ref[5])])[1]
+        fin = torch.isfinite(ref[3])
+        ids_k, ids_p = k1[4][fin].long(), ref[4][fin].long()
+        swapped = ids_k != ids_p
+        scale = float(ref[3][fin].abs().max())
+        ids_ok = bool(((ref[0][ids_k[swapped]] - ref[0][ids_p[swapped]])
+                       .abs() <= tol * scale).all())
+        del Xs
+        torch.cuda.empty_cache()
+        mem_ms, coll_us = 1e3 * rec["memory_s"], 1e6 * rec["collective_s"]
+        print(f"[dryrun/saif-screen/w{world}] mesh={rec['mesh']} "
+              f"block=({n}, {pl}) float32 h={h} k1_ms={ms:.4f} "
+              f"call_ms={call:.4f} record_memory_ms={mem_ms:.4f} "
+              f"record_compute_ms={1e3 * rec['compute_s']:.4f} "
+              f"record_collective_us={coll_us:.4f} "
+              f"(gather_bytes={rec['collective_bytes']:.0f} at 450 GB/s) "
+              f"k1_over_memory={ms / mem_ms:.3f} "
+              f"collective_over_memory="
+              f"{rec['collective_s'] / rec['memory_s']:.2e} "
+              f"plain_ms={plain:.4f} library_ms(abs(theta@X))={lib:.4f} "
+              f"bound_ms={bound:.4f} ({by}) slice_cols={S} "
+              f"tile_max_rel_err={tmax_err:.3e} tol={tol:.0e} "
+              f"ids_ok={ids_ok} (ids differing at near-ties: "
+              f"{int(swapped.sum())} of {int(fin.sum())}) card=\"{smi}\"",
+              flush=True)
+        if not (tmax_err <= tol and ids_ok):
+            raise RuntimeError(f"[dryrun/saif-screen/w{world}] K1 disagrees "
+                               f"with its plain version")
+        if not rec["collective_s"] < 0.01 * rec["memory_s"]:
+            raise RuntimeError(f"[dryrun/saif-screen/w{world}] the gather "
+                               f"is not small against the scan: {rec}")
+
+
+def dryrun_hymba_main(out):
+    """The [dryrun/hymba] subprocess: hymba-1.5b's records on a 1 x 1
+    mesh (a fake group of one rank), host work only, on one thread;
+    writes them and the wall to ``out``."""
+    import torch
+    from repro_torch.configs import ShapeCfg
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import (destroy_group, init_fake_group,
+                                         make_host_mesh)
+    # [lm-hymba/full]'s bf16 prefill and [lm-train/hymba/full]'s step
+    shapes = (ShapeCfg(f"prefill_{LM_BATCH}x{LM_PROMPT}", LM_PROMPT,
+                       LM_BATCH, "prefill"),
+              ShapeCfg(f"train_{LM_TRAIN_BATCH}x{LM_TRAIN_SEQ}",
+                       LM_TRAIN_SEQ, LM_TRAIN_BATCH, "train"))
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    init_fake_group(1)
+    try:
+        mesh = make_host_mesh()
+        recs = [dryrun.lower_cell("hymba_1_5b", shape, mesh)
+                for shape in shapes]
+    finally:
+        destroy_group()
+    with open(out, "w") as f:
+        json.dump({"records": recs, "wall_s": time.perf_counter() - t0}, f)
+    return 0
+
+
+def start_dryrun_hymba():
+    """Start the [dryrun/hymba] subprocess (this script with
+    ``--dryrun-hymba``)."""
+    import atexit
+    import tempfile
+    out = os.path.join(tempfile.mkdtemp(prefix="dryrun-hymba-"), "r.json")
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                             "--dryrun-hymba", out])
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, out, time.perf_counter()
+
+
+def dryrun_hymba_phase(started, smi):
+    """[dryrun/hymba]: the dry-run records of hymba-1.5b's served prefill
+    and train step at the LM phases' shapes on a 1 x 1 mesh, beside the
+    prefill and the median step that [lm-hymba/full] and
+    [lm-train/hymba/full] measured in this run, and the measured time over
+    max(compute_s, memory_s)."""
+    proc, out, t0 = started
+    try:
+        proc.wait(timeout=max(DRYRUN_TIMEOUT_S - (time.perf_counter() - t0),
+                              1.0))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise RuntimeError(f"[dryrun/hymba] outlived {DRYRUN_TIMEOUT_S} s")
+    if proc.returncode != 0:
+        raise RuntimeError(f"[dryrun/hymba] exited {proc.returncode}")
+    with open(out) as f:
+        got = json.load(f)
+    measured = {"prefill": WALLS["lm-hymba/prefill"],
+                "train": WALLS["lm-train/hymba/step"]}
+    for rec in got["records"]:
+        kind = rec["shape"].split("_")[0]
+        floor = max(rec["compute_s"], rec["memory_s"])
+        print(f"[dryrun/hymba/{kind}] {json.dumps(rec)}", flush=True)
+        print(f"[dryrun/hymba/{kind}] shape={rec['shape']} "
+              f"flops={rec['flops']:.4e} bytes={rec['bytes']:.4e} "
+              f"compute_ms={1e3 * rec['compute_s']:.3f} "
+              f"memory_ms={1e3 * rec['memory_s']:.3f} "
+              f"dominant={rec['dominant']} "
+              f"temp_gb={rec['temp_bytes'] / 1e9:.3f} "
+              f"argument_gb={rec['argument_bytes'] / 1e9:.3f} "
+              f"measured_ms={1e3 * measured[kind]:.3f} "
+              f"measured_over_roofline={measured[kind] / floor:.2f} "
+              f"count_s={rec['compile_s']} card=\"{smi}\"", flush=True)
+        if not (rec["flops"] > 0 and rec["bytes"] > 0
+                and math.isfinite(floor)):
+            raise RuntimeError(f"[dryrun/hymba/{kind}] record {rec}")
+    print(f"[dryrun/hymba] host_wall_s={got['wall_s']:.1f} (a subprocess "
+          f"on one thread beside [lm-train/hymba/full]) waited_s="
+          f"{time.perf_counter() - t0:.1f} since its start", flush=True)
+
+
+def dp_rank_main(rank, store):
+    """One rank of [lm-train/dp2] (run by :func:`lm_train_dp_phase`): gloo
+    over a ``file://`` store, stablelm_3b SMOKE in float32 on cuda:0,
+    ``DataParallel`` over the (data=2, model=1) host mesh, DP_STEPS steps
+    of ``train_loop``; saves the losses, the step seconds, the gathered
+    parameters and its moment slices' bytes under ``store``."""
+    import torch
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import (destroy_group, init_group,
+                                         make_host_mesh)
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.optim import adamw
+    from repro_torch.tree import leaf_paths
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_group(2, rank, store, backend="gloo")
+    try:
+        cfg = smoke_config("stablelm_3b").scaled(dtype="float32")
+        B, S = DP_BATCH
+        dp = train.DataParallel(make_host_mesh(), cfg)
+        state = dp.shard_state(init_train_state(cfg, seed=0,
+                                                device="cuda"))
+        data = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=S,
+                                        global_batch=B, seed=0))
+        opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=1,
+                                total_steps=DP_STEPS)
+        run = train.train_loop(make_train_step(cfg, opt, dp=dp),
+                               state, data, start=0, steps=DP_STEPS,
+                               log_every=0, dp=dp)
+        torch.save({"losses": run.losses, "step_s": run.step_s,
+                    "params": {k: t.cpu() for k, t in
+                               leaf_paths(run.state.params)},
+                    "moment_bytes": moment_bytes(run.state.opt)},
+                   f"{store}/dp{rank}.pt")
+    finally:
+        destroy_group()
+    return 0
+
+
+def moment_bytes(opt):
+    """The bytes of an AdamW state's m and v (one rank's slices)."""
+    from repro_torch.tree import leaves
+    return sum(t.numel() * t.element_size()
+               for t in leaves(opt.m) + leaves(opt.v))
+
+
+def lm_train_dp_phase():
+    """[lm-train/dp2]: the trainer's data parallelism with ZeRO-1 on two
+    gloo ranks, subprocesses of this script on cuda:0 (``--dp-rank``),
+    against one rank's ``make_train_step`` run on the card at the same
+    global batch (DP_BATCH, DP_STEPS steps, the same seeded weights and
+    pipeline): losses within DP_REL relative, each parameter leaf within
+    DP_REL by its norm (its largest entry's difference printed); step ms
+    and each rank's ZeRO-1 moment bytes beside the one rank's."""
+    import tempfile
+    import torch
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.optim import adamw
+    from repro_torch.tree import leaf_paths
+    store = tempfile.mkdtemp(prefix="dp2-")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               "--dp-rank", str(r), "--dp-dir", store])
+             for r in range(2)]
+    try:
+        # the one-rank run meanwhile
+        cfg = smoke_config("stablelm_3b").scaled(dtype="float32")
+        B, S = DP_BATCH
+        one = train.train_loop(
+            make_train_step(cfg, adamw.AdamWConfig(
+                lr=1e-3, warmup_steps=1, total_steps=DP_STEPS)),
+            init_train_state(cfg, seed=0, device="cuda"),
+            TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=S,
+                                     global_batch=B, seed=0)),
+            start=0, steps=DP_STEPS, log_every=0)
+        for proc in procs:
+            left = DP_TIMEOUT_S - (time.perf_counter() - t0)
+            proc.wait(timeout=max(left, 1.0))
+    except subprocess.TimeoutExpired:
+        raise RuntimeError(f"[lm-train/dp2] a rank outlived {DP_TIMEOUT_S} "
+                           f"s")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if any(proc.returncode != 0 for proc in procs):
+        raise RuntimeError(f"[lm-train/dp2] ranks exited "
+                           f"{[proc.returncode for proc in procs]}")
+    outs = [torch.load(f"{store}/dp{r}.pt") for r in range(2)]
+    want = dict(leaf_paths(one.state.params))
+    one_moments = moment_bytes(one.state.opt)
+    ok = True
+    for r, o in enumerate(outs):
+        loss_rel = max(abs(a - b) / abs(b)
+                       for a, b in zip(o["losses"], one.losses))
+        norm_rel = ent_rel = 0.0
+        for k, t in o["params"].items():
+            w = want[k].cpu().double()
+            d = t.double() - w
+            norm_rel = max(norm_rel, float(d.norm() / w.norm()))
+            ent_rel = max(ent_rel, float(d.abs().max() / w.abs().max()))
+        ok &= loss_rel <= DP_REL and norm_rel <= DP_REL
+        print(f"[lm-train/dp2/rank{r}] losses={o['losses']} "
+              f"loss_rel={loss_rel:.2e} param_norm_rel={norm_rel:.2e} "
+              f"param_entry_rel={ent_rel:.2e} (bound {DP_REL:.0e}) "
+              f"step_ms={[round(1e3 * x, 2) for x in o['step_s']]} "
+              f"zero1_moment_bytes={o['moment_bytes']}", flush=True)
+    print(f"[lm-train/dp2] world=2 backend=gloo device=cuda:0 B={B} S={S} "
+          f"steps={DP_STEPS} one_rank_losses={one.losses} "
+          f"one_rank_step_ms={[round(1e3 * x, 2) for x in one.step_s]} "
+          f"one_rank_moment_bytes={one_moments} equal_within_bound={ok} "
+          f"phase_s={time.perf_counter() - t0:.1f}", flush=True)
+    if not ok:
+        raise RuntimeError("[lm-train/dp2] the ranks' run parts from one "
+                           "rank's")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--p", type=int, default=100_000,
@@ -5306,6 +5679,11 @@ def main() -> int:
     ap.add_argument("--sharded-rank", type=int, default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--sharded-dir", default=None, help=argparse.SUPPRESS)
+    # [dryrun/hymba]'s subprocess and the ranks of [lm-train/dp2]
+    ap.add_argument("--dryrun-hymba", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dp-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--dp-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -5324,6 +5702,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     if args.sharded_rank is not None:
         return sharded_rank_main(args.sharded_rank, args.sharded_dir, args.p)
+    if args.dryrun_hymba is not None:
+        return dryrun_hymba_main(args.dryrun_hymba)
+    if args.dp_rank is not None:
+        return dp_rank_main(args.dp_rank, args.dp_dir)
     smi = nvidia_smi_line()
     print(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
@@ -5548,6 +5930,11 @@ def main() -> int:
     check_cm_wide(X, y, lam, XL, yL, lamL, records)
     time_group_bcd(X, XL, records)
     mark("mixed, lockstep, cm-epochs, wide checks and B-n3's timing")
+    # the dry-run's screen row (phase 31): K1 beside the kernel rows,
+    # before any profile of a solve (after them the profiler has kept
+    # none of K1's launches)
+    dryrun_screen_phase(smi)
+    mark("dryrun/saif-screen")
     run_deferred_profiles()
     mark("profiles")
 
@@ -5626,10 +6013,18 @@ def main() -> int:
     mark("lm-hymba/full")
     lm_train_archs_phase()
     mark("lm-train/archs")
+    # hymba's records are host work on one core, counted beside the
+    # training's device-bound steps (busy 0.97 of their wall) and read
+    # before the next phase, so that nothing host-bound is timed beside it
+    counting = start_dryrun_hymba()
     lm_train_hymba_phase(smi)
     mark("lm-train/hymba/full")
+    dryrun_hymba_phase(counting, smi)
+    mark("dryrun/hymba")
     lm_train_cli_phase()
     mark("lm-train/cli")
+    lm_train_dp_phase()
+    mark("lm-train/dp2")
 
     print(f"[smoke] total_s={time.perf_counter() - t_start:.1f}", flush=True)
     print(json.dumps({"kernels": list(records.values())}))

@@ -24,7 +24,10 @@ gloo). The group carries the timeout it was created with
 fails instead of hanging.
 
 ``CALLS`` counts the collectives by operation (the chip smoke reads it as
-collectives per outer step); :func:`reset_calls` zeroes it.
+collectives per outer step) and ``BYTES`` the bytes of their output
+buffers, the quantity the reference's dry-run sums from the HLO of its
+collectives (``launch/dryrun.py`` reckons the same for its rows);
+:func:`reset_calls` zeroes both.
 """
 from __future__ import annotations
 
@@ -35,11 +38,17 @@ import torch
 Tensor = torch.Tensor
 
 CALLS = {"gather": 0, "sum": 0, "max": 0}
+BYTES = {"gather": 0, "sum": 0, "max": 0}
 
 
 def reset_calls() -> None:
     for k in CALLS:
         CALLS[k] = 0
+        BYTES[k] = 0
+
+
+def _nbytes(t: Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 class FeatureGroup(NamedTuple):
@@ -87,6 +96,7 @@ def all_gather_rows(fg: FeatureGroup, block: Tensor) -> Tensor:
     CALLS["gather"] += 1
     src = block.to("cpu") if fg.host else block.contiguous()
     out = src.new_empty((fg.size * src.shape[0], *src.shape[1:]))
+    BYTES["gather"] += _nbytes(out)
     dist.all_gather_into_tensor(out, src, group=fg.pg)
     out = out.reshape(fg.size, *src.shape)
     if fg.ranks != tuple(range(fg.size)):
@@ -94,8 +104,10 @@ def all_gather_rows(fg: FeatureGroup, block: Tensor) -> Tensor:
     return out.to(block.device)
 
 
-def _all_reduce(fg: FeatureGroup, t: Tensor, op) -> Tensor:
+def _all_reduce(fg: FeatureGroup, t: Tensor, op, kind: str) -> Tensor:
     import torch.distributed as dist
+    CALLS[kind] += 1
+    BYTES[kind] += _nbytes(t)
     # a private copy where the collective runs (it reduces in place)
     buf = (t.to("cpu", copy=True) if fg.host
            else t.clone(memory_format=torch.contiguous_format))
@@ -106,12 +118,10 @@ def _all_reduce(fg: FeatureGroup, t: Tensor, op) -> Tensor:
 def all_reduce_sum(fg: FeatureGroup, t: Tensor) -> Tensor:
     """The elementwise sum of every rank's ``t`` (a new tensor)."""
     import torch.distributed as dist
-    CALLS["sum"] += 1
-    return _all_reduce(fg, t, dist.ReduceOp.SUM)
+    return _all_reduce(fg, t, dist.ReduceOp.SUM, "sum")
 
 
 def all_reduce_max(fg: FeatureGroup, t: Tensor) -> Tensor:
     """The elementwise max of every rank's ``t`` (a new tensor)."""
     import torch.distributed as dist
-    CALLS["max"] += 1
-    return _all_reduce(fg, t, dist.ReduceOp.MAX)
+    return _all_reduce(fg, t, dist.ReduceOp.MAX, "max")

@@ -313,14 +313,24 @@ def _local_top(tops: Tensor, topi: Tensor, h: int, offset: int,
     return vals, torch.where(torch.isfinite(vals), ids, sentinel)
 
 
+def merge_payload_shape(m: int, h: int) -> tuple:
+    """Each rank's part of :func:`_merge`'s one gather, an int64 tensor:
+    row 0 the bits of the m x h scores and of the m extras, row 1 the ids
+    (the dry-run's screen row reckons its collective bytes from it)."""
+    return (m, 2, h + 1)
+
+
 def _merge(design: ShardedDesign, score: Tensor, ids: Tensor,
            extra: Tensor):
     """One gather of every rank's (m, h) candidates and (m,) ``extra``
     floats; the merged (m, h) stable top-h (ties to the lowest global id)
     and the (W, m) extras."""
     m, h = score.shape
-    payload = torch.stack((_to_bits(torch.cat((score, extra[:, None]), 1)),
-                           torch.cat((ids, ids.new_zeros(m, 1)), 1)), 1)
+    payload = score.new_empty(merge_payload_shape(m, h), dtype=torch.int64)
+    payload[:, 0, :h] = _to_bits(score)
+    payload[:, 0, h] = _to_bits(extra)
+    payload[:, 1, :h] = ids
+    payload[:, 1, h] = 0
     allp = comm.all_gather_rows(design.group, payload)   # (W, m, 2, h+1)
     dt = score.dtype
     s_all = _from_bits(allp[:, :, 0, :h], dt).permute(1, 0, 2).reshape(m, -1)

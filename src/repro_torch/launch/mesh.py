@@ -15,7 +15,13 @@ gloo on ``cpu``; where the work runs is the session's device (or the
 inputs'), so a gloo mesh over CUDA tensors stays on the card. A sharded
 session flattens every mesh dimension, in row-major order, into its
 feature axis (``distributed/comm.py``).
-``make_production_mesh`` is not ported yet.
+
+``make_production_mesh`` gives the reference's production mesh over a
+default group of 256 or 512 ranks. For the dry-run, one process stands in
+for the whole cluster: ``init_fake_group(256)`` creates that group on
+torch's fake backend (every collective returns at once and moves nothing),
+and ``destroy_group()`` ends it. The fake group is a model of a cluster
+for the dry-run's placements only: no solve or step runs on it.
 """
 from __future__ import annotations
 
@@ -40,6 +46,49 @@ def init_group(world_size: int, rank: int, store_dir: str,
         timeout=datetime.timedelta(seconds=timeout_s))
 
 
+def init_fake_group(world_size: int) -> None:
+    """Initialise the default process group as rank 0 of ``world_size``
+    ranks on torch's fake backend (no process, no network; collectives
+    are no-ops). End it with :func:`destroy_group`."""
+    import torch.distributed as dist
+    # registers the "fake" backend
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+
+
+def destroy_group() -> None:
+    """Destroy the default process group (and the mesh groups made from
+    it), if there is one."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _device_type() -> str:
+    import torch.distributed as dist
+    return "cuda" if "nccl" in dist.get_backend() else "cpu"
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """(data=16, model=16) single pod; (pod=2, data=16, model=16) two pods:
+    a ``DeviceMesh`` over a default group of exactly 256 (512) ranks,
+    which it raises without."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    want = 512 if multi_pod else 256
+    have = dist.get_world_size() if dist.is_initialized() else None
+    if have != want:
+        raise RuntimeError(
+            f"the production mesh {dict(zip(axes, shape))} needs a default "
+            f"process group of {want} ranks; "
+            + ("there is none" if have is None else f"it has {have}")
+            + " (init_fake_group(n) makes one for the dry-run)")
+    return init_device_mesh(_device_type(), shape, mesh_dim_names=axes)
+
+
 def make_host_mesh(model: int = 1):
     """A (data, model) ``DeviceMesh`` over the default group's ranks, in
     rank order (the tests' and examples' mesh), of the group's device
@@ -50,8 +99,8 @@ def make_host_mesh(model: int = 1):
     n = dist.get_world_size()
     if n % model:
         raise ValueError(f"model={model} does not divide the {n} ranks")
-    device_type = "cuda" if "nccl" in dist.get_backend() else "cpu"
-    return DeviceMesh(device_type, torch.arange(n).reshape(n // model, model),
+    return DeviceMesh(_device_type(),
+                      torch.arange(n).reshape(n // model, model),
                       mesh_dim_names=("data", "model"))
 
 

@@ -1,17 +1,22 @@
 """Train and serve step factories for the LM scaffold (port of
 ``repro.launch.steps``).
 
-``make_train_step(cfg, opt_cfg, microbatch)`` gives
+``make_train_step(cfg, opt_cfg, microbatch, dp)`` gives
 ``train_step(state, batch)`` -> (new TrainState, loss, gradient norm): the
 loss's gradients in every parameter leaf (:func:`value_and_grad`), then
-AdamW (``optim/adamw.py``). ``make_prefill(cfg)`` gives ``prefill(params,
+AdamW (``optim/adamw.py``), on one rank or over the ranks of ``dp``. ``make_prefill(cfg)`` gives ``prefill(params,
 batch)`` -> the last position's logits (B, V); ``make_serve_step(cfg)``
 gives ``serve_step(params, tok, state)`` -> (logits (B, V), state), one
 token for every sequence. The serving steps run under
 ``torch.inference_mode()``; the train step records autograd, so
 ``cfg.remat`` checkpoints its layers and the recurrent chunks. Everything
-runs on the device of ``params``. The shape-spec functions are a later
-slice (A9.3).
+runs on the device of ``params``.
+
+The shape-spec builders (``batch_specs``, ``param_specs``, ``opt_specs``,
+``decode_state_specs``, ``serve_input_specs``, ``input_specs``) give
+tensors on the ``meta`` device, the port's counterpart of the reference's
+``ShapeDtypeStruct``s: every shape and dtype, no allocation. The dry-run
+(``launch/dryrun.py``) places them with ``launch/shardings.py``.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 import torch
 from torch import Tensor
 
+from repro_torch.configs import ShapeCfg
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
@@ -85,7 +91,7 @@ def value_and_grad(params, batch: Dict[str, Tensor], cfg: ModelConfig,
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
-                    microbatch: int = 1):
+                    microbatch: int = 1, dp=None):
     """Training step: :func:`value_and_grad` (``microbatch`` > 1
     accumulates the microbatches' gradients, the standard fit-the-memory
     lever), then ``adamw.update``: (new state, loss, the gradients' global
@@ -93,14 +99,28 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
     returns the first two; the norm is the one that ``update`` clips by.
     The step is out of place: the state it was given stays usable, so a
     retried step (``runtime/fault.py::retry_step``) starts from it
-    again."""
+    again.
+
+    ``dp`` (a ``launch/train.py::DataParallel``) runs the step over its
+    ranks: this rank's rows of the global batch, the loss and gradients
+    averaged over the ranks, the norm of those, AdamW on this rank's
+    slices of the parameters and moments (ZeRO-1), the parameters
+    gathered. The state then holds this rank's moment slices."""
 
     def train_step(state: TrainState, batch
                    ) -> Tuple[TrainState, Tensor, Tensor]:
-        loss, grads = value_and_grad(state.params, batch, cfg, microbatch)
+        params = state.params
+        if dp is not None:
+            batch = dp.rows(batch)
+        loss, grads = value_and_grad(params, batch, cfg, microbatch)
+        if dp is not None:
+            loss, grads = dp.mean(loss, grads)
         norm = adamw.global_norm(grads)
-        params, opt = adamw.update(grads, state.opt, state.params, opt_cfg,
-                                   norm)
+        if dp is not None:
+            grads, params = dp.shard(grads), dp.shard(params)
+        params, opt = adamw.update(grads, state.opt, params, opt_cfg, norm)
+        if dp is not None:
+            params = dp.gather(params)
         return TrainState(params, opt), loss, norm
     return train_step
 
@@ -120,3 +140,60 @@ def make_prefill(cfg: ModelConfig):
                                 frames=batch.get("frames"))
         return lm.logits_fn(params, hidden[:, -1:], cfg)[:, -1]
     return prefill
+
+
+# ---------------------------------------------------------------------------
+# shape-spec builders (meta tensors: no allocation)
+# ---------------------------------------------------------------------------
+
+def _meta(shape, dtype) -> Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def batch_specs(cfg: ModelConfig, shape: ShapeCfg) -> Dict[str, Tensor]:
+    B, S = shape.global_batch, shape.seq_len
+    batch = {"tokens": _meta((B, S), torch.int32)}
+    if shape.kind == "train":
+        batch["labels"] = _meta((B, S), torch.int32)
+    if cfg.family == "vlm":
+        batch["img_embed"] = _meta((B, cfg.n_image_tokens, cfg.d_model),
+                                   cfg.adtype)
+    if cfg.family == "encdec":
+        batch["frames"] = _meta((B, cfg.n_frames, cfg.d_model), cfg.adtype)
+    return batch
+
+
+def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    return tree_map(lambda s: _meta(s, cfg.pdtype), lm.param_shapes(cfg))
+
+
+def opt_specs(cfg: ModelConfig) -> adamw.AdamWState:
+    p = param_specs(cfg)
+    return adamw.AdamWState(step=_meta((), torch.int32),
+                            m=tree_map(torch.empty_like, p),
+                            v=tree_map(torch.empty_like, p))
+
+
+def decode_state_specs(cfg: ModelConfig, shape: ShapeCfg) -> lm.DecodeState:
+    """The port's cache allocator run on meta parameters: the caches'
+    shapes and dtypes, no allocation."""
+    return lm.init_decode_state(param_specs(cfg), cfg, shape.global_batch,
+                                shape.seq_len)
+
+
+def serve_input_specs(cfg: ModelConfig, shape: ShapeCfg):
+    tok = _meta((shape.global_batch,), torch.int32)
+    return tok, decode_state_specs(cfg, shape)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeCfg):
+    """The full argument-spec bundle for the cell's entry point."""
+    if shape.kind == "train":
+        return {"state": TrainState(params=param_specs(cfg),
+                                    opt=opt_specs(cfg)),
+                "batch": batch_specs(cfg, shape)}
+    if shape.kind == "prefill":
+        return {"params": param_specs(cfg),
+                "batch": batch_specs(cfg, shape)}
+    tok, dstate = serve_input_specs(cfg, shape)
+    return {"params": param_specs(cfg), "tok": tok, "state": dstate}

@@ -12,7 +12,7 @@ import torch
 
 from repro.kernels.ops import cm_epochs as j_cm_epochs
 from repro.kernels.ops import cm_epochs_ref as j_cm_epochs_ref
-from repro.testing import given, settings, st
+from repro_torch.testing import given, settings, st
 from repro_torch.kernels import ops
 from test_torch_saif import _one_torch_thread  # noqa: F401
 
@@ -155,3 +155,33 @@ def test_cm_epochs_refuses_a_block_past_the_budget():
     with pytest.raises(ValueError, match="budget"):
         ops.cm_epochs(A, torch.zeros(n), torch.zeros(8), torch.ones(8),
                       torch.ones(8, dtype=torch.bool), 0.1)
+
+
+def test_testing_fallback_draws_the_same_examples(monkeypatch):
+    """With ``hypothesis`` hidden, ``repro_torch.testing``'s seeded
+    fallback runs a test on the same examples every time (a fresh copy of
+    the module, loaded with the import refused)."""
+    import importlib.util
+    import sys
+
+    import repro_torch.testing as tt
+    for name in ("hypothesis", "hypothesis.strategies"):
+        monkeypatch.setitem(sys.modules, name, None)
+    spec = importlib.util.spec_from_file_location("_testing_fallback",
+                                                  tt.__file__)
+    fb = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fb)
+    assert not fb.HAVE_HYPOTHESIS
+    seen = []
+
+    @fb.given(a=fb.st.integers(0, 1000), b=fb.st.floats(0.0, 1.0),
+              c=fb.st.sampled_from("xyz"), d=fb.st.booleans())
+    @fb.settings(max_examples=5, deadline=None)
+    def drawn(a, b, c, d):
+        seen.append((a, b, c, d))
+
+    drawn()
+    first, seen[:] = list(seen), []
+    drawn()
+    assert seen == first and len(first) == 5
+    assert len(set(first)) > 1
